@@ -5,16 +5,18 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``   — compiles the three Hopper kernels from ``shapley_vit_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once).
-2. ``kernels`` — each kernel at the Shapley round's shapes, in bfloat16 and
-   float32, against its plain PyTorch version on the same inputs (float32:
-   atol/rtol 1e-4, sums over up to 3072 terms in another order; bfloat16:
-   atol/rtol 2e-2, outputs rounded to bf16), with CUDA-event times (median
-   of several runs after warm-up) of the kernel, the plain version and,
-   where one PyTorch call computes the same function, that call
+1. ``build``   — compiles the three kernel sources of ``shapley_vit_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once; ``attention.cu`` holds two kernels).
+2. ``kernels`` — each of the four kernels at its main path's shapes, in
+   bfloat16 and float32, against its plain PyTorch version on the same inputs
+   (float32: atol/rtol 1e-4, sums over up to 3072 terms in another order;
+   bfloat16: atol/rtol 2e-2, outputs rounded to bf16), with CUDA-event times
+   (median of several runs after warm-up) of the kernel, the plain version
+   and, where one PyTorch call computes the same function, that call
    (``library_ms``; the port never calls it), and the least time the card
-   could take (``bound_ms``).
+   could take (``bound_ms``). ``fused_attention``'s gradient (the
+   ``autograd.Function``) is held against autograd through its plain
+   version on the same inputs, with the same tolerances.
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
    merged coalitions) on the card through the kernels, against the port on
    the CPU through the plain versions, from the same weights (atol 1e-3).
@@ -22,12 +24,27 @@ Phases, each printing one JSON line:
    default ``Config`` (ViT-B/16, bf16, merged LoRA, comp-contrib m = 50·n) on
    the synthetic OCT validation set and three client drops written by
    ``save_lora_checkpoint``; the launch counters are zeroed just before and
-   read just after, and every kernel must have run. ``shapley_exact`` over
-   the round's persisted utility table checks the efficiency axiom.
+   read just after, and every kernel of the round must have run.
+   ``shapley_exact`` over the round's persisted utility table checks the
+   efficiency axiom.
 5. ``profile`` — device time by kernel, and the device's idle share, over
    one more coalition pass of the round (7 coalitions, 400 images) under
    ``torch.profiler``, after the round so it touches neither its counts
    nor its time.
+6. ``train``   — LoRA client training, in three parts:
+   ``run_client`` with the default ``Config`` (ViT-B/16, bf16, synthetic OCT
+   at scale 1.0, batch 64, Adam) for 4 steps on the card, counters zeroed
+   just before: ``fused_attention`` must launch 48 times (12 blocks x 4
+   steps), the loss must be finite and the re-loaded drop must have a
+   non-zero LoRA B; it reports ms per step, images/s and peak memory. The
+   same again with ``cfg.train.remat`` (96 launches: the backward runs each
+   block's forward again). Then
+   one float32 training step of ViT-B/16 at batch 2, card against CPU from
+   the same weights (loss within 1e-4; each gradient leaf within 1e-3 of
+   that leaf's largest magnitude: float32 sums over up to 3072 terms in
+   another order, through 12 blocks). Then ``run_demo(variant="base",
+   image_size=224)``: three clients trained and scored on the card, with
+   the efficiency axiom checked on its utility table.
 
 Then the card's name and power limit, the kernels summary line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -61,6 +78,8 @@ KERNELS = {
                                "shapley_vit_tpu/ops/attention.py:106"),
     "fused_mlp_block": ("shapley_vit_tpu_torch/csrc/mlp_block.cu",
                         "shapley_vit_tpu/ops/mlp_block.py:39"),
+    "fused_attention": ("shapley_vit_tpu_torch/csrc/attention.cu",
+                        "shapley_vit_tpu/ops/attention.py:33"),
 }
 
 
@@ -110,8 +129,10 @@ def phase_kernels(card: str) -> dict:
     NP, N = (IMG // P) ** 2, (IMG // P) ** 2 + 1
     CB = 7 * B                       # 7 coalitions x 128 images
     M = CB * N                       # tokens of one coalition batch
+    TB = 64                          # the client's training batch
     summary = {}
     results = []
+    grads = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         isz = torch.finfo(dtype).bits // 8
@@ -156,8 +177,21 @@ def phase_kernels(card: str) -> dict:
             reps=3,
         )
 
+        # the training path's [B, H, N, d] views of packed projections
+        tq, tk, tv = (randn((TB, N, H * 64), dtype=dtype) for _ in range(3))
+        tqh, tkh, tvh = (t.view(TB, N, H, 64).transpose(1, 2) for t in (tq, tk, tv))
+        cases["fused_attention"] = dict(
+            kernel=lambda: att.fused_attention(tqh, tkh, tvh),
+            plain=lambda: att.fused_attention_plain(tqh, tkh, tvh),
+            library=lambda: F.scaled_dot_product_attention(tqh, tkh, tvh),
+            flops=4.0 * TB * H * N * N * 64,
+            bytes=4 * tq.numel() * isz,
+            reps=10,
+        )
+        grads.append(attention_grad_check(dtype, tol, tqh, tkh, tvh))
+
         wrappers = {"patch_embed": pe.patch_embed, "fused_attention_packed": att.fused_attention_packed,
-                    "fused_mlp_block": mlp.fused_mlp_block}
+                    "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention}
         for name, c in cases.items():
             launched = wrappers[name].launches
             got = c["kernel"]()
@@ -181,13 +215,43 @@ def phase_kernels(card: str) -> dict:
             if dtype == torch.bfloat16:
                 summary[name] = row
             torch.cuda.empty_cache()
-        del cases, img, q, k, v, qh, kh, vh, x, mlp_args
+        del cases, img, q, k, v, qh, kh, vh, x, mlp_args, tq, tk, tv, tqh, tkh, tvh
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "card": card, "results": results})
-    bad = [r for r in results if not r["ok"]]
+    emit({"phase": "kernels", "card": card, "results": results, "gradients": grads})
+    bad = [r for r in results + grads if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
     return summary
+
+
+def attention_grad_check(dtype, tol, q, k, v) -> dict:
+    """``fused_attention``'s gradient (its ``autograd.Function``: kernel
+    forward, recomputed backward) against autograd through the plain
+    version, on the same inputs and cotangent."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapley_vit_tpu_torch.ops import attention as att
+
+    cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
+                      device="cuda").to(dtype)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    out = [fwd_bwd(fn)() for fn in (att.fused_attention, att.fused_attention_plain)]
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(*out)]
+    ok = all(torch.allclose(a.float(), b.float(), **tol) for a, b in zip(*out))
+    # forward + backward times: the kernel's forward and the recomputed
+    # backward; autograd through the plain version; SDPA's own backward
+    return {"name": "fused_attention.backward", "dtype": str(dtype).replace("torch.", ""),
+            "shape": list(q.shape), "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+            "fwd_bwd_ms": cuda_ms(fwd_bwd(att.fused_attention), 10),
+            "plain_fwd_bwd_ms": cuda_ms(fwd_bwd(att.fused_attention_plain), 10),
+            "library_fwd_bwd_ms": cuda_ms(fwd_bwd(F.scaled_dot_product_attention), 10),
+            "ok": ok}
 
 
 def phase_model() -> None:
@@ -233,6 +297,25 @@ def _metric(path: str, tag: str) -> float:
     return float(rows[-1]["value"])
 
 
+def exact_efficiency(output_dir: str, n: int):
+    """Exact Shapley values from a round's persisted utility table, and how
+    far their sum is from the grand coalition's utility (the efficiency
+    axiom), the worse of the two utility dimensions."""
+    from shapley_vit_tpu_torch.fl import checkpoint as ckpt
+    from shapley_vit_tpu_torch.shapley import Game, shapley_exact
+
+    table, _ = ckpt.load_utility_table(os.path.join(output_dir, "utility_table.npz"))
+
+    def never(W):
+        raise RuntimeError("coalition missing from the round's utility table")
+
+    game = Game(never, [1] * n, [True] * n, [0.0, 0.0], utility_dim=2, n_all=n)
+    game.utility.update({k: list(v) for k, v in table.items()})
+    exact = shapley_exact(game)
+    grand = table[frozenset(range(n))]
+    return exact, max(abs(sum(exact[d].values()) - grand[d]) for d in range(2))
+
+
 def phase_round(counted) -> dict:
     """One Shapley round through the port's entry point; returns the launch
     count of each kernel during the round."""
@@ -241,11 +324,9 @@ def phase_round(counted) -> dict:
 
     from shapley_vit_tpu_torch.config import Config
     from shapley_vit_tpu_torch.driver import start as drv
-    from shapley_vit_tpu_torch.fl import checkpoint as ckpt
     from shapley_vit_tpu_torch.fl import ingestion
     from shapley_vit_tpu_torch.models.convert import tree_to_numpy
     from shapley_vit_tpu_torch.ops import tree_math as tm
-    from shapley_vit_tpu_torch.shapley import Game, shapley_exact
 
     cfg = Config()  # ViT-B/16, bf16, exact_f32 GELU, merged, comp-contrib
     work = os.path.join(ROOT, "exp", "chip_smoke")
@@ -279,17 +360,7 @@ def phase_round(counted) -> dict:
     sv = [[all_rounds[d][1][c] for c in range(cfg.shapley.num_clients)]
           for d in range(cfg.shapley.utility_dim)]
 
-    # efficiency axiom on the round's own utilities (the persisted table)
-    table, _ = ckpt.load_utility_table(os.path.join(cfg.output_dir, "utility_table.npz"))
-
-    def never(W):
-        raise RuntimeError("coalition missing from the round's utility table")
-
-    game = Game(never, [120, 300, 580], [True] * 3, [0.0, 0.0], utility_dim=2, n_all=3)
-    game.utility.update({k: list(v) for k, v in table.items()})
-    exact = shapley_exact(game)
-    grand = table[frozenset(range(3))]
-    eff_err = max(abs(sum(exact[d].values()) - grand[d]) for d in range(2))
+    exact, eff_err = exact_efficiency(cfg.output_dir, 3)
 
     valid_n = max(40, int(400 * cfg.data.synthetic_scale))  # the registry's synthetic OCT size
     ok = (
@@ -313,6 +384,202 @@ def phase_round(counted) -> dict:
     return launches
 
 
+def phase_train(counted) -> dict:
+    """LoRA client training on the card; returns the launch count of each
+    kernel during ``run_client``."""
+    import logging
+    import re
+
+    import numpy as np
+    import torch
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import client, run_demo
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.fl import ingestion
+    from shapley_vit_tpu_torch.fl import training as tr
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.utils.profiling import StepTimer
+
+    work = os.path.join(ROOT, "exp", "chip_smoke_train")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def client_run(remat: bool) -> dict:
+        """The client driver as a user runs it (default Config: ViT-B/16,
+        bf16), 4 steps, with the launch counts of this run alone."""
+        cfg = Config()
+        cfg.train.remat = remat
+        cfg.obs.exp_dir = os.path.join(work, f"exp_{remat}")
+        cfg.paths.local_model_path = os.path.join(work, f"local_{remat}")
+        losses = []
+
+        class LossLog(logging.Handler):
+            def emit(self, record):
+                m = re.search(r"\(loss (\S+)\)", record.getMessage())
+                if m:
+                    losses.append(float(m.group(1)))
+
+        handler = LossLog()
+        logging.getLogger("shapley_vit_tpu_torch").addHandler(handler)
+        timer = StepTimer()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted:
+            fn.launches = 0
+        try:
+            t0 = time.perf_counter()
+            paths = client.run_client(cfg, client_id=0, epochs=1, steps_per_epoch=4,
+                                      device="cuda", timer=timer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            logging.getLogger("shapley_vit_tpu_torch").removeHandler(handler)
+        launches = {fn.__name__: fn.launches for fn in counted}
+        step_s = timer.times("train_step")
+        spec = drv.build_model(cfg, device="cpu")[0]
+        drop = ingestion.load_client_lora(paths[0], spec)
+        b_max = max(float(np.abs(drop["lora"][t]["B"]).max()) for t in ("q", "v"))
+        batch = cfg.train.train_batch * 8
+        steady = statistics.median(step_s[1:])  # the first step also warms up
+        # remat runs each block's forward again in the backward
+        want = {"fused_attention": 4 * spec.depth * (2 if remat else 1), "patch_embed": 4,
+                "fused_attention_packed": 0, "fused_mlp_block": 0}
+        ok = (launches == want and len(losses) == 1 and math.isfinite(losses[0])
+              and b_max > 0 and all(math.isfinite(float(a)) for a in
+                                    (np.abs(x).max() for x in tm.tree_leaves(drop))))
+        return {"remat": remat, "steps": len(step_s), "batch": batch, "loss": losses,
+                "step_ms": [1e3 * t for t in step_s], "ms_per_step": 1e3 * steady,
+                "images_per_s": batch / steady,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": wall,
+                "lora_b_max_abs": b_max, "launches": launches, "expected_launches": want,
+                "ok": ok, "cfg": cfg, "spec": spec}
+
+    # 1. the client driver, then the same run with per-block remat
+    runs = [client_run(remat) for remat in (False, True)]
+    cfg, spec, batch = runs[0]["cfg"], runs[0]["spec"], runs[0]["batch"]
+    launches = runs[0]["launches"]
+    client_ok = all(r["ok"] for r in runs)
+
+    step_profile = profile_train_step(cfg, batch)
+
+    # 2. one float32 step of ViT-B/16, card against CPU from the same weights
+    spec32 = tvit.make_spec("base", dtype="float32", **client.TRAIN_SPEC)
+    gen = torch.Generator().manual_seed(3)
+    base = tvit.init_vit(gen, spec32)
+    lora = tvit.init_lora(gen, spec32, classifier_from=base)
+    lora = tm.tree_map(lambda a: a + 0.02 * torch.randn(a.shape, generator=gen), lora)
+    images = torch.rand((2, spec32.image, spec32.image, spec32.channels), generator=gen)
+    labels = torch.tensor([1, 3])
+
+    def loss_and_grads(dev):
+        b = tm.tree_map(lambda a: a.to(dev), base)
+        lo = tr.trainable(tm.tree_map(lambda a: a.to(dev), lora))
+        loss = tr.cross_entropy(tvit.vit_forward(b, lo, images.to(dev), spec32), labels.to(dev))
+        leaves = tm.tree_leaves(lo)
+        grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    loss_cpu, g_cpu = loss_and_grads("cpu")
+    loss_gpu, g_gpu = loss_and_grads("cuda")
+    rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(g_gpu, g_cpu)]
+    step_ok = abs(loss_gpu - loss_cpu) <= 1e-4 and max(rel) <= 1e-3 and math.isfinite(loss_gpu)
+
+    # 3. the demo: three clients trained and scored on the card
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    all_rounds, _, out_dir = run_demo.run_demo(out_dir=os.path.join(work, "demo"), variant="base",
+                                               image_size=224, device="cuda")
+    torch.cuda.synchronize()
+    demo_wall = time.perf_counter() - t0
+    demo_launches = {fn.__name__: fn.launches for fn in counted}
+    demo_cfg = Config()
+    demo_cfg.obs.exp_dir = os.path.join(out_dir, "exp")
+    _, eff_err = exact_efficiency(demo_cfg.output_dir, 3)
+    sv = [[all_rounds[d][1][c] for c in range(3)] for d in range(2)]
+    demo_ok = (eff_err <= 1e-4 and all(math.isfinite(x) for row in sv for x in row)
+               and demo_launches["fused_attention"] == 3 * 4 * spec.depth
+               and all(n > 0 for n in demo_launches.values()))
+
+    client_rows = [{k: v for k, v in r.items() if k not in ("cfg", "spec")} for r in runs]
+    emit({
+        "phase": "train", "variant": "base", "dtype": cfg.model.compute_dtype,
+        "client": client_rows[0], "client_remat": client_rows[1],
+        "step_profile": step_profile,
+        "float32_step": {"batch": 2, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
+                         "max_rel_grad_err": max(rel), "ok": step_ok},
+        "demo": {"shapley_value": {"accuracy": sv[0], "loss": sv[1]}, "efficiency_err": eff_err,
+                 "wall_s": demo_wall, "launches": demo_launches, "ok": demo_ok},
+    })
+    if not (client_ok and step_ok and demo_ok):
+        raise SystemExit("LoRA training on the card failed its checks")
+    return launches
+
+
+def profile_train_step(cfg, batch: int) -> dict:
+    """Device time by kernel family over one training step of the client's
+    model and batch (random images), under ``torch.profiler``, after two
+    warm-up steps; the idle share is taken against an unprofiled step on
+    the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from shapley_vit_tpu_torch.driver import client
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.fl import training as tr
+    from shapley_vit_tpu_torch.models import vit as tvit
+
+    spec, base, lora = drv.build_model(cfg, device="cuda")
+    spec = spec.replace(**client.TRAIN_SPEC)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand((batch, spec.image, spec.image, spec.channels), generator=gen, device="cuda")
+    y = torch.randint(0, spec.num_classes, (batch,), generator=gen, device="cuda")
+    step = tr.make_train_step(lambda b, lo, im: tvit.vit_forward(b, lo, im, spec),
+                              spec.num_classes)
+    lora = tr.trainable(lora)
+    state = tr.adam(5e-3).init(lora)
+
+    def one():
+        step(base, lora, state, x, y)
+        torch.cuda.synchronize()
+
+    one(), one()
+    t0 = time.perf_counter()
+    one()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one()
+    rows = device_rows(prof)
+    busy = sum(ms for _, ms, _ in rows)
+    families = (("fused_attention kernel", ("attention_tc_kernel", "attention_kernel")),
+                ("patch_embed kernel", ("patch_embed_kernel",)),
+                ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
+                ("softmax", ("softmax",)),
+                ("reductions", ("reduce_kernel",)))
+    groups = {name: 0.0 for name, _ in families}
+    groups["elementwise and copies"] = 0.0
+    for key, ms, _ in rows:
+        name = next((n for n, keys in families if any(k in key.lower() for k in keys)),
+                    "elementwise and copies")
+        groups[name] += ms
+    return {"batch": batch, "step_ms": step_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / step_ms), "device_ms_by_group": groups,
+            "top_kernels": [{"name": k[:100], "device_ms": ms, "calls": n} for k, ms, n in rows[:10]]}
+
+
+def device_rows(prof) -> list:
+    """(kernel name, device ms, calls) of every device-side event of a
+    ``torch.profiler`` run (kernels, copies), largest first; a host op's own
+    device time would count its kernels a second time."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    return sorted(((e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
+
+
 def phase_profile(work: str) -> None:
     """Device time by kernel over one coalition pass of the round (all 7
     coalitions x the 400 validation images, bf16), from ``torch.profiler``;
@@ -320,7 +587,6 @@ def phase_profile(work: str) -> None:
     unprofiled pass (``pass_ms``), since the profiler slows the host. The
     inputs are rebuilt from the same seed, data and drops as the round."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from shapley_vit_tpu_torch.config import Config
@@ -353,14 +619,7 @@ def phase_profile(work: str) -> None:
         one_pass()
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-    # device-side events only (kernels, copies): a host op's own device time
-    # would count its kernels a second time
-    rows = sorted(((e.key, dev_us(e) / 1e3, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  key=lambda r: -r[1])
+    rows = device_rows(prof)
     busy_ms = sum(ms for _, ms, _ in rows)
     groups = {"patch_embed": 0.0, "attention": 0.0, "mlp_block": 0.0, "other": 0.0}
     for key, ms, _ in rows:
@@ -384,7 +643,7 @@ def main() -> int:
         return 2
 
     from shapley_vit_tpu_torch.ops import _build
-    from shapley_vit_tpu_torch.ops.attention import fused_attention_packed
+    from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
     from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
     from shapley_vit_tpu_torch.ops.patch_embed import patch_embed
 
@@ -399,9 +658,10 @@ def main() -> int:
 
     summary = phase_kernels(card)
     phase_model()
-    counted = (patch_embed, fused_attention_packed, fused_mlp_block)
-    launches = phase_round(counted)
+    launches = phase_round((patch_embed, fused_attention_packed, fused_mlp_block))
     phase_profile(os.path.join(ROOT, "exp", "chip_smoke"))
+    counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
+    launches["fused_attention"] = phase_train(counted)["fused_attention"]
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -3,7 +3,8 @@
 A copy of ``shapley_vit_tpu/config.py``: the port imports nothing of the JAX
 package, so it keeps its own copy of this stdlib-only module. The field
 names, defaults and flag surface are the same, so one ``Config`` drives
-either package.
+either package, plus one field of the port's own: ``train.remat``
+(``--remat``), which the client driver honours.
 
 Replaces the reference's import-side-effect argparse singleton
 (``shapleyserver/opts.py:6-110``) with a pure dataclass tree: nothing happens at
@@ -101,6 +102,10 @@ class TrainConfig:
     use_dp: bool = False
     # Label-flipping poisoning fixture (reference client.py:53-59)
     label_flip_prob: float = 0.0
+    # recompute each ViT block's activations in the client's backward
+    # instead of keeping them (ViTSpec.remat): less card memory, one more
+    # forward per step. The port's own field; the JAX Config has none
+    remat: bool = False
 
 
 @dataclass
@@ -304,6 +309,7 @@ class Config:
         t.snapshot_fname_prefix = ns.snapshot_fname_prefix
         t.noise_multiplier = ns.noise_multiplier
         t.use_dp, t.label_flip_prob = ns.use_dp, ns.label_flip_prob
+        t.remat = ns.remat
         da = cfg.data
         da.dataset_type, da.data_dir = ns.dataset_type, ns.data_dir
         da.data_sub_dir, da.patch_size, da.mode = ns.data_sub_dir, ns.patch_size, ns.mode
@@ -400,4 +406,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    action="store_true", default=False)
     p.add_argument("--label-flip-prob", "--label_flip_prob",
                    dest="label_flip_prob", type=float, default=0.0)
+    # the port's own: per-block rematerialization in the client's training
+    p.add_argument("--remat", dest="remat", action="store_true", default=False)
     return p

@@ -1,21 +1,35 @@
-// Packed-layout multi-head attention for Hopper (sm_90a), forward only.
+// Multi-head attention for Hopper (sm_90a), forward only: one kernel body
+// and one entry point, svt_attention_bhnd_*, which takes q, k, v, o as
+// [B, H, N, d] through their batch, head and row strides.
 //
-// Replaces: shapley_vit_tpu/ops/attention.py, _attn_v2_kernel (Pallas, entry
-// fused_attention_packed). q, k, v, o are [B, N, H*d] (heads packed in the
-// last axis, no transposes); per head, o_h = softmax(mask(q_h k_h^T / sqrt(d)))
-// v_h, with keys at or past N masked to -1e30, softmax and both products in
-// float32, and the output stored in q's dtype.
+// Replaces (shapley_vit_tpu/ops/attention.py):
+//  * _attn_v2_kernel (Pallas, entry fused_attention_packed): q, k, v, o are
+//    [B, N, H*d], heads packed in the last axis, keys at or past N masked to
+//    -1e30. The wrapper passes the packed layout's strides.
+//  * _attn_kernel (Pallas, entry fused_attention, the LoRA training path):
+//    q, k, v, o are [B, H, N, d] views, keys past N masked to -inf (the
+//    Pallas kernel pads N and d to 128; padded d columns are zeros and add
+//    nothing). The view that a head split (reshape + transpose) makes of a
+//    packed [B, N, H*d] tensor has the packed strides and is read in place,
+//    with no copy.
+// Both compute, per (batch, head), o = softmax(mask(q k^T / sqrt(d))) v with
+// softmax and both products in float32 and the output stored in q's dtype.
+// Masking: the kernel never forms a score for a key past N, which is what
+// both -1e30 and -inf give (exp of either, less the row max, is 0).
 //
-// Bound on an H100 SXM at the main-path shape (B = 896 = 7 coalitions x 128
-// images, N = 197, H = 12, d = 64, bf16): 4*B*H*N^2*d = 0.107 TFLOP over
-// 989 TFLOP/s = 0.108 ms against q, k, v read and o written once, 1.08 GB
-// over 3.35 TB/s = 0.324 ms; so bound by memory. The scores never leave the
-// chip.
+// Bound on an H100 SXM, bf16: at the Shapley round's packed shape (B = 896 =
+// 7 coalitions x 128 images, N = 197, H = 12, d = 64) 4*B*H*N^2*d = 0.107
+// TFLOP over 989 TFLOP/s = 0.108 ms against q, k, v read and o written
+// once, 1.08 GB over 3.35 TB/s = 0.324 ms; at the training step's
+// [64, 12, 197, 64], 7.6 GFLOP (0.008 ms) against 77 MB (0.023 ms). Both
+// are bound by memory in bf16 (in float32 by the 67 TFLOP/s FMA rate). The
+// scores never leave the chip.
 //
-// Design: the block loads K and V of its (image, head) — 197 x 64 each —
-// into shared memory, reading them through the packed [B, N, H*d] strides,
-// and masks keys at or past N itself (there are no padded copies).
-//  * bf16 (the main path): one block per (image, head, 128 query rows),
+// Design: the block loads K and V of its (batch, head) — N x 64 each — into
+// shared memory, reading them through the strides, and masks keys at or
+// past N itself (there are no padded copies).
+//  * bf16 with 16-byte aligned pointers and strides (the main paths): one
+//    block per (batch, head, 128 query rows),
 //    8 warps of 16 rows. q k^T runs on the tensor cores (WMMA bf16
 //    fragments, float32 accumulation: bf16 products are exact in float32,
 //    so the scores are the Pallas kernel's float32 scores); each warp
@@ -24,7 +38,7 @@
 //    probabilities, and accumulates p v on the FMA units (each lane two
 //    output columns of the 16 rows, p read four keys at a time).
 //  * float32 (the parity path, and bf16 tensors that are not 16-byte
-//    aligned): one block per (image, head, 64 query rows),
+//    aligned): one block per (batch, head, 64 query rows),
 //    all on the FMA units: each of the 8 warps takes 4 query rows at a
 //    time, lane l owning keys l, l+32, ..., so one float4 of K feeds the 4
 //    rows; K rows are padded to 68 floats so the lanes' float4 reads hit
@@ -55,8 +69,8 @@ size_t smem_bytes(int N) {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int N, int H,
-                 float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, int N, long long sb,
+                 long long sh, long long row_stride, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                    // [N][KSTR]
   float* Vs = Ks + (size_t)N * KSTR;   // [N][HD]
@@ -64,8 +78,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Qs + WARPS * R * HD;     // [WARPS][N][R]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
-  const int row_stride = H * HD;
-  const size_t base = (size_t)b * N * row_stride + (size_t)h * HD;
+  const size_t base = (size_t)b * sb + (size_t)h * sh;
 
   for (int i = threadIdx.x; i < N * HD; i += THREADS) {
     const int j = i / HD, d = i % HD;
@@ -195,8 +208,8 @@ size_t tc_smem_bytes(int N) {
 
 __global__ void __launch_bounds__(TC_THREADS)
 attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int N, int H,
-                    float scale) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o, int N, long long sb,
+                    long long sh, long long row_stride, float scale) {
   extern __shared__ __align__(128) unsigned char smem_tc[];
   const int NP = padded(N);
   const int SS = NP + 4;  // score row stride (floats)
@@ -208,8 +221,7 @@ attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                        align128((size_t)TC_QT * KP * 2));
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_QT;
-  const int row_stride = H * HD;
-  const size_t base = (size_t)b * N * row_stride + (size_t)h * HD;
+  const size_t base = (size_t)b * sb + (size_t)h * sh;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
   // K, V and the query tile, 16 bytes (8 values) at a time
@@ -309,14 +321,18 @@ attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// q, k, v and o share the strides (in elements) sb of the batch, sh of the
+// head and sn of the row; the head dim is contiguous.
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N,
-           int H, float scale, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+           long long sb, long long sh, long long sn, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the tensor-core path moves 16-byte vectors: it needs aligned tensors
+  // the tensor-core path moves 16-byte vectors: it needs aligned pointers
+  // and strides that keep every row 16-byte aligned
   const bool aligned = ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
                          reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) %
-                        16) == 0;
+                        16) == 0 &&
+                       ((sb | sh | sn) % 8) == 0;
   if (std::is_same_v<T, bf16> && aligned) {
     const size_t smem = tc_smem_bytes(N);
     cudaError_t err = cudaFuncSetAttribute(attention_tc_kernel,
@@ -326,7 +342,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N,
     dim3 grid((N + TC_QT - 1) / TC_QT, H, B);
     attention_tc_kernel<<<grid, TC_THREADS, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), N, H, scale);
+        static_cast<bf16*>(o), N, sb, sh, sn, scale);
     return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = smem_bytes(N);
@@ -337,7 +353,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N,
   dim3 grid((N + QT - 1) / QT, H, B);
   attention_kernel<T><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), N, H, scale);
+      static_cast<T*>(o), N, sb, sh, sn, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -349,14 +365,18 @@ extern "C" {
 int svt_attention_max_seq(void) { return 32 * NJ; }
 int svt_attention_head_dim(void) { return HD; }
 
-int svt_attention_packed_f32(const void* q, const void* k, const void* v, void* o,
-                             int B, int N, int H, float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, N, H, scale, stream);
+// [B, H, N, d] views with the given strides (elements); the packed
+// [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d
+int svt_attention_bhnd_f32(const void* q, const void* k, const void* v, void* o, int B,
+                           int H, int N, long long sb, long long sh, long long sn,
+                           float scale, void* stream) {
+  return launch<float>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
 }
 
-int svt_attention_packed_bf16(const void* q, const void* k, const void* v, void* o,
-                              int B, int N, int H, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, N, H, scale, stream);
+int svt_attention_bhnd_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                            int H, int N, long long sb, long long sh, long long sn,
+                            float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
 }
 
 }  // extern "C"

@@ -1,2 +1,4 @@
 """Drivers: ``start()`` runs one Shapley round (``python -m
-shapley_vit_tpu_torch.driver.start``)."""
+shapley_vit_tpu_torch.driver.start``); ``run_client()`` trains one FL client
+and drops its checkpoints (``python -m shapley_vit_tpu_torch.driver.client``);
+``run_demo()`` trains the clients and then scores them."""

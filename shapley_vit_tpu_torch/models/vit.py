@@ -16,17 +16,26 @@ What changed in the port:
   mode), LoRA factors (overlay mode) and classifier are batched products
   over ``[C, ...]``. The patch embedding and the CLS/position add do not
   depend on the coalition: they run once per batch and are expanded over C.
-* The forward always calls the three ops entries (``patch_embed``,
-  ``fused_attention_packed``, ``fused_mlp_block``). Each launches its Hopper
-  kernel for CUDA tensors and runs its plain version on the CPU, so the
-  JAX spec's ``attention_impl``/``mlp_impl``/``patch_impl`` knobs are gone.
-  The numerics follow the Pallas kernels (f32 softmax and accumulation in
-  attention; LN -> fc1 -> GELU in f32 in the MLP, ``h`` cast to the weight
-  dtype before fc2, the residual added in f32), so at float32 the port
-  matches either JAX path and at bfloat16 it is held against its own plain
-  versions.
-* ``quant`` (int8) and ``remat`` (training) belong to later slices and are
-  not fields here.
+* The JAX spec's kernel knobs keep their names and pick between the port's
+  kernels and differentiable torch ops. ``attention_impl``: ``"pallas2"``
+  (the default here, the Shapley round's path) runs the packed kernel
+  ``fused_attention_packed``, forward only; ``"pallas"`` splits the heads
+  and runs ``fused_attention`` on ``[B, H, N, d]``, which has a gradient.
+  ``mlp_impl``: ``"pallas"`` (the default here) runs the fused block
+  ``fused_mlp_block``, forward only; ``"xla"`` runs the MLP half as torch
+  ops (the JAX default path, vit.py:353-362). LoRA training uses
+  ``spec.replace(attention_impl="pallas", mlp_impl="xla")``; the forward-only
+  kernels raise when autograd would need their gradient. The patch
+  embedding always runs ``patch_embed`` (nothing upstream of it trains).
+  The kernels' numerics follow the Pallas kernels (f32 softmax and
+  accumulation in attention; LN -> fc1 -> GELU in f32 in the MLP, ``h``
+  cast to the weight dtype before fc2, the residual added in f32), so at
+  float32 the port matches either JAX path and at bfloat16 it is held
+  against its own plain versions.
+* ``remat`` checkpoints each block with ``torch.utils.checkpoint`` (the
+  JAX ``jax.checkpoint`` of ``_block``): the backward recomputes a block's
+  intermediates instead of keeping them.
+* ``quant`` (int8) belongs to a later slice and is not a field here.
 """
 
 from __future__ import annotations
@@ -36,8 +45,10 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from shapley_vit_tpu_torch.ops.attention import fused_attention_packed
+from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
 from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 from shapley_vit_tpu_torch.ops.patch_embed import patch_embed, patchify
 from shapley_vit_tpu_torch.ops.tree_math import tree_leaves, tree_map
@@ -45,11 +56,23 @@ from shapley_vit_tpu_torch.ops.tree_math import tree_leaves, tree_map
 Tree = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_ATTENTION_IMPLS = ("pallas2", "pallas")
+_MLP_IMPLS = ("pallas", "xla")
 
 
 @dataclass(frozen=True)
 class ViTSpec:
-    """Architecture hyperparameters (HF ViTConfig equivalents)."""
+    """Architecture hyperparameters (HF ViTConfig equivalents).
+
+    ``attention_impl`` and ``mlp_impl`` keep the JAX spec's names and values,
+    so one spec reads the same in either package, and they stay explicit
+    rather than inferred from whether autograd records the forward: the two
+    paths round differently in bfloat16 (the fused MLP adds the residual in
+    float32, the torch-op MLP in the compute dtype), and a model's logits
+    should not depend on ``requires_grad``. A training forward through a
+    forward-only kernel raises, so a forgotten
+    ``replace(attention_impl="pallas", mlp_impl="xla")`` is an error, not a
+    wrong gradient."""
 
     hidden: int = 768
     depth: int = 12
@@ -65,10 +88,24 @@ class ViTSpec:
     lora_alpha: float = 8.0
     # activation/compute dtype: float32 | bfloat16
     dtype: str = "float32"
-    # GELU flavor: 'exact_f32' (HF parity: erf in f32), 'exact', 'tanh'.
-    # The fused MLP computes GELU in float32 either way, so 'exact' and
-    # 'exact_f32' are the same function here (as under the JAX MLP kernel)
+    # GELU flavor: 'exact_f32' (HF parity: erf in f32), 'exact' (erf in the
+    # compute dtype), 'tanh' (tanh approximation in the compute dtype). The
+    # fused MLP kernel computes GELU in float32 either way, so there 'exact'
+    # and 'exact_f32' are the same function (as under the JAX MLP kernel)
     gelu: str = "exact_f32"
+    # attention: 'pallas2' (packed kernel, forward only) or 'pallas'
+    # ([B, H, N, d] kernel with a gradient)
+    attention_impl: str = "pallas2"
+    # MLP half: 'pallas' (fused kernel, forward only) or 'xla' (torch ops)
+    mlp_impl: str = "pallas"
+    # recompute each block's intermediates on the backward pass (the client
+    # sets it from cfg.train.remat)
+    remat: bool = False
+
+    def __post_init__(self):
+        for name, allowed in (("attention_impl", _ATTENTION_IMPLS), ("mlp_impl", _MLP_IMPLS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
 
     @property
     def num_patches(self) -> int:
@@ -228,20 +265,35 @@ def _attention(x, attn_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
     q = proj("q", q_kernel)
     k = proj("k", None)
     v = proj("v", v_kernel)
-    ctx = fused_attention_packed(q, k, v, heads=spec.heads).reshape(C, B * N, D)
+    if spec.attention_impl == "pallas2":
+        ctx = fused_attention_packed(q, k, v, heads=spec.heads)
+    else:
+        def split_heads(y):  # [C·B, N, D] -> [C·B, H, N, d], a view
+            return y.reshape(C * B, N, spec.heads, spec.head_dim).transpose(1, 2)
+
+        ctx = fused_attention(split_heads(q), split_heads(k), split_heads(v)).transpose(1, 2)
+    ctx = ctx.reshape(C, B * N, D)
     out = _dense(ctx, attn_p["out"]["kernel"], attn_p["out"]["bias"])
     return out.reshape(C, B, N, D)
 
 
 def _block(x, blk_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
-    """Pre-LN transformer block (HF ViTLayer) over ``x [C, B, N, D]``. The
-    MLP half is the fused block, with the LN and fc weights cast to the
-    compute dtype first (the JAX wiring, vit.py:338-346)."""
+    """Pre-LN transformer block (HF ViTLayer) over ``x [C, B, N, D]``."""
     eps = spec.layernorm_eps
     y = _layer_norm(x, blk_p["ln1"]["scale"], blk_p["ln1"]["bias"], eps)
     x = x + _attention(y, blk_p["attn"], lora_p, spec, q_kernel, v_kernel)
-    dt = x.dtype
     mlp = blk_p["mlp"]
+    if spec.mlp_impl == "xla":  # JAX vit.py:353-362
+        y = _layer_norm(x, blk_p["ln2"]["scale"], blk_p["ln2"]["bias"], eps)
+        y = _dense(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"])
+        if spec.gelu == "exact_f32":  # HF parity: erf GELU in f32
+            y = F.gelu(y.float()).to(x.dtype)
+        else:
+            y = F.gelu(y, approximate="tanh" if spec.gelu == "tanh" else "none")
+        return x + _dense(y, mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    # the fused block, with the LN and fc weights cast to the compute dtype
+    # first (the JAX wiring, vit.py:338-346)
+    dt = x.dtype
     out = fused_mlp_block(
         x.reshape(-1, x.shape[-1]),
         blk_p["ln2"]["scale"].to(dt),
@@ -280,12 +332,16 @@ def _forward(base, images, spec: ViTSpec, C: int, lora_blocks=None, q_kernel=Non
     x0 = _embed(base, images, spec)
     x = x0.unsqueeze(0).expand(C, *x0.shape)
     blocks = base["blocks"]
+    block = _block
+    if spec.remat and torch.is_grad_enabled():
+        def block(*args):
+            return checkpoint(_block, *args, use_reentrant=False)
     for layer in range(spec.depth):
         blk = tree_map(lambda a: a[layer], blocks)
         lora_l = (
             tree_map(lambda a: a[:, layer], lora_blocks) if lora_blocks is not None else None
         )
-        x = _block(
+        x = block(
             x, blk, lora_l, spec,
             q_kernel[:, layer] if q_kernel is not None else None,
             v_kernel[:, layer] if v_kernel is not None else None,

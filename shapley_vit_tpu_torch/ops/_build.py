@@ -119,9 +119,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def check_tensors(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 or bfloat16 tensors of one dtype
-    on one CUDA device."""
+def refuse_grad(what: str, *tensors: torch.Tensor, instead: str = "") -> None:
+    """Raise when autograd would need a gradient through a forward-only
+    kernel. Its output has no ``grad_fn``, so the graph would be cut there
+    and everything upstream would get no gradient; ``instead`` names the
+    differentiable path, where there is one. Checked on both devices, so the
+    CPU and the card refuse the same calls."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} is forward only and has no gradient, but an input requires grad"
+            + (f"; train through {instead}" if instead else "")
+        )
+
+
+def check_tensors(what: str, *tensors: torch.Tensor, contiguous: bool = True) -> None:
+    """The kernels take float32 or bfloat16 tensors of one dtype on one CUDA
+    device, contiguous unless ``contiguous=False`` (the caller passes the
+    strides)."""
     first = tensors[0]
     if first.dtype not in SUFFIX:
         raise TypeError(f"{what}: dtype {first.dtype} not supported (float32, bfloat16)")
@@ -130,5 +144,5 @@ def check_tensors(what: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{what}: all tensors must be on {first.device}")
         if t.dtype != first.dtype:
             raise TypeError(f"{what}: mixed dtypes {t.dtype} and {first.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")

@@ -5,7 +5,9 @@ The port of ``shapley_vit_tpu/ops/mlp_block.py`` (Pallas ``_mlp_kernel`` via
 ``[M, D]`` tokens, the ``[M, 4D]`` hidden never written to device memory.
 :func:`fused_mlp_block` launches the hand-written Hopper kernel
 (``csrc/mlp_block.cu``) for a CUDA tensor and runs
-:func:`fused_mlp_block_plain` for a CPU tensor.
+:func:`fused_mlp_block_plain` for a CPU tensor. Forward only, as in the JAX
+package: where autograd would need a gradient it raises (train with
+``mlp_impl="xla"``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     """``x [M, D] -> x + MLP(LN(x))``. CPU tensors run
     :func:`fused_mlp_block_plain`; CUDA tensors launch the kernel (all seven
     tensors float32 or all bfloat16, contiguous, D in 384/768/1024)."""
+    _build.refuse_grad("fused_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2,
+                       instead='mlp_impl="xla"')
     if not x.is_cuda:
         return fused_mlp_block_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, eps,
                                      approximate_gelu)

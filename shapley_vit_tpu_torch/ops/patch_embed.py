@@ -5,7 +5,9 @@ The port of ``shapley_vit_tpu/ops/patch_embed.py`` (Pallas
 Hopper kernel (``csrc/patch_embed.cu``) for a CUDA tensor and runs
 :func:`patch_embed_plain`, the same function in torch ops, for a CPU tensor.
 There is no fallback between the two: a CUDA tensor gets the kernel or an
-exception.
+exception. The kernel has no gradient, so neither path accepts inputs that
+autograd would differentiate: LoRA training needs none, since nothing
+upstream of the patch embedding trains.
 """
 
 from __future__ import annotations
@@ -45,7 +47,10 @@ def patch_embed(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     """[B, H, W, C] images, [P*P*C, D] kernel, [D] bias -> [B, N, D] tokens in
     the image dtype. CPU tensors run :func:`patch_embed_plain`; CUDA tensors
     launch the kernel (float32 or bfloat16, all three of one dtype,
-    contiguous, H and W multiples of ``patch``)."""
+    contiguous, H and W multiples of ``patch``). Forward only: it raises
+    when autograd would need a gradient through it (images or weights that
+    require grad)."""
+    _build.refuse_grad("patch_embed", images, kernel, bias)
     if not images.is_cuda:
         return patch_embed_plain(images, kernel, bias, patch)
     B, H, W, C = images.shape

@@ -60,6 +60,10 @@ class StepTimer:
         finally:
             self._spans[name].append(time.perf_counter() - t0)
 
+    def times(self, name: str) -> list:
+        """Every duration recorded under a span, in seconds, in order."""
+        return list(self._spans[name])
+
     def count(self, name: str, value: float = 1.0):
         self._counters[name] += value
 
