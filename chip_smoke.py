@@ -11,10 +11,17 @@ Phases, each printing one JSON line:
    bfloat16 and float32, against its plain PyTorch version on the same inputs
    (float32: atol/rtol 1e-4, sums over up to 3072 terms in another order;
    bfloat16: atol/rtol 2e-2, outputs rounded to bf16), with CUDA-event times
-   (median of several runs after warm-up) of the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call
-   (``library_ms``; the port never calls it), and the least time the card
-   could take (``bound_ms``). ``fused_attention``'s gradient (the
+   (one call per event pair, median of several calls after warm-up) of the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``; the port never calls it;
+   ``vs_library`` is ``ms / library_ms``), and the least time the card
+   could take (``bound_ms``; ``bound_share`` is ``bound_ms / ms``). The
+   kernel and the library call are also timed back to back
+   (``*_back_to_back``: the device's time per call among calls launched
+   without waiting, as on the main paths) with the host's time to launch
+   one call (``host_us``, ``library_host_us``); ``share_differing`` is the
+   share of outputs whose value differs from the plain version's.
+   ``fused_attention``'s gradient (the
    ``autograd.Function``) is held against autograd through its plain
    version on the same inputs, with the same tolerances.
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
@@ -92,7 +99,9 @@ def peaks(name: str) -> dict:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median CUDA-event time of ``fn()`` over ``reps`` runs, after warm-up."""
+    """Median CUDA-event time of ``fn()`` over ``reps`` runs, after warm-up.
+    One call per event pair: a short call's time includes the host's time
+    to launch it."""
     import torch
 
     for _ in range(warmup):
@@ -109,6 +118,62 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def back_to_back(fn, calls: int, runs: int = 3) -> tuple:
+    """(device ms, host us) of one ``fn()`` among ``calls`` calls launched
+    back to back: CUDA events around the calls, and the host clock around
+    their launch (before waiting for the card), each over ``calls``; the
+    median of ``runs`` runs after a warm-up call. The host launches the next
+    call while the card runs the last, as on the main paths."""
+    import torch
+
+    fn()
+    dev, host = [], []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b) / calls)
+        host.append(1e6 * (t1 - t0) / calls)
+    return statistics.median(dev), statistics.median(host)
+
+
+# The kernels phase's shapes: the round's (128 images of 224 px, 16 px
+# patches, ViT-B widths, 7 coalitions of 128 images a batch) and the
+# client's training batch.
+IMAGES, IMG, P, CH, D, HEADS, HID = 128, 224, 16, 3, 768, 12, 3072
+NP, N = (IMG // P) ** 2, (IMG // P) ** 2 + 1
+CB = 7 * IMAGES                  # 7 coalitions x 128 images
+M = CB * N                       # tokens of one coalition batch
+TB = 64                          # the client's training batch
+
+
+def kernel_inputs(gen, dtype) -> dict:
+    """The kernels phase's inputs in one dtype, drawn from ``gen`` (a CUDA
+    generator) in a fixed order. ``tools/torch_attention_ab.py`` draws the
+    bf16 ones from seed 0 as this script does."""
+    import torch
+
+    def randn(shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    t = {"img": randn((IMAGES, IMG, IMG, CH)), "pw": randn((P * P * CH, D), 0.05),
+         "pb": randn((D,), 0.1)}
+    t["q"], t["k"], t["v"] = (randn((CB, N, HEADS * 64)) for _ in range(3))
+    t["x"] = randn((M, D))
+    t["ls"], t["lb"] = (1 + randn((D,), 0.1, torch.float32)).to(dtype), randn((D,), 0.1)
+    t["w1"], t["b1"] = randn((D, HID), 0.03), randn((HID,), 0.1)
+    t["w2"], t["b2"] = randn((HID, D), 0.03), randn((D,), 0.1)
+    # the training path's q, k, v, packed; the kernel reads their head split
+    t["tq"], t["tk"], t["tv"] = (randn((TB, N, HEADS * 64)) for _ in range(3))
+    return t
+
+
 def phase_kernels(card: str) -> dict:
     """Every kernel at the round's shapes, both dtypes. Returns the bf16
     numbers per kernel (the round's dtype) for the summary line."""
@@ -121,15 +186,7 @@ def phase_kernels(card: str) -> dict:
 
     pk = peaks(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
-
-    B, IMG, P, CH, D, H, HID = 128, 224, 16, 3, 768, 12, 3072
-    NP, N = (IMG // P) ** 2, (IMG // P) ** 2 + 1
-    CB = 7 * B                       # 7 coalitions x 128 images
-    M = CB * N                       # tokens of one coalition batch
-    TB = 64                          # the client's training batch
+    B, H = IMAGES, HEADS
     summary = {}
     results = []
     grads = []
@@ -138,9 +195,9 @@ def phase_kernels(card: str) -> dict:
         isz = torch.finfo(dtype).bits // 8
         tol = dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
         cases = {}
+        inp = kernel_inputs(gen, dtype)
 
-        img = randn((B, IMG, IMG, CH), dtype=dtype)
-        pw, pb = randn((P * P * CH, D), 0.05, dtype), randn((D,), 0.1, dtype)
+        img, pw, pb = inp["img"], inp["pw"], inp["pb"]
         conv_w = pw.reshape(P, P, CH, D).permute(3, 2, 0, 1).contiguous()
         img_nchw = img.permute(0, 3, 1, 2)
         cases["patch_embed"] = dict(
@@ -152,7 +209,7 @@ def phase_kernels(card: str) -> dict:
             reps=20,
         )
 
-        q, k, v = (randn((CB, N, H * 64), dtype=dtype) for _ in range(3))
+        q, k, v = inp["q"], inp["k"], inp["v"]
         qh, kh, vh = (t.view(CB, N, H, 64).transpose(1, 2) for t in (q, k, v))
         cases["fused_attention_packed"] = dict(
             kernel=lambda: att.fused_attention_packed(q, k, v, heads=H),
@@ -163,11 +220,7 @@ def phase_kernels(card: str) -> dict:
             reps=5,
         )
 
-        x = randn((M, D), dtype=dtype)
-        ls, lb = (1 + randn((D,), 0.1)).to(dtype), randn((D,), 0.1, dtype)
-        w1, b1 = randn((D, HID), 0.03, dtype), randn((HID,), 0.1, dtype)
-        w2, b2 = randn((HID, D), 0.03, dtype), randn((D,), 0.1, dtype)
-        mlp_args = (x, ls, lb, w1, b1, w2, b2)
+        mlp_args = tuple(inp[n] for n in ("x", "ls", "lb", "w1", "b1", "w2", "b2"))
         cases["fused_mlp_block"] = dict(
             kernel=lambda: mlp.fused_mlp_block(*mlp_args, eps=1e-12),
             plain=lambda: mlp.fused_mlp_block_plain(*mlp_args, eps=1e-12),
@@ -178,7 +231,7 @@ def phase_kernels(card: str) -> dict:
         )
 
         # the training path's [B, H, N, d] views of packed projections
-        tq, tk, tv = (randn((TB, N, H * 64), dtype=dtype) for _ in range(3))
+        tq, tk, tv = inp["tq"], inp["tk"], inp["tv"]
         tqh, tkh, tvh = (t.view(TB, N, H, 64).transpose(1, 2) for t in (tq, tk, tv))
         cases["fused_attention"] = dict(
             kernel=lambda: att.fused_attention(tqh, tkh, tvh),
@@ -199,23 +252,33 @@ def phase_kernels(card: str) -> dict:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             ok = torch.allclose(got.float(), want.float(), **tol)
+            differing = (got != want).float().mean().item()
             del got, want
             t_ops = c["flops"] / pk[dname]
             t_bytes = c["bytes"] / pk["bytes"]
+            ms = cuda_ms(c["kernel"], c["reps"])
+            ms_b2b, host_us = back_to_back(c["kernel"], 5 * c["reps"])
+            library_ms = library_b2b = library_host_us = None
+            if c["library"]:
+                library_ms = cuda_ms(c["library"], c["reps"])
+                library_b2b, library_host_us = back_to_back(c["library"], 5 * c["reps"])
+            bound_ms = 1e3 * max(t_ops, t_bytes)
             row = {
-                "name": name, "dtype": dname, "max_abs_err": err, "ok": ok,
-                "ms": cuda_ms(c["kernel"], c["reps"]),
-                "plain_ms": cuda_ms(c["plain"], c["reps"]),
-                "library_ms": cuda_ms(c["library"], c["reps"]) if c["library"] else None,
-                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "name": name, "dtype": dname, "max_abs_err": err, "share_differing": differing,
+                "ok": ok, "ms": ms, "plain_ms": cuda_ms(c["plain"], c["reps"]),
+                "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "bound_share": bound_ms / ms, "vs_library": ms / library_ms if library_ms else None,
+                "ms_back_to_back": ms_b2b, "library_ms_back_to_back": library_b2b,
+                "vs_library_back_to_back": ms_b2b / library_b2b if library_b2b else None,
+                "host_us": host_us, "library_host_us": library_host_us,
                 "launches": wrappers[name].launches - launched,  # this phase's, not the round's
             }
             results.append(row)
             if dtype == torch.bfloat16:
                 summary[name] = row
             torch.cuda.empty_cache()
-        del cases, img, q, k, v, qh, kh, vh, x, mlp_args, tq, tk, tv, tqh, tkh, tvh
+        del cases, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, tq, tk, tv, tqh, tkh, tvh
         torch.cuda.empty_cache()
     emit({"phase": "kernels", "card": card, "results": results, "gradients": grads})
     bad = [r for r in results + grads if not r["ok"]]
@@ -551,7 +614,7 @@ def profile_train_step(cfg, batch: int) -> dict:
         one()
     rows = device_rows(prof)
     busy = sum(ms for _, ms, _ in rows)
-    families = (("fused_attention kernel", ("attention_tc_kernel", "attention_kernel")),
+    families = (("fused_attention kernel", ("attention_hopper_kernel", "attention_kernel")),
                 ("patch_embed kernel", ("patch_embed_kernel",)),
                 ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
                 ("softmax", ("softmax",)),
@@ -670,7 +733,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"],
+            "library_ms": s["library_ms"], "bound_share": s["bound_share"],
+            "vs_library": s["vs_library"],
+            **{key: s[key] for key in ("ms_back_to_back", "library_ms_back_to_back",
+                                       "vs_library_back_to_back", "host_us", "library_host_us")},
         })
     print(smi, flush=True)
     emit({"kernels": rows})

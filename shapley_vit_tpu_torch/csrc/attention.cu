@@ -14,8 +14,8 @@
 //    with no copy.
 // Both compute, per (batch, head), o = softmax(mask(q k^T / sqrt(d))) v with
 // softmax and both products in float32 and the output stored in q's dtype.
-// Masking: the kernel never forms a score for a key past N, which is what
-// both -1e30 and -inf give (exp of either, less the row max, is 0).
+// Masking: a key at or past N gets weight exactly 0, which is what both
+// -1e30 and -inf give (exp of either, less the row max, is 0).
 //
 // Bound on an H100 SXM, bf16: at the Shapley round's packed shape (B = 896 =
 // 7 coalitions x 128 images, N = 197, H = 12, d = 64) 4*B*H*N^2*d = 0.107
@@ -25,29 +25,62 @@
 // are bound by memory in bf16 (in float32 by the 67 TFLOP/s FMA rate). The
 // scores never leave the chip.
 //
-// Design: the block loads K and V of its (batch, head) — N x 64 each — into
-// shared memory, reading them through the strides, and masks keys at or
-// past N itself (there are no padded copies).
-//  * bf16 with 16-byte aligned pointers and strides (the main paths): one
-//    block per (batch, head, 128 query rows),
-//    8 warps of 16 rows. q k^T runs on the tensor cores (WMMA bf16
-//    fragments, float32 accumulation: bf16 products are exact in float32,
-//    so the scores are the Pallas kernel's float32 scores); each warp
-//    keeps its 16 x N score rows in shared memory, takes the row max and
-//    sum with warp reductions, overwrites the scores with the float32
-//    probabilities, and accumulates p v on the FMA units (each lane two
-//    output columns of the 16 rows, p read four keys at a time).
-//  * float32 (the parity path, and bf16 tensors that are not 16-byte
-//    aligned): one block per (batch, head, 64 query rows),
-//    all on the FMA units: each of the 8 warps takes 4 query rows at a
-//    time, lane l owning keys l, l+32, ..., so one float4 of K feeds the 4
-//    rows; K rows are padded to 68 floats so the lanes' float4 reads hit
-//    distinct banks.
-// No TMA, wgmma or pipelining yet.
-#include <mma.h>
+// Design. bf16 with 16-byte aligned pointers and strides (the main paths):
+// one unit of work is one (image, head) — all of its query rows, with K and
+// V loaded once — and a persistent grid of one block per SM walks the B*H
+// units, unit u = image u / H, head u % H, so the blocks in flight at one
+// time read the heads of the same images (shared DRAM pages and L2 lines).
+//  * Loads: a producer thread issues TMA loads of the next unit's Q [qr x 64],
+//    K and V [nk x 64] (qr = N rounded to 64, nk = N rounded to 16) into a
+//    2-stage ring while the consumers compute the current one (mbarriers
+//    full and empty per stage). The tensor map has N as an axis of its own,
+//    so rows at or past N arrive as zeros and are never the next image's.
+//    Rows are 128 bytes with the 128-byte swizzle, as wgmma reads them.
+//    173 KB of shared memory at N = 197 (181 KB at N = 224): one block per
+//    SM, which the ring keeps busy instead of a second block.
+//  * Two consumer warpgroups take the unit's 64-row query tiles in turn,
+//    and take turns (two named barriers) at S and its softmax: one runs
+//    them while the other runs P V and hands over its output, so the
+//    tensor cores and the FMA/MUFU units work at once. setmaxnreg moves
+//    registers from the producer warpgroup (24 a thread) to the consumers
+//    (240).
+//    S = Q K^T: wgmma chains of 64 keys (m64n64k16; the last chain 16, 32
+//    or 48 keys wide; 4 steps over d). The float32 accumulator stays in
+//    registers: bf16 products are exact in float32, so these are the
+//    Pallas kernel's float32 scores. Softmax in registers: keys at or past
+//    N set to -inf before the row max (the zero-filled keys would score
+//    0), row max and sum over the 4 lanes of a row, exp in float32 (ex2 of
+//    the scaled score). The scores never touch shared memory.
+//  * O = P V on the tensor cores without rounding p to bf16: p = p_hi +
+//    p_lo (p_hi = bf16(p), p_lo = bf16(p - p_hi)), two wgmma m64n64k16
+//    products per 16 keys into one float32 accumulator, A from registers
+//    (the S accumulator's layout is wgmma's A fragment), B = V in shared
+//    memory, MN-major. Each product with bf16 v is exact, and p keeps 16
+//    bits (|p - p_hi - p_lo| <= 2^-18 p), well under the output's bf16
+//    step, though not float32's 24: about 0.2 % of the bf16 outputs land
+//    one step from the float32 p v's value, against about 0.02 % for a
+//    float32 p v summed in another order. p is not normalised
+//    before P V; O is multiplied by 1 / row sum after it. The split doubles
+//    the P V operations: about 0.16 TFLOP at the round's shape, 0.16 ms,
+//    still under the memory bound.
+//  * Outputs: O times 1 / row sum, in bf16, over the Q tile in shared memory
+//    (S has read it), swizzled as the output's tensor map expects; an
+//    mbarrier per tile tells the producer, which issues one TMA store per
+//    64-row tile (it drops the rows at or past N), so no consumer waits on
+//    the store's issue.
+// float32 (the parity path, and bf16 tensors that are not 16-byte aligned):
+// one block per (batch, head, 64 query rows), all on the FMA units: K and V
+// of the (batch, head) in shared memory read through the strides; each of
+// the 8 warps takes 4 query rows at a time, lane l owning keys l, l+32, ...,
+// so one float4 of K feeds the 4 rows; K rows are padded to 68 floats so the
+// lanes' float4 reads hit distinct banks.
+#include <cuda.h>
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <type_traits>
+#include <utility>
 
 #include "common.cuh"
 
@@ -184,141 +217,497 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: scores on the tensor cores
+// bf16: TMA loads, wgmma products, one persistent block per SM
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int TC_WARPS = 8;
-constexpr int TC_THREADS = TC_WARPS * 32;
-constexpr int TC_QT = 16 * TC_WARPS;  // query rows per block
-constexpr int KP = HD + 8;            // K and Q row stride in shared memory (bf16)
+constexpr int WG_CONSUMERS = 2;                        // consumer warpgroups
+constexpr int HP_THREADS = 128 * (WG_CONSUMERS + 1);  // + the producer warpgroup
+constexpr int STAGES = 2;
+constexpr int KC = 16;                 // keys per wgmma chunk (the k16 of p v)
+constexpr int MAX_KC = 32 * NJ / KC;   // 14 chunks: N <= 224
+constexpr int ROW = HD * 2;            // bytes of one bf16 row = one 128-byte swizzle row
+constexpr int QTILE = 64;              // query rows of one wgmma tile
+constexpr int MAX_TILES = 4;           // query tiles of a unit: N <= 256
+// mbarriers per stage: full, empty, and one per query tile whose output is
+// ready in shared memory for the producer's TMA store
+constexpr int BARRIERS = STAGES * (2 + MAX_TILES);
 
-__host__ __device__ constexpr size_t align128(size_t bytes) { return (bytes + 127) / 128 * 128; }
-__host__ __device__ constexpr int padded(int n) { return (n + 15) / 16 * 16; }
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// shared layout: K bf16 [NP][KP] | V bf16 [NP][HD] | Q bf16 [TC_QT][KP] |
-// S f32 [TC_WARPS][16][NP+4]; rows past N are zero
-size_t tc_smem_bytes(int N) {
-  const size_t NP = padded(N);
-  return align128(NP * KP * 2) + align128(NP * HD * 2) + align128((size_t)TC_QT * KP * 2) +
-         align128((size_t)TC_WARPS * 16 * (NP + 4) * 4);
+// one stage holds Q [qr][64], K [nk][64] and V [nk][64] of one (image, head),
+// each row 128 bytes, 128-byte swizzled; qr = 64 * tiles, nk = N rounded to 16
+__host__ __device__ constexpr int stage_bytes(int qr, int nk) { return (qr + 2 * nk) * ROW; }
+size_t hp_smem_bytes(int qr, int nk) {
+  return 1024 /* alignment slack */ + (size_t)STAGES * stage_bytes(qr, nk) + BARRIERS * 8;
 }
 
-__global__ void __launch_bounds__(TC_THREADS)
-attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int N, long long sb,
-                    long long sh, long long row_stride, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  const int NP = padded(N);
-  const int SS = NP + 4;  // score row stride (floats)
-  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
-  bf16* Vs = reinterpret_cast<bf16*>(smem_tc + align128((size_t)NP * KP * 2));
-  bf16* Qs = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(Vs) +
-                                     align128((size_t)NP * HD * 2));
-  float* Ss = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(Qs) +
-                                       align128((size_t)TC_QT * KP * 2));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * TC_QT;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
 
-  // K, V and the query tile, 16 bytes (8 values) at a time
-  for (int i = threadIdx.x; i < NP * (HD / 8); i += TC_THREADS) {
-    const int j = i / (HD / 8), c = 8 * (i % (HD / 8));
-    uint4 kv = zero, vv = zero;
-    if (j < N) {
-      const size_t g = base + (size_t)j * row_stride + c;
-      kv = *reinterpret_cast<const uint4*>(k + g);
-      vv = *reinterpret_cast<const uint4*>(v + g);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait until the barrier's phase of the given parity has completed; a wait
+// of more than 10 s can only be a fault, and traps instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const uint64_t t0 = global_ns();
+  do {
+    if (global_ns() - t0 > 10000000000ull) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// tensor-map coordinates of axes 1-3 (axis 0 is d) of row `row` of unit
+// (image b, head h); pos packs the axis of the head (bits 0-1) and of the
+// image (bits 2-3), and the row axis is the one left
+struct Coords { int c1, c2, c3; };
+__device__ __forceinline__ Coords unit_coords(int pos, int b, int h, int row) {
+  const int ph = pos & 3, pb = pos >> 2, pn = 6 - ph - pb;
+  auto at = [&](int axis) {
+    return (ph == axis ? h : 0) + (pb == axis ? b : 0) + (pn == axis ? row : 0);
+  };
+  return {at(1), at(2), at(3)};
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         Coords c) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c.c1), "r"(c.c2), "r"(c.c3)
+      : "memory");
+}
+
+// one bulk group: a box of shared memory to the tensor, clipped at its edges
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, Coords c) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(0), "r"(c.c1), "r"(c.c2), "r"(c.c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile whose rows are 128 bytes with the
+// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO); the leading offset
+// is unused by these layouts (one swizzle atom along the 128-byte row)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from reading accumulators before wgmma_wait_all
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x W] (+)= A[64 x 16] B[W x 16]^T, A (Q) and B (K) K-major in shared
+// memory; d holds the W / 2 accumulator registers of a thread (columns
+// 8 (i / 4) + 2 (lane % 4) + i % 2, rows lane / 4 + 8 ((i % 4) / 2) of its warp)
+template <int W>
+__device__ __forceinline__ void wgmma_qk(float* d, uint64_t a, uint64_t b, int accumulate) {
+  static_assert(W == 16 || W == 32 || W == 48 || W == 64, "key block of 16, 32, 48 or 64");
+  if constexpr (W == 16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (W == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (W == 48)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (W == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A (p) from registers, B (V) in
+// shared memory with the 64 output columns contiguous (MN-major: trans-b)
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// turns of the two consumer warpgroups at the tensor cores: warpgroup w
+// waits at named barrier 1 + w, which the other warpgroup's pass completes
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;" ::"r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(2 - w) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Warps 0-7 are two consumer warpgroups, warps 8-11 the producer's. The block
+// walks the units u = blockIdx.x, blockIdx.x + gridDim.x, ... (unit u is
+// image u / H, head u % H). pos places the head and image axes in the
+// tensor maps (unit_coords). NCH = nk / 16 is a template parameter so that
+// every wgmma chain is straight-line code: a branch inside a chain makes the
+// compiler wait for each wgmma in turn.
+template <int NCH>
+__global__ void __launch_bounds__(HP_THREADS, 1)
+attention_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __grid_constant__ CUtensorMap omap, int N, int H, int units, int qr,
+                        int nk, int pos, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024 bytes
+  const uint32_t stage = stage_bytes(qr, nk);
+  const uint32_t full_bar = base + STAGES * stage;  // full[s] = full_bar + 8 s
+  const uint32_t empty_bar = full_bar + 8 * STAGES;
+  const uint32_t ready_bar = empty_bar + 8 * STAGES;  // ready[s][t] = ready_bar + 8 (4 s + t)
+  const int tiles = qr / QTILE;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty_bar + 8 * s, 128 * WG_CONSUMERS);  // every consumer thread
+      for (int t = 0; t < MAX_TILES; ++t)
+        mbar_init(ready_bar + 8 * (MAX_TILES * s + t), 128);  // the tile's warpgroup
     }
-    *reinterpret_cast<uint4*>(Ks + j * KP + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + j * HD + c) = vv;
-  }
-  for (int i = threadIdx.x; i < TC_QT * (HD / 8); i += TC_THREADS) {
-    const int r = i / (HD / 8), c = 8 * (i % (HD / 8));
-    const int row = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * KP + c) =
-        row < N ? *reinterpret_cast<const uint4*>(q + base + (size_t)row * row_stride + c) : zero;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = q0 + 16 * warp;  // this warp's first query row
-  if (r0 >= N) return;            // no __syncthreads follows
-  float* Sw = Ss + (size_t)warp * 16 * SS;
+  if (threadIdx.x >= 128 * WG_CONSUMERS) {
+    // producer: one thread keeps the next units' Q, K and V in flight and
+    // stores each output tile as its warpgroup has it ready in shared
+    // memory; its warpgroup hands its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x != 128 * WG_CONSUMERS) return;
+    auto load = [&](int iu) {
+      const int s = iu % STAGES, u = blockIdx.x + iu * gridDim.x;
+      const Coords c = unit_coords(pos, u / H, u % H, 0);
+      const uint32_t bar = full_bar + 8 * s, qs = base + s * stage;
+      mbar_expect_tx(bar, stage);  // rows at or past N arrive zero-filled and count
+      tma_load(qs, &qmap, bar, c);
+      tma_load(qs + qr * ROW, &kmap, bar, c);
+      tma_load(qs + (qr + nk) * ROW, &vmap, bar, c);
+    };
+    const int count = (units - blockIdx.x + gridDim.x - 1) / gridDim.x;  // this block's units
+    for (int iu = 0; iu < min(count, STAGES); ++iu) load(iu);
+    for (int iu = 0; iu < count; ++iu) {
+      const int s = iu % STAGES, u = blockIdx.x + iu * gridDim.x;
+      const uint32_t parity = (iu / STAGES) & 1;
+      for (int t = 0; t < tiles; ++t) {
+        mbar_wait(ready_bar + 8 * (MAX_TILES * s + t), parity);
+        tma_store(&omap, base + s * stage + t * QTILE * ROW, unit_coords(pos, u / H, u % H, t * QTILE));
+      }
+      if (iu + STAGES < count) {
+        mbar_wait(empty_bar + 8 * s, parity);  // the consumers are done with the stage
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");  // and the stores
+        load(iu + STAGES);
+      }
+    }
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    return;
+  }
 
-  // scores: S[16, NP] = Q[16, 64] K[NP, 64]^T
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[HD / 16];
-#pragma unroll
-  for (int kd = 0; kd < HD / 16; ++kd)
-    wmma::load_matrix_sync(qa[kd], Qs + 16 * warp * KP + 16 * kd, KP);
-  for (int jt = 0; jt < NP / 16; ++jt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-    wmma::fill_fragment(sacc, 0.f);
-#pragma unroll
-    for (int kd = 0; kd < HD / 16; ++kd) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;  // K^T
-      wmma::load_matrix_sync(kb, Ks + 16 * jt * KP + 16 * kd, KP);
-      wmma::mma_sync(sacc, qa[kd], kb, sacc);
-    }
-    wmma::store_matrix_sync(Sw + 16 * jt, sacc, SS, wmma::mem_row_major);
-  }
-  __syncwarp();
+  // consumers: warpgroup wg takes the unit's query tiles wg, wg + 2, ...
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int quad = lane % 4;
+  if (wg == 1) turn_pass(1);  // warpgroup 0 takes the first turn
+  for (int iu = 0, u = blockIdx.x; u < units; ++iu, u += gridDim.x) {
+    const int s = iu % STAGES;
+    mbar_wait(full_bar + 8 * s, (iu / STAGES) & 1);
+    const uint32_t qs = base + s * stage, ks = qs + qr * ROW, vs = ks + nk * ROW;
 
-  // softmax over the N real keys, in float32; probabilities replace the
-  // scores, zero for the padded keys N .. NP-1
-  for (int r = 0; r < 16; ++r) {
-    float* srow = Sw + r * SS;
-    float sv[NJ];
-    float m = MASK;
+    // The two warpgroups take turns (named barriers 1 and 2) at S and its
+    // softmax: one runs them while the other runs P V and its stores, so
+    // the tensor cores and the FMA/MUFU units work at once. Both pass
+    // through every turn: where the tiles are odd in number, warpgroup 1
+    // computes the last tile again and stores nothing (a branch around the
+    // products would make the compiler serialise them).
+    for (int it = 0; it < (tiles + WG_CONSUMERS - 1) / WG_CONSUMERS; ++it) {
+      const int t = min(WG_CONSUMERS * it + wg, tiles - 1);
+      const bool store = WG_CONSUMERS * it + wg < tiles;
+      // S[64, nk] = Q_t K^T in blocks of 64 keys (the last one 16, 32 or 48),
+      // each a chain of 4 wgmma steps of 16 over d. Element e of chunk c (16
+      // keys) is sc[8 c + e]: row 16 warp + lane / 4 + 8 ((e % 4) / 2), key
+      // 16 c + 8 (e / 4) + 2 (lane % 4) + e % 2.
+      constexpr int FULL = NCH / 4, REM = NCH % 4;
+      float sc[NCH * 8];  // the first step of each chain overwrites (scale-d 0)
+      turn_wait(wg);
+      fence_regs(sc);
+      wgmma_fence();
 #pragma unroll
-    for (int t = 0; t < NJ; ++t) {
-      const int j = lane + 32 * t;
-      sv[t] = j < N ? srow[j] * scale : MASK;
-      m = fmaxf(m, sv[t]);
-    }
-    m = svt::warp_max(m);
-    float sum = 0.f;
+      for (int blk = 0; blk < FULL; ++blk)
 #pragma unroll
-    for (int t = 0; t < NJ; ++t) {
-      sv[t] = expf(sv[t] - m);  // masked keys: exp(-1e30 - m) == 0
-      sum += sv[t];
-    }
-    sum = svt::warp_sum(sum);
+        for (int kd = 0; kd < HD / 16; ++kd)
+          wgmma_qk<64>(sc + 32 * blk, sw128_desc(qs + t * QTILE * ROW + 32 * kd),
+                       sw128_desc(ks + blk * 64 * ROW + 32 * kd), kd);
+      if constexpr (REM > 0) {
 #pragma unroll
-    for (int t = 0; t < NJ; ++t) {
-      const int j = lane + 32 * t;
-      if (j < NP) srow[j] = j < N ? sv[t] / sum : 0.f;
-    }
-  }
-  __syncwarp();
+        for (int kd = 0; kd < HD / 16; ++kd)
+          wgmma_qk<16 * REM>(sc + 32 * FULL, sw128_desc(qs + t * QTILE * ROW + 32 * kd),
+                             sw128_desc(ks + FULL * 64 * ROW + 32 * kd), kd);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
 
-  // o[16, 64] = P V: lane owns columns 2*lane, 2*lane+1 of the 16 rows
-  float acc[16][2];
+      // softmax in registers; keys at or past N (only in the last chunk:
+      // nk < N + 16) get -inf, since the zero-filled keys would score 0
 #pragma unroll
-  for (int r = 0; r < 16; ++r) acc[r][0] = acc[r][1] = 0.f;
-  for (int j = 0; j < NP; j += 4) {
-    float2 vv[4];
+      for (int e = 0; e < 8; ++e)
+        if (KC * (NCH - 1) + 8 * (e / 4) + 2 * quad + e % 2 >= N) sc[8 * (NCH - 1) + e] = -INFINITY;
+      float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      vv[u] = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Vs + (j + u) * HD + 2 * lane));
+      for (int i = 0; i < NCH * 8; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], sc[i]);
+      const float l2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x scale log2 e)
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float4 p = *reinterpret_cast<const float4*>(Sw + r * SS + j);
-      acc[r][0] = fmaf(p.w, vv[3].x, fmaf(p.z, vv[2].x, fmaf(p.y, vv[1].x, fmaf(p.x, vv[0].x, acc[r][0]))));
-      acc[r][1] = fmaf(p.w, vv[3].y, fmaf(p.z, vv[2].y, fmaf(p.y, vv[1].y, fmaf(p.x, vv[0].y, acc[r][1]))));
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        mx[r] *= l2;
+      }
+      // p v without rounding p to bf16: p = p_hi + p_lo, p_hi = bf16(p),
+      // p_lo = bf16(p - p_hi); the products with bf16 v are exact in float32
+      uint32_t phi[NCH * 4], plo[NCH * 4];
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < NCH * 8; i += 2) {
+        const float a = ex2(fmaf(sc[i], l2, -mx[(i % 4) / 2]));  // masked keys: 2^-inf == 0
+        const float b = ex2(fmaf(sc[i + 1], l2, -mx[(i % 4) / 2]));
+        sum[(i % 4) / 2] += a + b;
+        phi[i / 2] = pack_bf16(a, b);
+        plo[i / 2] = pack_bf16(a - __uint_as_float(phi[i / 2] << 16),
+                               b - __uint_as_float(phi[i / 2] & 0xffff0000u));
+      }
+      turn_pass(wg);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        sum[r] = 1.f / sum[r];
+      }
+
+      // O[64, 64] = P V over 16-key steps, hi and lo into one accumulator
+      float oc[32];
+      fence_regs(oc);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const uint64_t vd = sw128_desc(vs + c * KC * ROW);
+        wgmma_pv(oc, phi + 4 * c, vd, c);
+        wgmma_pv(oc, plo + 4 * c, vd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(oc);
+
+      // O / row sum in bf16 over Q_t in shared memory (S_t has read it), in
+      // the 128-byte swizzle of the output's tensor map, for the producer's
+      // TMA store, which drops rows at or past N
+      if (store) {
+        const uint32_t ot = qs + t * QTILE * ROW;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = 16 * warp + lane / 4 + 8 * hr;
+#pragma unroll
+          for (int j = 0; j < HD / 8; ++j)
+            st_shared(ot + row * ROW + ((j ^ (row % 8)) * 16) + 4 * quad,
+                      pack_bf16(oc[4 * j + 2 * hr] * sum[hr], oc[4 * j + 2 * hr + 1] * sum[hr]));
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        mbar_arrive(ready_bar + 8 * (MAX_TILES * s + t));
+      }
     }
+    mbar_arrive(empty_bar + 8 * s);  // this thread is done with the stage
   }
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r;
-    if (row < N)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row * row_stride + 2 * lane) =
-          __floats2bfloat162_rn(acc[r][0], acc[r][1]);
+  if (wg == 0) turn_wait(0);  // takes up warpgroup 1's last pass
+}
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
+  return fn;
+}
+
+// Host work whose result does not change from call to call is done once
+// per device: reading its SM count, and letting each kernel take the
+// dynamic shared memory its largest N needs (max_smem). Kernel slots:
+// attention_hopper_kernel<nch> is nch - 1, attention_kernel<T> MAX_KC
+// (float) and MAX_KC + 1 (bf16).
+constexpr int MAX_DEVICES = 64;
+constexpr int SLOTS = MAX_KC + 2;
+
+cudaError_t prepare_launch(const void* kernel, int slot, size_t max_smem, int* sms) {
+  static std::atomic<int> known_sms[MAX_DEVICES];
+  static std::atomic<bool> allowed[MAX_DEVICES][SLOTS];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < MAX_DEVICES;
+  *sms = cached ? known_sms[dev].load(std::memory_order_relaxed) : 0;
+  if (*sms == 0) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (cached) known_sms[dev].store(*sms, std::memory_order_relaxed);
+  }
+  if (cached && allowed[dev][slot].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(max_smem));
+  if (err == cudaSuccess && cached) allowed[dev][slot].store(true, std::memory_order_release);
+  return err;
+}
+
+// The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
+// head and image axes in order of stride. An axis of extent 1 other than
+// the row (its stride may be anything) goes outermost with a stride that
+// extends the layout. Rows at or past N read as zeros.
+struct Axis { long long stride; long long extent; int role; };  // role 0 row, 1 head, 2 image
+
+using HopperKernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap, int, int, int, int, int, int, float);
+
+// attention_hopper_kernel<nch> for nch = 1 .. MAX_KC
+template <int... I>
+HopperKernel hopper_kernel(int nch, std::integer_sequence<int, I...>) {
+  static constexpr HopperKernel kernels[] = {attention_hopper_kernel<I + 1>...};
+  return kernels[nch - 1];
+}
+
+int launch_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H,
+                  long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  Axis ax[3] = {{sn, N, 0}, {sh, H, 1}, {sb, B, 2}};
+  auto filler = [](const Axis& a) { return a.extent == 1 && a.role != 0; };
+  std::sort(ax, ax + 3, [&](const Axis& a, const Axis& b) {
+    if (filler(a) != filler(b)) return filler(b);
+    return a.stride < b.stride;
+  });
+  cuuint64_t dims[4] = {HD, 0, 0, 0}, strides[3];
+  int pos[3] = {0, 0, 0};
+  for (int i = 0; i < 3; ++i) {
+    long long bytes = 2 * ax[i].stride;
+    if (filler(ax[i])) bytes = i == 0 ? ROW : static_cast<long long>(strides[i - 1]) * dims[i];
+    dims[i + 1] = static_cast<cuuint64_t>(ax[i].extent);
+    strides[i] = static_cast<cuuint64_t>(bytes);
+    pos[ax[i].role] = i + 1;
+  }
+  const int tiles = (N + QTILE - 1) / QTILE, qr = tiles * QTILE, nk = round_up(N, KC);
+  // q: whole units of qr rows; k, v: nk rows; o: one query tile at a time
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, o};
+  const int rows[4] = {qr, nk, nk, QTILE};
+  for (int m = 0; m < 4; ++m) {
+    cuuint32_t box[4] = {HD, 1, 1, 1}, unit[4] = {1, 1, 1, 1};
+    box[pos[0]] = rows[m];
+    const CUresult r = encode(&maps[m], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptrs[m]),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nch = nk / KC;
+  const HopperKernel kernel = hopper_kernel(nch, std::make_integer_sequence<int, MAX_KC>{});
+  int sms = 0;
+  const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(kernel), nch - 1,
+                                         hp_smem_bytes(round_up(nk, QTILE), nk), &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int units = B * H;
+  kernel<<<std::min(units, sms), HP_THREADS, hp_smem_bytes(qr, nk), st>>>(
+      maps[0], maps[1], maps[2], maps[3], N, H, units, qr, nk, pos[1] | (pos[2] << 2), scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // q, k, v and o share the strides (in elements) sb of the batch, sh of the
@@ -327,31 +716,24 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
            long long sb, long long sh, long long sn, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the tensor-core path moves 16-byte vectors: it needs aligned pointers
-  // and strides that keep every row 16-byte aligned
-  const bool aligned = ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
-                         reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) %
-                        16) == 0 &&
-                       ((sb | sh | sn) % 8) == 0;
-  if (std::is_same_v<T, bf16> && aligned) {
-    const size_t smem = tc_smem_bytes(N);
-    cudaError_t err = cudaFuncSetAttribute(attention_tc_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((N + TC_QT - 1) / TC_QT, H, B);
-    attention_tc_kernel<<<grid, TC_THREADS, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), N, sb, sh, sn, scale);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = smem_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  // the TMA needs 16-byte aligned addresses and strides (the strides of
+  // axes of extent 1 are never used)
+  const bool aligned =
+      ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
+        reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) % 16) == 0 &&
+      sn > 0 && sn % 8 == 0 && (H == 1 || (sh > 0 && sh % 8 == 0)) &&
+      (B == 1 || (sb > 0 && sb % 8 == 0));
+  if (std::is_same_v<T, bf16> && aligned && B > 0 && H > 0 && N > 0)
+    return launch_hopper(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                         static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, H, sb, sh, sn,
+                         scale, st);
+  int sms = 0;
+  const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(attention_kernel<T>),
+                                         MAX_KC + (std::is_same_v<T, bf16> ? 1 : 0),
+                                         smem_bytes(32 * NJ), &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + QT - 1) / QT, H, B);
-  attention_kernel<T><<<grid, THREADS, smem, st>>>(
+  attention_kernel<T><<<grid, THREADS, smem_bytes(N), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), N, sb, sh, sn, scale);
   return static_cast<int>(cudaGetLastError());

@@ -57,8 +57,17 @@ def test_patch_embed_kernel_matches_plain(dtype, B, H, P, C, D):
     _close(got, pe.patch_embed_plain(img, w, b, P), dtype)
 
 
+# N of 1 to 4 query tiles of 64, key counts that are not multiples of 8 or
+# 16, a unit count (B * H = 133) that does not divide the persistent grid,
+# and the round's [896, 197, 12 heads]
+PACKED_SHAPES = [(3, 197, 12), (2, 100, 4), (2, 64, 2), (1, 224, 1), (1, 1, 2), (2, 8, 3),
+                 (3, 63, 4), (2, 65, 3), (133, 100, 1), (896, 197, 12)]
+BHND_SHAPES = [(64, 12, 197), (3, 4, 100), (2, 2, 17), (1, 1, 224), (1, 2, 1), (2, 3, 8),
+               (2, 2, 63), (3, 2, 64), (2, 3, 65), (133, 1, 100), (896, 12, 197)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,N,H", [(3, 197, 12), (2, 100, 4), (2, 64, 2), (1, 224, 1)])
+@pytest.mark.parametrize("B,N,H", PACKED_SHAPES)
 def test_attention_kernel_matches_plain(dtype, B, N, H):
     rng = np.random.default_rng(1)
     q, k, v = (_randn(rng, (B, N, H * 64), dtype=dtype) for _ in range(3))
@@ -93,7 +102,7 @@ def test_mlp_kernel_matches_plain(dtype, approximate, M, D, Hd):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,H,N", [(64, 12, 197), (3, 4, 100), (2, 2, 17), (1, 1, 224)])
+@pytest.mark.parametrize("B,H,N", BHND_SHAPES)
 @pytest.mark.parametrize("layout", ["split_heads", "contiguous"])
 def test_bhnd_attention_kernel_matches_plain(dtype, B, H, N, layout):
     """[B, H, N, d] attention: on the views a head split makes of packed
@@ -149,8 +158,9 @@ def test_bhnd_attention_odd_layouts_are_copied_first():
 
 
 def test_attention_bf16_unaligned_tensors_take_the_fma_path():
-    """bf16 tensors that are not 16-byte aligned skip the tensor-core path
-    (16-byte vector loads) for the FMA one; both match the plain version."""
+    """bf16 tensors that are not 16-byte aligned skip the TMA path (16-byte
+    aligned addresses and strides) for the FMA one; both match the plain
+    version."""
     rng = np.random.default_rng(4)
     B, N, H = 2, 197, 12
 
@@ -164,6 +174,71 @@ def test_attention_bf16_unaligned_tensors_take_the_fma_path():
     assert q.is_contiguous() and q.data_ptr() % 16
     got = att.fused_attention_packed(q, k, v, heads=H)
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), torch.bfloat16)
+
+
+@pytest.mark.parametrize("entry", ["packed", "bhnd"])
+def test_attention_reads_no_row_past_the_last_image(entry):
+    """q, k and v end where a NaN image begins: a kernel that read rows at or
+    past N of the last image would put NaN into its outputs."""
+    rng = np.random.default_rng(8)
+    B, N, H = 3, 197, 12
+    bufs = []
+    for _ in range(3):
+        buf = torch.full((B + 1, N, H * 64), float("nan"), dtype=torch.bfloat16, device="cuda")
+        buf[:B] = _randn(rng, (B, N, H * 64), dtype=torch.bfloat16)
+        bufs.append(buf)
+    q, k, v = (b[:B] for b in bufs)
+    if entry == "packed":
+        got = att.fused_attention_packed(q, k, v, heads=H)
+        want = att.fused_attention_packed_plain(q, k, v, heads=H)
+    else:
+        q, k, v = (t.view(B, N, H, 64).transpose(1, 2) for t in (q, k, v))
+        got, want = att.fused_attention(q, k, v), att.fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, want, torch.bfloat16)
+
+
+def round_shape_inputs():
+    """q, k, v ``[896, 197, 768]`` bf16 (the round's shape, 12 heads), drawn
+    from seed 0 on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return [torch.randn((896, 197, 768), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+def test_attention_bf16_error_at_the_round_shape():
+    """The bf16 kernel against the plain version (float32 scores, softmax and
+    products, output rounded to bf16) at the round's shape. The kernel
+    multiplies p v as p_hi v + p_lo v on the tensor cores (p_hi = bf16(p),
+    p_lo = bf16(p - p_hi)), which keeps p to 16 bits: |p - p_hi - p_lo| <=
+    2^-18 p, so its float32 output is within 2^-18 sum_j p_j |v_j| of the
+    plain version's (2^-17 here, for the float32 sums of either). Two float32
+    values that close round to bf16 values at most that far apart plus one
+    bf16 step of the larger. Rounding p to bf16 alone (2^-9 p) would break
+    this bound.
+
+    It does not meet the previous kernel's precision (float32 p v on the FMA
+    units). On an H100 at these inputs (tools/torch_attention_ab.py), the
+    largest difference from the plain version is one bf16 step at |o| in
+    [0.5, 1), 2^-8, where the previous kernel's was 2^-9, and 0.22 % of the
+    outputs differ from the plain version's bf16 value against 0.023 %:
+    16 bits of p carry an output across a bf16 rounding boundary more often
+    than float32 does. Against the float64 result both kernels have the
+    same largest error."""
+    H = 12
+    q, k, v = round_shape_inputs()
+    got = att.fused_attention_packed(q, k, v, heads=H).float()
+    want = att.fused_attention_packed_plain(q, k, v, heads=H).float()
+    B, N, HD = q.shape
+    qh, kh, vh = (t.float().view(B, N, H, HD // H).transpose(1, 2) for t in (q, k, v))
+    p = torch.softmax(qh @ kh.transpose(-1, -2) / 8.0, dim=-1)
+    weight = (p @ vh.abs()).transpose(1, 2).reshape(B, N, HD)  # sum_j p_j |v_j|
+    del p, qh, kh, vh
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    step = torch.ldexp(torch.ones_like(got), e - 8)  # bf16: 8 significant bits
+    excess = (got - want).abs() - (2.0 ** -17 * weight + step)
+    assert excess.max().item() <= 0, f"{(excess > 0).sum().item()} outputs past the bound"
 
 
 def test_kernels_reject_what_they_do_not_take():
