@@ -13,9 +13,10 @@ Phases, each printing one JSON line:
    bfloat16: atol/rtol 2e-2, outputs rounded to bf16), with CUDA-event times
    (one call per event pair, median of several calls after warm-up) of the
    kernel, the plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``; the port never calls it;
-   ``vs_library`` is ``ms / library_ms``), and the least time the card
-   could take (``bound_ms``; ``bound_share`` is ``bound_ms / ms``). The
+   function, that call (``library_ms``, in float32 with cuDNN's TF32 off;
+   the port never calls it; ``vs_library`` is ``ms / library_ms``), and
+   the least time the card could take (``bound_ms``; ``bound_share`` is
+   ``bound_ms / ms``). The
    kernel and the library call are also timed back to back
    (``*_back_to_back``: the device's time per call among calls launched
    without waiting, as on the main paths) with the host's time to launch
@@ -190,6 +191,10 @@ def phase_kernels(card: str) -> dict:
     summary = {}
     results = []
     grads = []
+    # the float32 yardsticks run in float32: cuDNN takes F.conv2d to TF32 by
+    # default, and the port's float32 kernels keep float32
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         isz = torch.finfo(dtype).bits // 8
@@ -280,7 +285,9 @@ def phase_kernels(card: str) -> dict:
             torch.cuda.empty_cache()
         del cases, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, tq, tk, tv, tqh, tkh, tvh
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "card": card, "results": results, "gradients": grads})
+    torch.backends.cudnn.allow_tf32 = tf32
+    emit({"phase": "kernels", "card": card, "cudnn_allow_tf32": False, "results": results,
+          "gradients": grads})
     bad = [r for r in results + grads if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
@@ -615,7 +622,7 @@ def profile_train_step(cfg, batch: int) -> dict:
     rows = device_rows(prof)
     busy = sum(ms for _, ms, _ in rows)
     families = (("fused_attention kernel", ("attention_hopper_kernel", "attention_kernel")),
-                ("patch_embed kernel", ("patch_embed_kernel",)),
+                ("patch_embed kernel", ("patch_embed_kernel", "patch_embed_hopper_kernel")),
                 ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
                 ("softmax", ("softmax",)),
                 ("reductions", ("reduce_kernel",)))

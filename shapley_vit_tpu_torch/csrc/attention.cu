@@ -77,14 +77,16 @@
 #include <cuda.h>
 
 #include <algorithm>
-#include <atomic>
 #include <cstdint>
 #include <type_traits>
 #include <utility>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace svt;  // the Hopper primitives (hopper.cuh)
 
 constexpr int HD = 64;          // head dim
 constexpr int KSTR = HD + 4;    // K row stride in shared memory (floats)
@@ -243,46 +245,6 @@ size_t hp_smem_bytes(int qr, int nk) {
   return 1024 /* alignment slack */ + (size_t)STAGES * stage_bytes(qr, nk) + BARRIERS * 8;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// wait until the barrier's phase of the given parity has completed; a wait
-// of more than 10 s can only be a fault, and traps instead of hanging
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const uint64_t t0 = global_ns();
-  do {
-    if (global_ns() - t0 > 10000000000ull) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // tensor-map coordinates of axes 1-3 (axis 0 is d) of row `row` of unit
 // (image b, head h); pos packs the axis of the head (bits 0-1) and of the
 // image (bits 2-3), and the row axis is the one left
@@ -316,29 +278,6 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
 
 __device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.u32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile whose rows are 128 bytes with the
-// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO); the leading offset
-// is unused by these layouts (one swizzle atom along the 128-byte row)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from reading accumulators before wgmma_wait_all
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d[64 x W] (+)= A[64 x 16] B[W x 16]^T, A (Q) and B (K) K-major in shared
@@ -589,7 +528,7 @@ attention_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
             st_shared(ot + row * ROW + ((j ^ (row % 8)) * 16) + 4 * quad,
                       pack_bf16(oc[4 * j + 2 * hr] * sum[hr], oc[4 * j + 2 * hr + 1] * sum[hr]));
         }
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        fence_proxy_async();
         mbar_arrive(ready_bar + 8 * (MAX_TILES * s + t));
       }
     }
@@ -598,56 +537,10 @@ attention_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
   if (wg == 0) turn_wait(0);  // takes up warpgroup 1's last pass
 }
 
-// cuTensorMapEncodeTiled is a driver-API function: reached through the
-// runtime's entry-point query, so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// Host work whose result does not change from call to call is done once
-// per device: reading its SM count, and letting each kernel take the
-// dynamic shared memory its largest N needs (max_smem). Kernel slots:
-// attention_hopper_kernel<nch> is nch - 1, attention_kernel<T> MAX_KC
-// (float) and MAX_KC + 1 (bf16).
-constexpr int MAX_DEVICES = 64;
+// Kernel slots of prepare_launch (hopper.cuh), each allowed the dynamic
+// shared memory of its largest N: attention_hopper_kernel<nch> is nch - 1,
+// attention_kernel<T> MAX_KC (float) and MAX_KC + 1 (bf16).
 constexpr int SLOTS = MAX_KC + 2;
-
-cudaError_t prepare_launch(const void* kernel, int slot, size_t max_smem, int* sms) {
-  static std::atomic<int> known_sms[MAX_DEVICES];
-  static std::atomic<bool> allowed[MAX_DEVICES][SLOTS];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool cached = dev < MAX_DEVICES;
-  *sms = cached ? known_sms[dev].load(std::memory_order_relaxed) : 0;
-  if (*sms == 0) {
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (cached) known_sms[dev].store(*sms, std::memory_order_relaxed);
-  }
-  if (cached && allowed[dev][slot].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(max_smem));
-  if (err == cudaSuccess && cached) allowed[dev][slot].store(true, std::memory_order_release);
-  return err;
-}
 
 // The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
 // head and image axes in order of stride. An axis of extent 1 other than
@@ -701,7 +594,7 @@ int launch_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, i
   const int nch = nk / KC;
   const HopperKernel kernel = hopper_kernel(nch, std::make_integer_sequence<int, MAX_KC>{});
   int sms = 0;
-  const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(kernel), nch - 1,
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), nch - 1,
                                          hp_smem_bytes(round_up(nk, QTILE), nk), &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int units = B * H;
@@ -728,7 +621,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
                          static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, H, sb, sh, sn,
                          scale, st);
   int sms = 0;
-  const cudaError_t err = prepare_launch(reinterpret_cast<const void*>(attention_kernel<T>),
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(attention_kernel<T>),
                                          MAX_KC + (std::is_same_v<T, bf16> ? 1 : 0),
                                          smem_bytes(32 * NJ), &sms);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,0 +1,212 @@
+// Shared Hopper (sm_90a) primitives of the kernels: shared-memory
+// addresses, mbarriers, cp.async, TMA loads and tensor maps, the wgmma
+// operand descriptor and its fences, and the once-per-device launch set-up.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
+
+namespace svt {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of 16-byte chunk `chunk` (0-7) of row `row` in a tile of
+// 128-byte rows with the 128-byte swizzle (what TMA's SWIZZLE_128B writes
+// and sw128_desc describes): chunk c of row r sits at c ^ (r % 8)
+__device__ __forceinline__ uint32_t sw128_offset(int row, int chunk) {
+  return static_cast<uint32_t>(row * 128 + ((chunk ^ (row & 7)) << 4));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait until the barrier's phase of the given parity has completed; a wait
+// of more than 10 s can only be a fault, and traps instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const uint64_t t0 = global_ns();
+  do {
+    if (global_ns() - t0 > 10000000000ull) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One cp.async of BYTES (4, 8 or 16) from global to shared memory; where
+// `valid` is false nothing is read (src-size 0) and the destination is
+// zero-filled. The copy writes shared memory through the generic proxy:
+// before wgmma (the async proxy) reads it, the thread that made the copy
+// waits for its group and then runs fence_proxy_async.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16, "cp.async copies 4, 8 or 16 bytes");
+  const uint32_t n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(reinterpret_cast<uint64_t>(src)), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+                 "l"(reinterpret_cast<uint64_t>(src)), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy accesses (wgmma, TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a box of a 2-D tensor map into shared memory; completes on `bar` with the
+// box's bytes (elements out of the tensor's bounds arrive as zeros and count)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile whose rows are 128 bytes with the
+// 128-byte swizzle: 8-row groups 1024 bytes apart (SBO). The leading offset
+// is unused by K-major tiles and by MN-major tiles one swizzle atom (64
+// bf16) wide; an MN-major tile wider than that passes the byte distance
+// between its 64-column atoms as `lbo`.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// keeps the compiler from reading accumulators before wgmma_wait_all
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both in shared memory with the
+// 128-byte swizzle: A K-major (rows of k), B MN-major ("trans-b": rows of
+// 128 output columns as two 64-column atoms, `b`'s descriptor giving their
+// distance as its leading offset). d holds a thread's 64 accumulator
+// registers: d[i] is column 8 (i / 4) + 2 (lane % 4) + i % 2, row
+// 16 (warp % 4) + lane / 4 + 8 ((i % 4) / 2). accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Host work whose result does not change from call to call is done once
+// per device: reading its SM count, and letting each kernel take the
+// dynamic shared memory it needs (max_smem). A library numbers its kernels
+// 0 .. SLOTS - 1 (`slot`).
+constexpr int MAX_DEVICES = 64;
+
+template <int SLOTS>
+cudaError_t prepare_launch(const void* kernel, int slot, size_t max_smem, int* sms) {
+  static std::atomic<int> known_sms[MAX_DEVICES];
+  static std::atomic<bool> allowed[MAX_DEVICES][SLOTS];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < MAX_DEVICES;
+  *sms = cached ? known_sms[dev].load(std::memory_order_relaxed) : 0;
+  if (*sms == 0) {
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (cached) known_sms[dev].store(*sms, std::memory_order_relaxed);
+  }
+  if (cached && allowed[dev][slot].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(max_smem));
+  if (err == cudaSuccess && cached) allowed[dev][slot].store(true, std::memory_order_release);
+  return err;
+}
+
+}  // namespace svt

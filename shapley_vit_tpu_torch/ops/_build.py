@@ -9,9 +9,9 @@ Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
 The build runs at the first CUDA call of a kernel (or all at once through
 :func:`build`), never at import: a machine without ``nvcc`` imports this
 package and runs the plain versions on the CPU. ``<digest>`` hashes the
-source, the shared header and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. Libraries go to
-``shapley_vit_tpu_torch/build/``, which git ignores.
+source, every shared header (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+Libraries go to ``shapley_vit_tpu_torch/build/``, which git ignores.
 """
 
 from __future__ import annotations
@@ -58,7 +58,8 @@ def nvcc_path() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]

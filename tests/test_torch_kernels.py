@@ -42,19 +42,77 @@ def _close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,H,P,C,D", [(3, 224, 16, 3, 768), (2, 48, 8, 3, 100)])
-def test_patch_embed_kernel_matches_plain(dtype, B, H, P, C, D):
-    rng = np.random.default_rng(0)
+# The bf16 kernel's routes: W by TMA where D % 8 == 0, else by cp.async
+# (D = 100: 8-byte copies; D = 33: 2-byte copies, odd D); patch rows by
+# 16-byte copies where P*C % 8 == 0, else narrower (P*C = 12: 8 bytes;
+# P*C = 15 or 5: 2 bytes). The round's (B = 128) and the training batch's
+# (64) shapes; B*N not a multiple of the 128-row tile (3 x 196, 1 x 4); D
+# not a multiple of the 128-column tile (100, 200, 33, 64); K = 48 and 75,
+# less than one 64-wide k stage.
+PATCH_SHAPES = [(3, 224, 16, 3, 768), (2, 48, 8, 3, 100), (128, 224, 16, 3, 768),
+                (64, 224, 16, 3, 768), (1, 32, 16, 3, 256), (2, 224, 16, 3, 200),
+                (2, 32, 4, 3, 64), (2, 15, 5, 3, 64), (2, 30, 5, 1, 33)]
+
+
+def _patch_inputs(rng, B, H, P, C, D, dtype):
     img = _randn(rng, (B, H, H, C), dtype=dtype)
     w = _randn(rng, (P * P * C, D), 0.05, dtype)
     b = _randn(rng, (D,), 0.1, dtype)
+    return img, w, b
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,P,C,D", PATCH_SHAPES)
+def test_patch_embed_kernel_matches_plain(dtype, B, H, P, C, D):
+    rng = np.random.default_rng(0)
+    img, w, b = _patch_inputs(rng, B, H, P, C, D, dtype)
     before = pe.patch_embed.launches
     got = pe.patch_embed(img, w, b, P)
     torch.cuda.synchronize()
     assert pe.patch_embed.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, (H // P) ** 2, D)
     _close(got, pe.patch_embed_plain(img, w, b, P), dtype)
+
+
+@pytest.mark.parametrize("B,H,P,C,D", [(3, 224, 16, 3, 768), (2, 32, 4, 3, 64), (2, 32, 4, 3, 100)])
+def test_patch_embed_reads_nothing_past_the_last_image(B, H, P, C, D):
+    """The images end where a NaN image begins, and W where NaN rows begin:
+    a bf16 kernel that read a patch row past the last image, a k past
+    K = P*P*C (48 < 64 here for P = 4) or a W row past K would put NaN into
+    its outputs. W by TMA (D = 768, 64) and by cp.async (D = 100)."""
+    rng = np.random.default_rng(9)
+    img, w, b = _patch_inputs(rng, B, H, P, C, D, torch.bfloat16)
+    ibuf = torch.full((B + 1, H, H, C), float("nan"), dtype=torch.bfloat16, device="cuda")
+    ibuf[:B] = img
+    wbuf = torch.full((P * P * C + 64, D), float("nan"), dtype=torch.bfloat16, device="cuda")
+    wbuf[:P * P * C] = w
+    got = pe.patch_embed(ibuf[:B], wbuf[:P * P * C], b, P)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, pe.patch_embed_plain(img, w, b, P), torch.bfloat16)
+
+
+def test_patch_embed_bf16_within_one_step_at_the_round_shape():
+    """At the round's shape every bf16 output is within one bf16 step of the
+    plain version's, plus what the two float32 sums may differ by. Both
+    round a float32 sum of the same K = 768 products and the bias to bf16;
+    the sums are taken in another order, so each is within K u sum|a w| + u
+    |bias| of the exact one (u = 2^-24, recursive summation's bound), and
+    two float32 values that close round to bf16 values one step of the
+    larger apart at most, or that far apart where the sum cancels to near
+    zero. A wrong tile, swizzle or k range would miss by O(1)."""
+    rng = np.random.default_rng(10)
+    K = 16 * 16 * 3
+    img, w, b = _patch_inputs(rng, 128, 224, 16, 3, 768, torch.bfloat16)
+    got = pe.patch_embed(img, w, b, 16).float()
+    want = pe.patch_embed_plain(img, w, b, 16).float()
+    weight = pe.patch_embed_plain(img.abs().float(), w.abs().float(),  # sum |a w|, float32
+                                  torch.zeros(768, device="cuda"), 16)
+    summed = 2.0 ** -24 * (K * weight + b.float().abs())
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    step = torch.ldexp(torch.ones_like(got), e - 8)  # bf16: 8 significant bits
+    excess = (got - want).abs() - (step + 2 * summed)
+    assert excess.max().item() <= 0, f"{(excess > 0).sum().item()} outputs past the bound"
 
 
 # N of 1 to 4 query tiles of 64, key counts that are not multiples of 8 or
