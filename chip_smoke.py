@@ -14,15 +14,20 @@ Phases, each printing one JSON line:
    (one call per event pair, median of several calls after warm-up) of the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``, in float32 with cuDNN's TF32 off;
-   the port never calls it; ``vs_library`` is ``ms / library_ms``), and
+   the port never calls it; ``vs_library`` is ``ms / library_ms``; for the
+   fused MLP the yardstick is the port's own torch-op MLP half,
+   ``models.vit.mlp_half_xla``: LN, two cuBLAS products, GELU, residual,
+   which rounds differently and is a yardstick of time only), and
    the least time the card could take (``bound_ms``; ``bound_share`` is
    ``bound_ms / ms``). The
    kernel and the library call are also timed back to back
    (``*_back_to_back``: the device's time per call among calls launched
    without waiting, as on the main paths) with the host's time to launch
    one call (``host_us``, ``library_host_us``); ``share_differing`` is the
-   share of outputs whose value differs from the plain version's.
-   ``fused_attention``'s gradient (the
+   share of outputs whose value differs from the plain version's; ``route``
+   is the kernel that ran, as the wrapper recorded it at the launch (its
+   ``route`` attribute): ``wgmma`` (the bf16 tensor-core kernels) or
+   ``fma`` (the FMA units). ``fused_attention``'s gradient (the
    ``autograd.Function``) is held against autograd through its plain
    version on the same inputs, with the same tolerances.
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
@@ -53,6 +58,18 @@ Phases, each printing one JSON line:
    another order, through 12 blocks). Then ``run_demo(variant="base",
    image_size=224)``: three clients trained and scored on the card, with
    the efficiency axiom checked on its utility table.
+7. ``variants`` — the tiny (D 192, head dim 64) and micro (D 32, head dim
+   16, padded to 64 by the attention wrappers) ViTs on the card, cut to
+   depth 2: float32 logits of 4 images against the port on the CPU from the
+   same seeded weights (atol 1e-3, as in ``model``); a bf16 forward of
+   each, finite, with the patch, packed-attention and MLP counters
+   advancing (zeroed just before); each of the four kernels at the
+   variant's widths (4 images: patch P 16 or 4, attention heads of 64 or
+   16, MLP D 192 / 768 or 32 / 64) against its plain version on the same
+   seeded inputs, bf16 on ``wgmma`` and float32 on ``fma``, with the
+   ``kernels`` phase's tolerances; then ``run_demo()`` at its defaults
+   (micro, 16 px) and at tiny / 224 px, each through ``start()``, with the
+   efficiency axiom checked as in ``train``.
 
 Then the card's name and power limit, the kernels summary line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -181,6 +198,7 @@ def phase_kernels(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from shapley_vit_tpu_torch.models import vit as tvit
     from shapley_vit_tpu_torch.ops import attention as att
     from shapley_vit_tpu_torch.ops import mlp_block as mlp
     from shapley_vit_tpu_torch.ops import patch_embed as pe
@@ -208,7 +226,7 @@ def phase_kernels(card: str) -> dict:
         cases["patch_embed"] = dict(
             kernel=lambda: pe.patch_embed(img, pw, pb, P),
             plain=lambda: pe.patch_embed_plain(img, pw, pb, P),
-            library=lambda: F.conv2d(img_nchw, conv_w, pb, stride=P),
+            library=lambda: F.conv2d(img_nchw, conv_w, pb, stride=P), library_name="F.conv2d",
             flops=2.0 * B * NP * (P * P * CH) * D,
             bytes=(img.numel() + pw.numel() + pb.numel() + B * NP * D) * isz,
             reps=20,
@@ -220,16 +238,22 @@ def phase_kernels(card: str) -> dict:
             kernel=lambda: att.fused_attention_packed(q, k, v, heads=H),
             plain=lambda: att.fused_attention_packed_plain(q, k, v, heads=H),
             library=lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            library_name="F.scaled_dot_product_attention",
             flops=4.0 * CB * H * N * N * 64,
             bytes=4 * q.numel() * isz,
             reps=5,
         )
 
         mlp_args = tuple(inp[n] for n in ("x", "ls", "lb", "w1", "b1", "w2", "b2"))
+        mlp_spec = tvit.make_spec("base", dtype=dname)  # erf GELU in float32, eps 1e-12
+        mlp_blk = {"ln2": {"scale": inp["ls"], "bias": inp["lb"]},
+                   "mlp": {"fc1": {"kernel": inp["w1"], "bias": inp["b1"]},
+                           "fc2": {"kernel": inp["w2"], "bias": inp["b2"]}}}
         cases["fused_mlp_block"] = dict(
             kernel=lambda: mlp.fused_mlp_block(*mlp_args, eps=1e-12),
             plain=lambda: mlp.fused_mlp_block_plain(*mlp_args, eps=1e-12),
-            library=None,
+            library=lambda: tvit.mlp_half_xla(inp["x"], mlp_blk, mlp_spec),
+            library_name="models.vit.mlp_half_xla (torch ops: LN, cuBLAS fc1, GELU, cuBLAS fc2, residual)",
             flops=4.0 * M * D * HID,
             bytes=(2 * M * D + 2 * D * HID + HID + 3 * D) * isz,
             reps=3,
@@ -242,6 +266,7 @@ def phase_kernels(card: str) -> dict:
             kernel=lambda: att.fused_attention(tqh, tkh, tvh),
             plain=lambda: att.fused_attention_plain(tqh, tkh, tvh),
             library=lambda: F.scaled_dot_product_attention(tqh, tkh, tvh),
+            library_name="F.scaled_dot_product_attention",
             flops=4.0 * TB * H * N * N * 64,
             bytes=4 * tq.numel() * isz,
             reps=10,
@@ -253,6 +278,7 @@ def phase_kernels(card: str) -> dict:
         for name, c in cases.items():
             launched = wrappers[name].launches
             got = c["kernel"]()
+            route = wrappers[name].route
             want = c["plain"]()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -269,7 +295,8 @@ def phase_kernels(card: str) -> dict:
                 library_b2b, library_host_us = back_to_back(c["library"], 5 * c["reps"])
             bound_ms = 1e3 * max(t_ops, t_bytes)
             row = {
-                "name": name, "dtype": dname, "max_abs_err": err, "share_differing": differing,
+                "name": name, "dtype": dname, "route": route, "library": c["library_name"],
+                "max_abs_err": err, "share_differing": differing,
                 "ok": ok, "ms": ms, "plain_ms": cuda_ms(c["plain"], c["reps"]),
                 "library_ms": library_ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -283,7 +310,7 @@ def phase_kernels(card: str) -> dict:
             if dtype == torch.bfloat16:
                 summary[name] = row
             torch.cuda.empty_cache()
-        del cases, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, tq, tk, tv, tqh, tkh, tvh
+        del cases, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh, tkh, tvh
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = tf32
     emit({"phase": "kernels", "card": card, "cudnn_allow_tf32": False, "results": results,
@@ -692,16 +719,153 @@ def phase_profile(work: str) -> None:
     rows = device_rows(prof)
     busy_ms = sum(ms for _, ms, _ in rows)
     groups = {"patch_embed": 0.0, "attention": 0.0, "mlp_block": 0.0, "other": 0.0}
-    for key, ms, _ in rows:
+    members = {g: [] for g in groups}
+    for key, ms, n in rows:
         name = next((g for g in ("patch_embed", "attention", "mlp_block") if g + "_" in key), "other")
         groups[name] += ms
+        if name != "other":
+            members[name].append({"name": key[:120], "device_ms": ms, "calls": n})
     emit({"phase": "profile", "coalitions": int(W.shape[0]), "images": len(valid),
           "pass_ms": pass_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / pass_ms),
           "device_ms_by_group": groups,
+          "kernels_by_group": {g: members[g] for g in ("patch_embed", "attention", "mlp_block")},
           "top_kernels": [{"name": k[:120], "device_ms": ms, "calls": n} for k, ms, n in rows[:12]]})
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
+    if not any("mlp_block_gemm_kernel" in k["name"] for k in members["mlp_block"]):
+        raise SystemExit("the profiled pass ran no mlp_block_gemm_kernel")
+
+
+def variant_kernel_rows(spec, images: int) -> list:
+    """Each of the four kernels at a variant's widths (``images`` images of
+    ``spec.image`` px) against its plain version on the same seeded inputs,
+    bf16 and float32, with the ``kernels`` phase's tolerances: the route
+    each launch took, the largest difference and the share of outputs that
+    differ."""
+    import torch
+
+    from shapley_vit_tpu_torch.ops import attention as att
+    from shapley_vit_tpu_torch.ops import mlp_block as mlp
+    from shapley_vit_tpu_torch.ops import patch_embed as pe
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    P, C, D, H, d, Hd = spec.patch, spec.channels, spec.hidden, spec.heads, spec.head_dim, spec.mlp_dim
+    n = (spec.image // P) ** 2 + 1
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=1e-4, rtol=1e-4)
+
+        def randn(shape, scale=1.0):
+            return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+        img, pw, pb = randn((images, spec.image, spec.image, C)), randn((P * P * C, D), 0.05), randn((D,), 0.1)
+        q, k, v = (randn((images, n, D)) for _ in range(3))
+        qh, kh, vh = (t.view(images, n, H, d).transpose(1, 2) for t in (q, k, v))
+        args = (randn((images * n, D)), (1 + randn((D,), 0.1).float()).to(dtype), randn((D,), 0.1),
+                randn((D, Hd), 0.03), randn((Hd,), 0.1), randn((Hd, D), 0.03), randn((D,), 0.1))
+        mlp_kw = dict(eps=spec.layernorm_eps, approximate_gelu=spec.gelu == "tanh")
+        cases = {
+            "patch_embed": (pe.patch_embed, (img, pw, pb, P), {}, pe.patch_embed_plain),
+            "fused_attention_packed": (att.fused_attention_packed, (q, k, v), dict(heads=H),
+                                       att.fused_attention_packed_plain),
+            "fused_mlp_block": (mlp.fused_mlp_block, args, mlp_kw, mlp.fused_mlp_block_plain),
+            "fused_attention": (att.fused_attention, (qh, kh, vh), {}, att.fused_attention_plain),
+        }
+        for name, (kernel, a, kw, plain) in cases.items():
+            got = kernel(*a, **kw)
+            want = plain(*a, **kw)
+            torch.cuda.synchronize()
+            rows.append({"name": name, "dtype": str(dtype).replace("torch.", ""),
+                         "shape": list(a[0].shape), "route": kernel.route,
+                         "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                         "share_differing": (got != want).float().mean().item(),
+                         "ok": torch.allclose(got.float(), want.float(), **tol)})
+    return rows
+
+
+def phase_variants(counted) -> None:
+    """The tiny and micro ViTs on the card (depth 2): float32 logits against
+    the CPU port, a bf16 forward through the kernels, each kernel at the
+    variant's widths against its plain version, and ``run_demo`` at its
+    defaults (micro) and at tiny / 224 px."""
+    import torch
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import run_demo
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+
+    names = [fn.__name__ for fn in counted]
+    out = {"phase": "variants"}
+    ok = True
+    for variant in ("tiny", "micro"):
+        spec = tvit.make_spec(variant, dtype="float32", depth=2)
+        gen = torch.Generator().manual_seed(11)
+        base = tvit.init_vit(gen, spec)
+        lora = tvit.init_lora(gen, spec, classifier_from=base)
+        lora = tm.tree_map(lambda a: a + 0.02 * torch.randn(a.shape, generator=gen), lora)
+        images = torch.rand((4, spec.image, spec.image, spec.channels), generator=gen)
+
+        def logits(dev, sp):
+            b = tm.tree_map(lambda a: a.to(dev), base)
+            lo = tm.tree_map(lambda a: a.to(dev), lora)
+            with torch.inference_mode():
+                return tvit.vit_forward(b, lo, images.to(dev), sp).cpu()
+
+        cpu = logits("cpu", spec)
+        for fn in counted:
+            fn.launches = 0
+        gpu = logits("cuda", spec)
+        f32_launches = {fn.__name__: fn.launches for fn in counted}
+        err = (gpu - cpu).abs().max().item()
+        spec16 = spec.replace(dtype="bfloat16")
+        for fn in counted:
+            fn.launches = 0
+        bf = logits("cuda", spec16)
+        bf_launches = {fn.__name__: fn.launches for fn in counted}
+        want = dict(zip(names, (1, spec.depth, spec.depth, 0)))  # patch, packed attention, MLP
+        kernel_rows = variant_kernel_rows(spec, images.shape[0])
+        routes_ok = all(r["route"] == ("wgmma" if r["dtype"] == "bfloat16" else "fma")
+                        for r in kernel_rows)
+        v_ok = (bool(torch.isfinite(gpu).all()) and err <= 1e-3 and f32_launches == want
+                and bool(torch.isfinite(bf).all()) and bf_launches == want
+                and all(r["ok"] for r in kernel_rows) and routes_ok)
+        ok = ok and v_ok
+        out[variant] = {"hidden": spec.hidden, "heads": spec.heads, "head_dim": spec.head_dim,
+                        "mlp_dim": spec.mlp_dim, "image": spec.image, "depth": spec.depth,
+                        "logits_shape": list(gpu.shape), "float32_max_abs_err_vs_cpu": err,
+                        "atol": 1e-3, "float32_launches": f32_launches,
+                        "bfloat16_finite": bool(torch.isfinite(bf).all()),
+                        "bfloat16_launches": bf_launches, "kernels": kernel_rows, "ok": v_ok}
+
+    work = os.path.join(ROOT, "exp", "chip_smoke_variants")
+    shutil.rmtree(work, ignore_errors=True)
+    demos = {}
+    for name, kw in (("defaults", {}), ("tiny_224", dict(variant="tiny", image_size=224))):
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        all_rounds, _, out_dir = run_demo.run_demo(out_dir=os.path.join(work, name), device="cuda",
+                                                   **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counted}
+        cfg = Config()
+        cfg.obs.exp_dir = os.path.join(out_dir, "exp")
+        _, eff_err = exact_efficiency(cfg.output_dir, 3)
+        sv = [[all_rounds[d][1][c] for c in range(3)] for d in range(2)]
+        d_ok = (eff_err <= 1e-4 and all(math.isfinite(v) for row in sv for v in row)
+                and all(n > 0 for n in launches.values()))
+        ok = ok and d_ok
+        demos[name] = {"variant": kw.get("variant", "micro"), "image_size": kw.get("image_size", 16),
+                       "shapley_value": {"accuracy": sv[0], "loss": sv[1]},
+                       "efficiency_err": eff_err, "wall_s": wall, "launches": launches, "ok": d_ok}
+    out["demo"] = demos
+    out["ok"] = ok
+    emit(out)
+    if not ok:
+        raise SystemExit("the tiny or micro ViT failed its checks on the card")
 
 
 def main() -> int:
@@ -732,15 +896,17 @@ def main() -> int:
     phase_profile(os.path.join(ROOT, "exp", "chip_smoke"))
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
     launches["fused_attention"] = phase_train(counted)["fused_attention"]
+    phase_variants(counted)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
         s = summary[name]
         rows.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "kernel_route": s["route"], "source": source,
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"], "bound_share": s["bound_share"],
+            "library_ms": s["library_ms"], "library": s["library"], "bound_share": s["bound_share"],
             "vs_library": s["vs_library"],
             **{key: s[key] for key in ("ms_back_to_back", "library_ms_back_to_back",
                                        "vs_library_back_to_back", "host_us", "library_host_us")},

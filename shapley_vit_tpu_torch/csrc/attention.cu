@@ -1,6 +1,9 @@
-// Multi-head attention for Hopper (sm_90a), forward only: one kernel body
-// and one entry point, svt_attention_bhnd_*, which takes q, k, v, o as
-// [B, H, N, d] through their batch, head and row strides.
+// Multi-head attention for Hopper (sm_90a), forward only: one entry point
+// per route, svt_attention_bhnd_*, each of which takes q, k, v, o as
+// [B, H, N, d] through their batch, head and row strides: _bf16 the
+// tensor-core kernel (16-byte aligned bf16; it refuses other inputs),
+// _fma_bf16 and _f32 the FMA kernel. The caller picks the route
+// (ops/attention.attention_route).
 //
 // Replaces (shapley_vit_tpu/ops/attention.py):
 //  * _attn_v2_kernel (Pallas, entry fused_attention_packed): q, k, v, o are
@@ -606,27 +609,15 @@ int launch_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, i
 // q, k, v and o share the strides (in elements) sb of the batch, sh of the
 // head and sn of the row; the head dim is contiguous.
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
-           long long sb, long long sh, long long sn, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the TMA needs 16-byte aligned addresses and strides (the strides of
-  // axes of extent 1 are never used)
-  const bool aligned =
-      ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
-        reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) % 16) == 0 &&
-      sn > 0 && sn % 8 == 0 && (H == 1 || (sh > 0 && sh % 8 == 0)) &&
-      (B == 1 || (sb > 0 && sb % 8 == 0));
-  if (std::is_same_v<T, bf16> && aligned && B > 0 && H > 0 && N > 0)
-    return launch_hopper(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, H, sb, sh, sn,
-                         scale, st);
+int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
+               long long sb, long long sh, long long sn, float scale, void* stream) {
   int sms = 0;
   const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(attention_kernel<T>),
                                          MAX_KC + (std::is_same_v<T, bf16> ? 1 : 0),
                                          smem_bytes(32 * NJ), &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + QT - 1) / QT, H, B);
-  attention_kernel<T><<<grid, THREADS, smem_bytes(N), st>>>(
+  attention_kernel<T><<<grid, THREADS, smem_bytes(N), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), N, sb, sh, sn, scale);
   return static_cast<int>(cudaGetLastError());
@@ -636,22 +627,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int N, i
 
 extern "C" {
 
-// The largest sequence length the kernel takes (keys per lane x 32).
+// The largest sequence length the kernels take (keys per lane x 32).
 int svt_attention_max_seq(void) { return 32 * NJ; }
-int svt_attention_head_dim(void) { return HD; }
 
 // [B, H, N, d] views with the given strides (elements); the packed
 // [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d
 int svt_attention_bhnd_f32(const void* q, const void* k, const void* v, void* o, int B,
                            int H, int N, long long sb, long long sh, long long sn,
                            float scale, void* stream) {
-  return launch<float>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
+  return launch_fma<float>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
 }
 
+int svt_attention_bhnd_fma_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                                int H, int N, long long sb, long long sh, long long sn,
+                                float scale, void* stream) {
+  return launch_fma<__nv_bfloat16>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
+}
+
+// The tensor-core route. The TMA needs 16-byte aligned addresses and
+// strides (the strides of axes of extent 1 are never used); other inputs
+// are refused, not sent to another kernel.
 int svt_attention_bhnd_bf16(const void* q, const void* k, const void* v, void* o, int B,
                             int H, int N, long long sb, long long sh, long long sn,
                             float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
+  const bool aligned =
+      ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
+        reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) % 16) == 0 &&
+      sn > 0 && sn % 8 == 0 && (H == 1 || (sh > 0 && sh % 8 == 0)) &&
+      (B == 1 || (sb > 0 && sb % 8 == 0));
+  if (!aligned || B <= 0 || H <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_hopper(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, H, sb, sh, sn,
+                       scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

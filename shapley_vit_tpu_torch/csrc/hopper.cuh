@@ -185,11 +185,14 @@ inline EncodeTiled encode_tiled() {
 // Host work whose result does not change from call to call is done once
 // per device: reading its SM count, and letting each kernel take the
 // dynamic shared memory it needs (max_smem). A library numbers its kernels
-// 0 .. SLOTS - 1 (`slot`).
+// 0 .. SLOTS - 1 (`slot`). Static, so that each library keeps its own
+// record: the static locals of an inline function are one object in the
+// whole process (a GNU unique symbol), and two libraries with the same
+// SLOTS would read each other's.
 constexpr int MAX_DEVICES = 64;
 
 template <int SLOTS>
-cudaError_t prepare_launch(const void* kernel, int slot, size_t max_smem, int* sms) {
+static cudaError_t prepare_launch(const void* kernel, int slot, size_t max_smem, int* sms) {
   static std::atomic<int> known_sms[MAX_DEVICES];
   static std::atomic<bool> allowed[MAX_DEVICES][SLOTS];
   int dev = 0;

@@ -5,50 +5,55 @@
 // LN with float32 statistics and the caller's eps; y cast to the weights'
 // dtype before the first product; erf GELU (or the tanh form) in float32;
 // h cast to the weights' dtype before the second product; float32
-// accumulation; the residual added in float32; the output in x's dtype. The
-// [M, 4D] hidden activation is never written to device memory.
+// accumulation; the residual added in float32; the output in x's dtype.
 //
 // Bound on an H100 SXM at the main-path shape (M = 176,512 tokens =
 // 7 coalitions x 128 images x 197, D = 768, hidden 3072, bf16):
 // 4*M*D*3072 = 1.67 TFLOP over 989 TFLOP/s = 1.68 ms, against 0.55 GB of
 // tokens and weights over 3.35 TB/s = 0.16 ms; so bound by operations.
 //
-// Design: the Pallas kernel keeps all of W1 and W2 on chip (9.4 MB in bf16),
-// far past the 227 KB of shared memory a Hopper block can use, so this
-// kernel streams the hidden dimension instead. One block of 256 threads
-// takes 32 tokens: it applies LN once and keeps y (rounded through the
-// weight dtype) in shared memory; then for each chunk of hidden units it
-// computes gelu(y W1[:, c] + b1[c]), rounds it through the weight dtype,
-// and accumulates it times W2[c, :] into a float32 [32, D] accumulator held
-// in registers (D/8 values a thread: 96 for D = 768).
-//  * bf16 (the main path, when the hidden width is a multiple of 128 and
-//    the weights are 32-byte aligned): both products run on the tensor
-//    cores through WMMA 16x16x16 bf16 fragments with float32 accumulation;
-//    each warp owns one 16-column tile of the chunk's hidden units and a
-//    32 x D/8 slice of the output (2 x D/128 accumulator fragments); the
-//    weight fragments are read straight from device memory (L2), with no
-//    staging, TMA or pipelining yet.
-//  * float32 (the parity path) and other shapes: the same tiling on the
-//    FMA units, from W1/W2 tiles staged in shared memory.
-#include <mma.h>
-
+// bf16 (the main path): three kernels on the caller's stream, with the two
+// intermediates in caller-provided device memory, y [M, D] and h [M, Hd]:
+//  * mlp_block_ln_kernel: y = bf16(LN(x)), one warp per row.
+//  * mlp_block_gemm_kernel<Fc1>: h = bf16(GELU(y W1 + b1)).
+//  * mlp_block_gemm_kernel<Fc2>: out = bf16(x + (h W2 + b2)).
+// The Pallas kernel keeps the hidden on chip, but the work is bound by
+// operations: h written once and read once in bf16 is 2 x 1.08 GB, about
+// 0.65 ms at 3.35 TB/s, and the rounding of y and h to bf16 is the Pallas
+// kernel's own. Each GEMM takes block tiles of 128 rows x 128 columns, two
+// blocks on each SM (one block's loads and epilogue run under the other's
+// products):
+//  * Products: two warpgroups, 64 rows each, wgmma m64n128k16 with float32
+//    accumulators in registers, 4 steps per stage of 64 k.
+//  * Loads: a 3-stage ring of (A 128 x 64, B 64 x 128) tiles in shared
+//    memory, both by 2-D TMA maps with the 128-byte swizzle, on one
+//    mbarrier per stage; two stages in flight while the tensor cores work on
+//    the third. A (y or h, row-major) is K-major; B (W1 or W2, row-major
+//    [K, N]) is MN-major, two 64-column atoms per stage. Rows past M,
+//    columns past N and k past K arrive as TMA's out-of-bounds zeros, so one
+//    kernel serves every width that TMA can address (D and Hd multiples of 8,
+//    16-byte aligned weights and workspaces).
+//  * Epilogue: from the accumulator registers, bias and GELU (fc1) or bias
+//    and residual (fc2) in float32, rounded to bf16 (round to nearest even)
+//    and stored as bf16 pairs; rows past M and columns past N are not stored.
+// float32 (the parity path), and bf16 that the TMA route cannot take: one
+// FMA kernel that keeps the hidden on chip. A block of 256 threads takes 32
+// tokens, applies LN once into shared memory, and for each chunk of 64
+// hidden units computes gelu(y W1[:, c] + b1[c]) (rounded through the
+// storage type) and accumulates it times W2[c, :] into a float32 [32, D]
+// accumulator in registers, from W1/W2 tiles staged in shared memory. It
+// takes D a multiple of 32 up to 1024 (NC = ceil(D / 128) a template
+// parameter) and any hidden width.
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TT = 32;        // tokens per block
-constexpr int HC = 64;        // hidden units per chunk
-constexpr int KS = 32;        // k slice of the staged W1 tile
-constexpr int JS = 16;        // hidden rows of the staged W2 tile
-constexpr int THREADS = 256;
-constexpr int YPAD = 4;       // ys row padding (floats): keeps 16-byte rows, spreads banks
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)TT * (D + YPAD) + KS * HC + HC * TT + (size_t)JS * D);
-}
+using namespace svt;  // the Hopper primitives (hopper.cuh)
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float gelu(float x, int approximate) {
   if (approximate) {
@@ -58,62 +63,76 @@ __device__ __forceinline__ float gelu(float x, int approximate) {
   return 0.5f * x * erfcf(-x * 0.7071067811865476f);  // jax.nn.gelu's exact form
 }
 
-// LayerNorm of tokens m0 .. m0+TT-1 into the shared tile ys (row stride
-// ys_stride), float32 statistics, y rounded through T (rows past M are 0).
-// Warp w normalizes rows 4w .. 4w+3.
-template <typename T, int D, typename Y>
-__device__ __forceinline__ void layer_norm_tile(const T* __restrict__ x, const T* __restrict__ ln_s,
-                                                const T* __restrict__ ln_b, Y* ys, int ys_stride,
-                                                int M, int m0, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int rr = 0; rr < TT / 8; ++rr) {
-    const int r = warp * (TT / 8) + rr;
-    const int m = m0 + r;
-    Y* yrow = ys + r * ys_stride;
-    if (m >= M) {
-      for (int d = lane; d < D; d += 32) yrow[d] = svt::from_f32<Y>(0.f);
-      continue;
-    }
-    const T* xrow = x + (size_t)m * D;
-    float sum = 0.f;
-    for (int d = lane; d < D; d += 32) sum += svt::to_f32(xrow[d]);
-    const float mean = svt::warp_sum(sum) / D;
-    float sq = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float c = svt::to_f32(xrow[d]) - mean;
-      sq = fmaf(c, c, sq);
-    }
-    const float rstd = rsqrtf(svt::warp_sum(sq) / D + eps);
-    for (int d = lane; d < D; d += 32) {
-      const float y = (svt::to_f32(xrow[d]) - mean) * rstd * svt::to_f32(ln_s[d]) +
-                      svt::to_f32(ln_b[d]);
-      yrow[d] = svt::from_f32<Y>(svt::round_to<T>(y));
-    }
+// LayerNorm of one row of D values by one warp: float32 statistics, y
+// rounded through T, stored as Y
+template <typename T, typename Y>
+__device__ __forceinline__ void layer_norm_row(const T* __restrict__ xrow, const T* __restrict__ ln_s,
+                                               const T* __restrict__ ln_b, Y* yrow, int D, float eps) {
+  const int lane = threadIdx.x % 32;
+  float sum = 0.f;
+  for (int d = lane; d < D; d += 32) sum += to_f32(xrow[d]);
+  const float mean = warp_sum(sum) / D;
+  float sq = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float c = to_f32(xrow[d]) - mean;
+    sq = fmaf(c, c, sq);
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / D + eps);
+  for (int d = lane; d < D; d += 32) {
+    const float y = (to_f32(xrow[d]) - mean) * rstd * to_f32(ln_s[d]) + to_f32(ln_b[d]);
+    yrow[d] = from_f32<Y>(round_to<T>(y));
   }
 }
 
-// NC = D / 128: each thread owns NC groups of 4 output columns
+// ---------------------------------------------------------------------------
+// FMA units: float32, and bf16 shapes the TMA route does not take
+// ---------------------------------------------------------------------------
+
+constexpr int TT = 32;        // tokens per block
+constexpr int HC = 64;        // hidden units per chunk
+constexpr int KS = 32;        // k slice of the staged W1 tile
+constexpr int JS = 16;        // hidden rows of the staged W2 tile
+constexpr int THREADS = 256;
+constexpr int YPAD = 4;       // ys row padding (floats): keeps 16-byte rows, spreads banks
+constexpr int MAX_NC = 8;     // D up to 1024
+
+// shared memory of the instance that pads D to DP = 128 NC columns
+size_t smem_bytes(int DP) {
+  return sizeof(float) * ((size_t)TT * (DP + YPAD) + KS * HC + HC * TT + (size_t)JS * DP);
+}
+
+// NC = ceil(D / 128): each thread owns NC groups of 4 output columns,
+// 4 lane + 128 i; D a multiple of 32. The shared tiles are laid out for
+// DP = 128 NC columns, W2's zero past D, so that the product loops keep
+// compile-time strides and no per-column test; columns past D are not stored.
 template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS, 1)
 mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
                  const T* __restrict__ ln_b, const T* __restrict__ w1,
                  const T* __restrict__ b1, const T* __restrict__ w2,
-                 const T* __restrict__ b2, T* __restrict__ out, int M, int Hd,
+                 const T* __restrict__ b2, T* __restrict__ out, int M, int D, int Hd,
                  float eps, int approximate) {
-  constexpr int D = 128 * NC;
-  constexpr int YS = D + YPAD;
+  constexpr int DP = 128 * NC;
+  constexpr int YS = DP + YPAD;
   extern __shared__ __align__(16) float smem[];
   float* ys = smem;              // [TT][YS]  LN(x), rounded through T
   float* w1s = ys + TT * YS;     // [KS][HC]
   float* hs = w1s + KS * HC;     // [HC][TT]  gelu(h), rounded through T
-  float* w2s = hs + HC * TT;     // [JS][D]
+  float* w2s = hs + HC * TT;     // [JS][DP]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.x * TT;
 
-  // 1. LN(x) into ys
-  layer_norm_tile<T, D>(x, ln_s, ln_b, ys, YS, M, m0, eps);
+  // 1. LN(x) into ys: warp w normalizes rows 4w .. 4w+3 (rows past M are 0)
+  for (int rr = 0; rr < TT / 8; ++rr) {
+    const int r = warp * (TT / 8) + rr;
+    if (m0 + r < M) {
+      layer_norm_row<T>(x + (size_t)(m0 + r) * D, ln_s, ln_b, ys + r * YS, D, eps);
+    } else {
+      for (int d = lane; d < D; d += 32) ys[r * YS + d] = 0.f;
+    }
+  }
   __syncthreads();
 
   // second-product mapping: warp = 4 rows, lane = column groups
@@ -139,7 +158,7 @@ mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
       for (int i = tid; i < KS * HC; i += THREADS) {
         const int kk = i / HC, n = i % HC;
         const int col = c0 + n;
-        w1s[i] = col < Hd ? svt::to_f32(w1[(size_t)(k0 + kk) * Hd + col]) : 0.f;
+        w1s[i] = col < Hd ? to_f32(w1[(size_t)(k0 + kk) * Hd + col]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -162,10 +181,10 @@ mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = c0 + 4 * tx + j;
-      const float bias = col < Hd ? svt::to_f32(b1[col]) : 0.f;
+      const float bias = col < Hd ? to_f32(b1[col]) : 0.f;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float hv = col < Hd ? svt::round_to<T>(gelu(hacc[r][j] + bias, approximate)) : 0.f;
+        const float hv = col < Hd ? round_to<T>(gelu(hacc[r][j] + bias, approximate)) : 0.f;
         hs[(4 * tx + j) * TT + 2 * ty + r] = hv;
       }
     }
@@ -173,16 +192,16 @@ mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
 
     // 4. acc += gelu(h) W2[c0:c0+HC, :], W2 staged JS rows at a time
     for (int j0 = 0; j0 < HC; j0 += JS) {
-      for (int i = tid; i < JS * D; i += THREADS) {
-        const int jj = i / D, d = i % D;
+      for (int i = tid; i < JS * DP; i += THREADS) {
+        const int jj = i / DP, d = i % DP;
         const int unit = c0 + j0 + jj;
-        w2s[i] = unit < Hd ? svt::to_f32(w2[(size_t)unit * D + d]) : 0.f;
+        w2s[i] = unit < Hd && d < D ? to_f32(w2[(size_t)unit * D + d]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
       for (int jj = 0; jj < JS; ++jj) {
         const float4 hv = *reinterpret_cast<const float4*>(hs + (j0 + jj) * TT + 4 * warp);
-        const float* wrow = w2s + jj * D + 4 * lane;
+        const float* wrow = w2s + jj * DP + 4 * lane;
 #pragma unroll
         for (int i = 0; i < NC; ++i) {
           const float4 wv = *reinterpret_cast<const float4*>(wrow + 128 * i);
@@ -217,183 +236,231 @@ mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
     T* orow = out + (size_t)m * D;
 #pragma unroll
     for (int i = 0; i < NC; ++i) {
+      if (4 * lane + 128 * i >= D) continue;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 128 * i + 4 * lane + e;
-        orow[d] = svt::from_f32<T>(svt::to_f32(xrow[d]) + (acc[r][i][e] + svt::to_f32(b2[d])));
+        orow[d] = from_f32<T>(to_f32(xrow[d]) + (acc[r][i][e] + to_f32(b2[d])));
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16: LN, then two GEMMs on a TMA ring feeding wgmma
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
+constexpr int LN_ROWS = 8;                   // rows (one warp each) per block of the LN kernel
 
-constexpr int TC_HC = 128;  // hidden units per chunk: one 16-unit tile per warp
-
-__host__ __device__ constexpr size_t align128(size_t bytes) { return (bytes + 127) / 128 * 128; }
-
-// shared layout: ys bf16 [TT][D+8] | hf f32 [TT][TC_HC+4] | hb bf16 [TT][TC_HC+8]
-// | of f32 [TT][D+4]; every fragment's first element stays 32-byte aligned
-size_t tc_smem_bytes(int D) {
-  return align128((size_t)TT * (D + 8) * 2) + align128((size_t)TT * (TC_HC + 4) * 4) +
-         align128((size_t)TT * (TC_HC + 8) * 2) + align128((size_t)TT * (D + 4) * 4);
+__global__ void __launch_bounds__(32 * LN_ROWS)
+mlp_block_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
+                    const bf16* __restrict__ ln_b, bf16* __restrict__ y, int M, int D, float eps) {
+  const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
+  if (row < M) layer_norm_row<bf16>(x + (size_t)row * D, ln_s, ln_b, y + (size_t)row * D, D, eps);
 }
 
-template <int NC>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_block_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ln_s,
-                    const bf16* __restrict__ ln_b, const bf16* __restrict__ w1,
-                    const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, bf16* __restrict__ out, int M, int Hd,
-                    float eps, int approximate) {
-  constexpr int D = 128 * NC;
-  constexpr int YS = D + 8;        // bf16 elements
-  constexpr int HFS = TC_HC + 4;   // floats
-  constexpr int HBS = TC_HC + 8;   // bf16 elements
-  constexpr int OS = D + 4;        // floats
-  constexpr int WCOLS = 16 * NC;   // output columns a warp owns
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* ys = reinterpret_cast<bf16*>(smem_tc);
-  float* hf = reinterpret_cast<float*>(smem_tc + align128((size_t)TT * YS * 2));
-  bf16* hb = reinterpret_cast<bf16*>(reinterpret_cast<unsigned char*>(hf) +
-                                     align128((size_t)TT * HFS * 4));
-  float* of = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(hb) +
-                                       align128((size_t)TT * HBS * 2));
+constexpr int BM = 128;                      // rows of a block tile
+constexpr int BN = 128;                      // output columns of a block tile
+constexpr int BK = 64;                       // k per stage: one 128-byte swizzle row of bf16
+constexpr int STAGES = 3;
+constexpr int GEMM_THREADS = BM / 64 * 128;  // a warpgroup for each 64 rows
+constexpr int BLOCKS_PER_SM = 2;
+constexpr int A_BYTES = BM * BK * 2;         // [128 rows][64 k]
+constexpr int ATOM_BYTES = BK * 64 * 2;      // [64 k][64 columns] of B
+constexpr int B_BYTES = 2 * ATOM_BYTES;      // [64 k][128 columns] as two atoms
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// alignment slack (swizzle atoms: 1024 bytes), the ring, one mbarrier per stage
+constexpr size_t GEMM_SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + STAGES * 8;
+
+// fc1's epilogue: GELU(acc + b1), to be rounded to bf16 into h
+struct Fc1 {
+  const bf16* b1;
+  int approximate;
+  __device__ __forceinline__ float operator()(float acc, size_t, int col) const {
+    return gelu(acc + to_f32(b1[col]), approximate);
+  }
+};
+
+// fc2's epilogue: x + (acc + b2), to be rounded to bf16 into out
+struct Fc2 {
+  const bf16* x;
+  const bf16* b2;
+  __device__ __forceinline__ float operator()(float acc, size_t idx, int col) const {
+    return to_f32(x[idx]) + (acc + to_f32(b2[col]));
+  }
+};
+
+// One block tile of C [M, N] = epilogue(A [M, K] B [K, N]): rows m0 ..
+// m0 + 127, columns n0 .. n0 + 127. A and B come by the tensor maps amap
+// (dims {K, M}, box {64, 128}) and bmap (dims {N, K}, box {64, 64}). Every
+// wgmma chain is straight-line code: a branch inside one makes the compiler
+// wait for each wgmma in turn.
+template <typename Epilogue>
+__global__ void __launch_bounds__(GEMM_THREADS, BLOCKS_PER_SM)
+mlp_block_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+                      bf16* __restrict__ c, int M, int N, int K, int col_tiles, Epilogue epilogue) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_bar = base + STAGES * STAGE_BYTES;  // full[s] = full_bar + 8 s
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.x * TT;
+  // column tiles of one row tile are neighbours in the grid: they run
+  // together and read the same A rows from L2
+  const int m0 = (blockIdx.x / col_tiles) * BM, n0 = (blockIdx.x % col_tiles) * BN;
+  const int chunks = (K + BK - 1) / BK;
+  const int halves = n0 + 64 < N ? 2 : 1;  // B atoms holding a column < N
+  const uint32_t stage_tx = A_BYTES + halves * ATOM_BYTES;
 
-  // 1. LN(x) into ys (bf16)
-  layer_norm_tile<bf16, D>(x, ln_s, ln_b, ys, YS, M, m0, eps);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(full_bar + 8 * s, 1);  // the expect_tx
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NC];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) wmma::fill_fragment(acc[r][j], 0.f);
-
-  for (int c0 = 0; c0 < Hd; c0 += TC_HC) {
-    // 2. h = y W1[:, c0:c0+128]: warp w computes hidden units c0+16w .. c0+16w+15
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc[2];
-    wmma::fill_fragment(hacc[0], 0.f);
-    wmma::fill_fragment(hacc[1], 0.f);
-    const bf16* w1c = w1 + c0 + 16 * warp;
-#pragma unroll 4
-    for (int k = 0; k < D; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-      wmma::load_matrix_sync(bw, w1c + (size_t)k * Hd, Hd);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ay;
-        wmma::load_matrix_sync(ay, ys + 16 * r * YS + k, YS);
-        wmma::mma_sync(hacc[r], ay, bw, hacc[r]);
-      }
+  // chunk kc (k = 64 kc ...) into stage kc % STAGES, by thread 0
+  auto load = [&](int kc) {
+    if (tid == 0 && kc < chunks) {
+      const uint32_t as = base + (kc % STAGES) * STAGE_BYTES, bs = as + A_BYTES;
+      const uint32_t bar = full_bar + 8 * (kc % STAGES);
+      mbar_expect_tx(bar, stage_tx);
+      tma_load_2d(as, &amap, bar, kc * BK, m0);
+      for (int h = 0; h < halves; ++h) tma_load_2d(bs + h * ATOM_BYTES, &bmap, bar, n0 + 64 * h, kc * BK);
     }
-    wmma::store_matrix_sync(hf + 16 * warp, hacc[0], HFS, wmma::mem_row_major);
-    wmma::store_matrix_sync(hf + 16 * HFS + 16 * warp, hacc[1], HFS, wmma::mem_row_major);
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  const int wg = tid / 128;
+  for (int s = 0; s < STAGES - 1; ++s) load(s);
+  for (int kc = 0; kc < chunks; ++kc) {
+    const uint32_t as = base + (kc % STAGES) * STAGE_BYTES, bs = as + A_BYTES;
+    mbar_wait(full_bar + 8 * (kc % STAGES), (kc / STAGES) & 1);
+    // chunk kc is in, and both warpgroups are done with chunk kc - 1, whose
+    // stage is loaded next
     __syncthreads();
-
-    // 3. gelu(h + b1) in float32, rounded to bf16, into hb
-    for (int i = tid; i < TT * TC_HC; i += THREADS) {
-      const int r = i / TC_HC, n = i % TC_HC;
-      const float h = hf[r * HFS + n] + svt::to_f32(b1[c0 + n]);
-      hb[r * HBS + n] = svt::from_f32<bf16>(gelu(h, approximate));
-    }
-    __syncthreads();
-
-    // 4. acc += gelu(h) W2[c0:c0+128, warp's columns]
-    const bf16* w2c = w2 + (size_t)c0 * D + warp * WCOLS;
-#pragma unroll 2
-    for (int kk = 0; kk < TC_HC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ah[2];
-      wmma::load_matrix_sync(ah[0], hb + kk, HBS);
-      wmma::load_matrix_sync(ah[1], hb + 16 * HBS + kk, HBS);
+    load(kc + STAGES - 1);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, w2c + (size_t)kk * D + 16 * j, D);
-        wmma::mma_sync(acc[0][j], ah[0], bw, acc[0][j]);
-        wmma::mma_sync(acc[1][j], ah[1], bw, acc[1][j]);
-      }
-    }
-    __syncthreads();  // hf and hb are rewritten by the next chunk
+    for (int kd = 0; kd < BK / 16; ++kd)
+      wgmma_m64n128k16_ss(acc, sw128_desc(as + wg * 64 * 128 + 32 * kd),
+                          sw128_desc(bs + kd * 16 * 128, ATOM_BYTES), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
   }
 
-  // 5. out = x + (acc + b2), in float32, stored in bf16
+  // epilogue: acc[4 j + 2 h + e] is row 16 warp + lane / 4 + 8 h of this
+  // warpgroup's 64, column 8 j + 2 (lane % 4) + e. N is a multiple of 8, so
+  // a pair whose first column is < N lies inside the row, 4-byte aligned.
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int row0 = m0 + wg * 64 + 16 * warp + lane / 4;
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      wmma::store_matrix_sync(of + 16 * r * OS + warp * WCOLS + 16 * j, acc[r][j], OS,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < TT * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int m = m0 + r;
-    if (m < M) {
-      const size_t g = (size_t)m * D + d;
-      out[g] = svt::from_f32<bf16>(svt::to_f32(x[g]) + (of[r * OS + d] + svt::to_f32(b2[d])));
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M || col >= N) continue;
+      const size_t idx = (size_t)row * N + col;
+      *reinterpret_cast<__nv_bfloat162*>(c + idx) = __floats2bfloat162_rn(
+          epilogue(acc[4 * j + 2 * h], idx, col), epilogue(acc[4 * j + 2 * h + 1], idx + 1, col + 1));
     }
   }
+}
+
+// Kernel slots of prepare_launch (hopper.cuh): the two GEMMs, then the FMA
+// kernel's instances, MAX_NC for each storage type.
+constexpr int SLOT_FC1 = 0, SLOT_FC2 = 1, SLOT_FMA = 2;
+constexpr int SLOTS = SLOT_FMA + 2 * MAX_NC;
+
+// a 2-D tensor map of a row-major [rows, cols] bf16 matrix, boxes of
+// box_rows x 64 columns with the 128-byte swizzle; zeros out of bounds
+int encode_map(CUtensorMap* map, const bf16* p, int rows, int cols, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)}, unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(p), dims, strides,
+                            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C [M, N] = epilogue(A [M, K] B [K, N]), all row-major bf16
+template <typename Epilogue>
+int launch_gemm(const bf16* a, const bf16* b, bf16* c, int M, int N, int K, Epilogue epilogue,
+                int slot, cudaStream_t st) {
+  CUtensorMap amap{}, bmap{};
+  int err = encode_map(&amap, a, M, K, BM);
+  if (err == 0) err = encode_map(&bmap, b, K, N, BK);
+  if (err != 0) return err;
+  const auto kernel = mlp_block_gemm_kernel<Epilogue>;
+  int sms = 0;
+  const cudaError_t set = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), slot, GEMM_SMEM, &sms);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int col_tiles = (N + BN - 1) / BN;
+  const long long tiles = (long long)col_tiles * ((M + BM - 1) / BM);
+  kernel<<<static_cast<unsigned>(tiles), GEMM_THREADS, GEMM_SMEM, st>>>(amap, bmap, c, M, N, K, col_tiles,
+                                                                          epilogue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool is_aligned(const void* p, int bytes) { return reinterpret_cast<std::uintptr_t>(p) % bytes == 0; }
+
+int launch_wgmma(const bf16* x, const bf16* ln_s, const bf16* ln_b, const bf16* w1, const bf16* b1,
+                 const bf16* w2, const bf16* b2, bf16* out, bf16* y, bf16* h, int M, int D, int Hd,
+                 float eps, int approximate, cudaStream_t st) {
+  // TMA: 16-byte strides and bases for y, h, W1 and W2; pair stores into
+  // h and out
+  if (D % 8 || Hd % 8 || !is_aligned(w1, 16) || !is_aligned(w2, 16) || !is_aligned(y, 16) || !is_aligned(h, 16) ||
+      !is_aligned(out, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  mlp_block_ln_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(x, ln_s, ln_b, y, M, D, eps);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err == 0) err = launch_gemm(y, w1, h, M, Hd, D, Fc1{b1, approximate}, SLOT_FC1, st);
+  if (err == 0) err = launch_gemm(h, w2, out, M, D, Hd, Fc2{x, b2}, SLOT_FC2, st);
+  return err;
 }
 
 template <typename T, int NC>
-int launch_nc(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-              const void* b1, const void* w2, const void* b2, void* out, int M,
-              int Hd, float eps, int approximate, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((M + TT - 1) / TT);
-  if constexpr (std::is_same_v<T, bf16>) {
-    // WMMA fragments need 32-byte aligned tiles: whole 128-unit chunks and
-    // aligned weight tensors
-    const bool aligned = ((reinterpret_cast<std::uintptr_t>(w1) |
-                           reinterpret_cast<std::uintptr_t>(w2)) % 32) == 0;
-    if (Hd % TC_HC == 0 && aligned) {
-      const size_t smem = tc_smem_bytes(128 * NC);
-      cudaError_t err = cudaFuncSetAttribute(mlp_block_tc_kernel<NC>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      mlp_block_tc_kernel<NC><<<grid, THREADS, smem, st>>>(
-          static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s),
-          static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w1),
-          static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-          static_cast<const bf16*>(b2), static_cast<bf16*>(out), M, Hd, eps, approximate);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
+int launch_fma_nc(const T* x, const T* ln_s, const T* ln_b, const T* w1, const T* b1, const T* w2,
+                  const T* b2, T* out, int M, int D, int Hd, float eps, int approximate, cudaStream_t st) {
+  const auto kernel = mlp_block_kernel<T, NC>;
+  const int slot = SLOT_FMA + (std::is_same_v<T, bf16> ? MAX_NC : 0) + NC - 1;
+  int sms = 0;
   const size_t smem = smem_bytes(128 * NC);
-  cudaError_t err = cudaFuncSetAttribute(mlp_block_kernel<T, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_block_kernel<T, NC><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ln_s), static_cast<const T*>(ln_b),
-      static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), M, Hd, eps, approximate);
+  const cudaError_t set = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), slot, smem, &sms);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<(M + TT - 1) / TT, THREADS, smem, st>>>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd,
+                                                             eps, approximate);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-           const void* b1, const void* w2, const void* b2, void* out, int M, int D,
-           int Hd, float eps, int approximate, void* stream) {
-  switch (D) {
-    case 384:
-      return launch_nc<T, 3>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, Hd, eps, approximate, stream);
-    case 768:
-      return launch_nc<T, 6>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, Hd, eps, approximate, stream);
-    case 1024:
-      return launch_nc<T, 8>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, Hd, eps, approximate, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int launch_fma(const void* x, const void* ln_s, const void* ln_b, const void* w1, const void* b1,
+               const void* w2, const void* b2, void* out, int M, int D, int Hd, float eps,
+               int approximate, void* stream) {
+  if (D % 32 || D <= 0 || D > 128 * MAX_NC) return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = [&](auto nc) {
+    return launch_fma_nc<T, decltype(nc)::value>(
+        static_cast<const T*>(x), static_cast<const T*>(ln_s), static_cast<const T*>(ln_b),
+        static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
+        static_cast<const T*>(b2), static_cast<T*>(out), M, D, Hd, eps, approximate,
+        static_cast<cudaStream_t>(stream));
+  };
+  switch ((D + 127) / 128) {
+    case 1: return run(std::integral_constant<int, 1>{});
+    case 2: return run(std::integral_constant<int, 2>{});
+    case 3: return run(std::integral_constant<int, 3>{});
+    case 4: return run(std::integral_constant<int, 4>{});
+    case 5: return run(std::integral_constant<int, 5>{});
+    case 6: return run(std::integral_constant<int, 6>{});
+    case 7: return run(std::integral_constant<int, 7>{});
+    default: return run(std::integral_constant<int, 8>{});
   }
 }
 
@@ -401,17 +468,31 @@ int launch(const void* x, const void* ln_s, const void* ln_b, const void* w1,
 
 extern "C" {
 
+// the FMA kernel: float32, D a multiple of 32 up to 1024, any hidden width
 int svt_mlp_block_f32(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                       const void* b1, const void* w2, const void* b2, void* out, int M,
                       int D, int Hd, float eps, int approximate, void* stream) {
-  return launch<float>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd, eps, approximate, stream);
+  return launch_fma<float>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd, eps, approximate, stream);
 }
 
+// the FMA kernel on bf16 storage: for shapes the TMA route does not take
+int svt_mlp_block_fma_bf16(const void* x, const void* ln_s, const void* ln_b, const void* w1,
+                           const void* b1, const void* w2, const void* b2, void* out, int M,
+                           int D, int Hd, float eps, int approximate, void* stream) {
+  return launch_fma<bf16>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd, eps, approximate, stream);
+}
+
+// the bf16 route: LN into the workspace y [M, D], fc1 into the workspace
+// h [M, Hd], fc2 into out; D and Hd multiples of 8, W1, W2, y and h
+// 16-byte aligned (else cudaErrorInvalidValue, before any launch)
 int svt_mlp_block_bf16(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-                       const void* b1, const void* w2, const void* b2, void* out, int M,
-                       int D, int Hd, float eps, int approximate, void* stream) {
-  return launch<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd, eps,
-                               approximate, stream);
+                       const void* b1, const void* w2, const void* b2, void* out, void* y, void* h,
+                       int M, int D, int Hd, float eps, int approximate, void* stream) {
+  return launch_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s),
+                      static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w1),
+                      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                      static_cast<const bf16*>(b2), static_cast<bf16*>(out), static_cast<bf16*>(y),
+                      static_cast<bf16*>(h), M, D, Hd, eps, approximate, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,10 +13,9 @@ or an external FL trainer:
   4. run ``driver.start.start()`` and return the per-client Shapley values.
 
 Unlike the JAX demo it exports no global overlay (``GLOBAL_MODEL_PATH`` is
-not ported yet). Runs on the card unless ``device="cpu"`` is passed. The
-defaults (micro, 16 px) are for the CPU: micro's head dim is 16 and the
-card's attention kernels take 64, so on the card call
-``run_demo(variant="base", image_size=224)``, as the CLI does.
+not ported yet). Runs on the card unless ``device="cpu"`` is passed, at
+its defaults (micro, 16 px) or any other variant; the CLI runs ViT-B/16 at
+224 px on the card.
 """
 
 from __future__ import annotations
@@ -99,7 +98,7 @@ def run_demo(
 
 
 def main():
-    """On the card: ViT-B/16 at 224 px (the kernels take head dim 64)."""
+    """On the card: ViT-B/16 at 224 px."""
     all_rounds, sv_sum, out_dir = run_demo(variant="base", image_size=224, device="cuda")
     print(f"demo artifacts: {out_dir}")
     print(f"per-round Shapley values: {all_rounds}")

@@ -99,10 +99,11 @@ def suggest_coalition_chunk(
     roughly C·B·N·D·act_bytes·multiplier, and the chunk keeps them under
     ``safety`` of the device's memory (``mem_bytes``, read from ``device``
     when None). The JAX package's calibration (multiplier 20, safety 0.6) is
-    kept: the port's eager forward holds fewer intermediates per coalition
-    (the kernels keep the attention scores and the MLP hidden on chip), so
-    it errs on the safe side. Always >= 1; the evaluator only splits when
-    the coalition count exceeds it."""
+    kept. The attention kernel keeps the scores on chip; the bf16 MLP
+    kernels write the LN output and the hidden to device memory (2·D + 8·D
+    bytes a token for one block at a time), which stays inside the
+    calibration's 20 × 2·D bytes a token. Always >= 1; the evaluator only
+    splits when the coalition count exceeds it."""
     if mem_bytes is None:
         mem_bytes = device_memory_bytes(device)
     per_coalition = batch_size * seq_len * hidden * act_bytes * activation_multiplier

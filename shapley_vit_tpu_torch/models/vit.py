@@ -277,20 +277,28 @@ def _attention(x, attn_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
     return out.reshape(C, B, N, D)
 
 
+def mlp_half_xla(x, blk_p, spec: ViTSpec):
+    """The MLP half of a block as torch ops (``mlp_impl="xla"``, JAX
+    vit.py:353-362): ``x + fc2(GELU(fc1(LN2(x))))`` in the compute dtype,
+    over ``x [..., D]``; ``blk_p`` holds ``ln2`` and ``mlp``."""
+    mlp = blk_p["mlp"]
+    y = _layer_norm(x, blk_p["ln2"]["scale"], blk_p["ln2"]["bias"], spec.layernorm_eps)
+    y = _dense(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"])
+    if spec.gelu == "exact_f32":  # HF parity: erf GELU in f32
+        y = F.gelu(y.float()).to(x.dtype)
+    else:
+        y = F.gelu(y, approximate="tanh" if spec.gelu == "tanh" else "none")
+    return x + _dense(y, mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+
+
 def _block(x, blk_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
     """Pre-LN transformer block (HF ViTLayer) over ``x [C, B, N, D]``."""
     eps = spec.layernorm_eps
     y = _layer_norm(x, blk_p["ln1"]["scale"], blk_p["ln1"]["bias"], eps)
     x = x + _attention(y, blk_p["attn"], lora_p, spec, q_kernel, v_kernel)
+    if spec.mlp_impl == "xla":
+        return mlp_half_xla(x, blk_p, spec)
     mlp = blk_p["mlp"]
-    if spec.mlp_impl == "xla":  # JAX vit.py:353-362
-        y = _layer_norm(x, blk_p["ln2"]["scale"], blk_p["ln2"]["bias"], eps)
-        y = _dense(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"])
-        if spec.gelu == "exact_f32":  # HF parity: erf GELU in f32
-            y = F.gelu(y.float()).to(x.dtype)
-        else:
-            y = F.gelu(y, approximate="tanh" if spec.gelu == "tanh" else "none")
-        return x + _dense(y, mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
     # the fused block, with the LN and fc weights cast to the compute dtype
     # first (the JAX wiring, vit.py:338-346)
     dt = x.dtype

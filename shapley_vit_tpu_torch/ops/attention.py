@@ -15,12 +15,24 @@ plain version (:func:`fused_attention_packed_plain`,
 :func:`fused_attention_plain`) for a CPU tensor. The packed kernel has no
 gradient: called where autograd would need one, it raises rather than cut
 the graph.
+
+The kernel is built for head dim 64 (``HEAD_DIM``). On the card a head dim
+of 8 to 56 in steps of 8 is zero-padded to 64 before the launch and the
+output cut back (:func:`resize_heads`), with the true head dim's scale, as
+the JAX wrappers pad d to 128: zero columns change neither q·kᵀ nor the
+kept columns of p·v. Head dim 64 is launched as it is, without a copy.
+
+:func:`attention_route` picks the kernel before the launch: ``"wgmma"``
+(bf16 with 16-byte aligned pointers and strides, as the TMA needs; the main
+paths) or ``"fma"`` (float32, and other bf16 layouts). Each wrapper keeps the
+route of its last launch in its ``route`` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -31,42 +43,78 @@ MASK = -1e30  # the Pallas kernel's value for masked (padded) keys
 _FNS = {
     f"svt_attention_bhnd_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    for t in ("f32", "bf16")
+    for t in ("f32", "fma_bf16", "bf16")
 }
 _FNS["svt_attention_max_seq"] = []
-_FNS["svt_attention_head_dim"] = []
+HEAD_DIM = 64  # the head dim the kernels are built for (HD in csrc/attention.cu)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _launch(what: str, q, k, v, out, B: int, H: int, N: int, d: int, strides) -> None:
-    """Launch ``svt_attention_bhnd_*`` after checking the shape against what
-    the kernels take. q, k, v and out share ``strides`` (batch, head, row;
-    in elements), and the head dim is contiguous."""
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernel runs a head dim ``d`` at: 64 for d of 8 to 64
+    in steps of 8 (d < 64 is zero-padded); ``ValueError`` for any other d."""
+    if d % 8 or not 8 <= d <= HEAD_DIM:
+        raise ValueError(f"head dim {d} not supported (the kernel takes 8 to {HEAD_DIM} in "
+                         f"steps of 8, padded to {HEAD_DIM})")
+    return HEAD_DIM
+
+
+def resize_heads(t: torch.Tensor, heads: int, width: int) -> torch.Tensor:
+    """``t [..., heads·d] -> [..., heads·width]``: each head's d values
+    zero-padded (width > d) or cut (width < d) to ``width``. With heads = 1
+    it pads or cuts the last axis of ``[B, H, N, d]``."""
+    *lead, hd = t.shape
+    d = hd // heads
+    t = t.reshape(*lead, heads, d)
+    t = torch.nn.functional.pad(t, (0, width - d)) if width > d else t[..., :width]
+    return t.reshape(*lead, heads * width)
+
+
+def attention_route(tensors, B: int, H: int, N: int, strides) -> str:
+    """The kernel that q, k, v and out (``tensors``) with these [B, H, N]
+    extents and shared strides (batch, head, row; elements) take:
+    ``"wgmma"`` for bf16 whose pointers are 16-byte aligned and whose
+    strides are multiples of 8 (those of axes of extent 1 are never used),
+    else ``"fma"``. ``svt_attention_bhnd_bf16`` refuses what this does not
+    send it."""
+    sb, sh, sn = strides
+    aligned = (all(t.data_ptr() % 16 == 0 for t in tensors) and sn > 0 and sn % 8 == 0
+               and (H == 1 or (sh > 0 and sh % 8 == 0)) and (B == 1 or (sb > 0 and sb % 8 == 0)))
+    wgmma = tensors[0].dtype == torch.bfloat16 and aligned and min(B, H, N) > 0
+    return "wgmma" if wgmma else "fma"
+
+
+def _launch(what: str, q, k, v, out, B: int, H: int, N: int, strides, scale: float) -> str:
+    """Launch the kernel of :func:`attention_route` after checking N against
+    what the kernels take; returns the route. q, k, v and out share
+    ``strides`` (batch, head, row; in elements), and the head dim
+    (``HEAD_DIM``) is contiguous. ``scale`` is 1/√d of the caller's head
+    dim, which may be narrower than the padded one."""
     lib = _build.load("attention", _FNS)
-    if d != lib.svt_attention_head_dim():
-        raise ValueError(f"head dim {d} not supported "
-                         f"(the kernel takes {lib.svt_attention_head_dim()})")
     if N > lib.svt_attention_max_seq():
         raise ValueError(f"sequence length {N} > {lib.svt_attention_max_seq()}")
-    fn = getattr(lib, f"svt_attention_bhnd_{_build.SUFFIX[q.dtype]}")
+    route = attention_route((q, k, v, out), B, H, N, strides)
+    suffix = "fma_bf16" if route == "fma" and q.dtype == torch.bfloat16 else _build.SUFFIX[q.dtype]
+    fn = getattr(lib, f"svt_attention_bhnd_{suffix}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N,
-                 *strides, 1.0 / math.sqrt(d), stream)
+                 *strides, scale, stream)
     _build.check(err, what)
+    return route
 
 
 def fused_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 heads: int) -> torch.Tensor:
+                                 heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """The Pallas kernel's arithmetic in torch ops: keys padded to a multiple
     of 128 and masked to -1e30, scores, softmax and both products in
-    float32, the output in q's dtype."""
+    float32, the output in q's dtype. ``scale`` defaults to 1/√d."""
     B, N, HD = q.shape
     d = HD // heads
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     n_pad = _round_up(N, 128)
 
     def heads_f32(t):
@@ -88,8 +136,8 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int) -> torch.Tensor:
     """Packed-layout fused MHA: q/k/v ``[B, N, H·d]`` -> ``[B, N, H·d]`` in q's
     dtype. CPU tensors run :func:`fused_attention_packed_plain`; CUDA
-    tensors launch the kernel (float32 or bfloat16, contiguous, head dim 64,
-    N <= 224)."""
+    tensors launch the kernel (float32 or bfloat16, contiguous, head dim 8
+    to 64 in steps of 8, N <= 224)."""
     _build.refuse_grad("fused_attention_packed", q, k, v, instead='attention_impl="pallas"')
     if not q.is_cuda:
         return fused_attention_packed_plain(q, k, v, heads)
@@ -99,28 +147,35 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
     _build.check_tensors("fused_attention_packed", q, k, v)
-    out = torch.empty_like(q)
     d = HD // heads
+    dk = kernel_head_dim(d)
+    if dk != d:
+        q, k, v = (resize_heads(t, heads, dk) for t in (q, k, v))
+    out = torch.empty_like(q)
     # the packed layout as [B, H, N, d] strides: batch N·H·d, head d, row H·d
-    _launch("fused_attention_packed", q, k, v, out, B, heads, N, d, (N * HD, d, HD))
+    fused_attention_packed.route = _launch("fused_attention_packed", q, k, v, out, B, heads, N,
+                                           (N * heads * dk, dk, heads * dk), 1.0 / math.sqrt(d))
     fused_attention_packed.launches += 1
-    return out
+    return out if dk == d else resize_heads(out, heads, d)
 
 
 fused_attention_packed.launches = 0
+fused_attention_packed.route = None
 
 
 # ---------------------------------------------------------------------------
 # [B, H, N, d] attention with a gradient (``_attn_kernel`` + its custom VJP)
 # ---------------------------------------------------------------------------
 
-def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """The Pallas ``_attn_kernel``'s arithmetic in torch ops, ``[B, H, N, d]``:
     keys padded to a multiple of 128 and masked to -inf, scores, softmax and
-    both products in float32, the output in q's dtype. (The Pallas kernel
-    also pads d to 128 with zeros, which adds exact zeros to every sum.)"""
+    both products in float32, the output in q's dtype; ``scale`` defaults
+    to 1/√d. (The Pallas kernel also pads d to 128 with zeros, which adds
+    exact zeros to every sum.)"""
     N = q.shape[2]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     n_pad = _round_up(N, 128)
 
     def padded(t):
@@ -149,18 +204,24 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     """The kernel on CUDA tensors ``[B, H, N, d]``. q/k/v are read in
     place when they share their strides with a contiguous head dim (the
     views a head split makes of packed [B, N, H·d] projections); other
-    layouts are copied to contiguous first. The output keeps q's strides."""
+    layouts are copied to contiguous first. The output keeps q's strides.
+    A head dim under 64 is zero-padded to 64 first (contiguous copies) and
+    the output cut back."""
     B, H, N, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
+    dk = kernel_head_dim(d)
+    if dk != d:
+        q, k, v = (resize_heads(t, 1, dk) for t in (q, k, v))
     out = torch.empty_like(q)
     if not (q.stride() == k.stride() == v.stride() == out.stride() and q.stride(-1) == 1):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out = torch.empty_like(q)
     _build.check_tensors("fused_attention", q, k, v, contiguous=False)
-    _launch("fused_attention", q, k, v, out, B, H, N, d, q.stride()[:3])
+    fused_attention.route = _launch("fused_attention", q, k, v, out, B, H, N, q.stride()[:3],
+                                    1.0 / math.sqrt(d))
     fused_attention.launches += 1
-    return out
+    return out if dk == d else resize_heads(out, 1, d)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -186,9 +247,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Fused MHA with a gradient: q/k/v ``[B, H, N, d]`` -> context
     ``[B, H, N, d]`` in q's dtype. CPU tensors run
     :func:`fused_attention_plain`; CUDA tensors launch the kernel (float32 or
-    bfloat16, head dim 64, N <= 224). The backward recomputes with
+    bfloat16, head dim 8 to 64 in steps of 8, N <= 224). The backward recomputes with
     :func:`xla_attention` on either device."""
     return _FusedAttention.apply(q, k, v)
 
 
 fused_attention.launches = 0
+fused_attention.route = None

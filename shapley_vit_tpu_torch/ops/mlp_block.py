@@ -2,12 +2,28 @@
 
 The port of ``shapley_vit_tpu/ops/mlp_block.py`` (Pallas ``_mlp_kernel`` via
 ``fused_mlp_block``): ``out = x + GELU(LN(x)·W1 + b1)·W2 + b2`` over
-``[M, D]`` tokens, the ``[M, 4D]`` hidden never written to device memory.
-:func:`fused_mlp_block` launches the hand-written Hopper kernel
-(``csrc/mlp_block.cu``) for a CUDA tensor and runs
+``[M, D]`` tokens. :func:`fused_mlp_block` launches the hand-written Hopper
+kernels (``csrc/mlp_block.cu``) for a CUDA tensor and runs
 :func:`fused_mlp_block_plain` for a CPU tensor. Forward only, as in the JAX
 package: where autograd would need a gradient it raises (train with
 ``mlp_impl="xla"``).
+
+On the card, :func:`mlp_route` picks the kernel from shape, dtype and
+alignment before the launch:
+
+* ``"wgmma"`` (bf16, D and the hidden width multiples of 8, W1 and W2
+  16-byte aligned; the main path): LN into a bf16 workspace ``y [M, D]``,
+  then two tensor-core GEMMs, fc1 (+ b1, GELU) into a bf16 workspace
+  ``h [M, Hd]`` and fc2 (+ b2, residual) into the output. Both workspaces
+  come from PyTorch's caching allocator; y and h are rounded to bf16 where
+  the Pallas kernel casts them to the weights' dtype, so the numerics are
+  the fused kernel's.
+* ``"fma"`` (float32, and bf16 shapes the first route does not take; D a
+  multiple of 32 up to 1024): one kernel on the FMA units that keeps the
+  hidden on chip.
+
+Any other shape raises a ``ValueError`` before any launch. The wrapper
+keeps the route of its last launch in its ``route`` attribute.
 """
 
 from __future__ import annotations
@@ -19,12 +35,14 @@ import torch.nn.functional as F
 
 from shapley_vit_tpu_torch.ops import _build
 
+_ARGS = [ctypes.c_void_p] * 8
+_TAIL = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _FNS = {
-    f"svt_mlp_block_{t}": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    for t in ("f32", "bf16")
+    "svt_mlp_block_f32": _ARGS + _TAIL,
+    "svt_mlp_block_fma_bf16": _ARGS + _TAIL,
+    "svt_mlp_block_bf16": _ARGS + [ctypes.c_void_p] * 2 + _TAIL,  # + the y and h workspaces
 }
-_KERNEL_WIDTHS = (384, 768, 1024)  # D values the kernel is instantiated for
+FMA_MAX_WIDTH = 1024  # the FMA kernel's widest D (a multiple of 32)
 
 
 def fused_mlp_block_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -44,12 +62,28 @@ def fused_mlp_block_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torc
     return (xf + out).to(x.dtype)
 
 
+def mlp_route(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
+    """The kernel a call with these tensors takes on the card: ``"wgmma"``
+    or ``"fma"`` (module docstring). Raises ``ValueError`` for a shape that
+    neither takes."""
+    D, Hd = w1.shape
+    if (x.dtype == torch.bfloat16 and D % 8 == 0 and Hd % 8 == 0
+            and w1.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0):
+        return "wgmma"
+    if D % 32 == 0 and 0 < D <= FMA_MAX_WIDTH:
+        return "fma"
+    raise ValueError(f"width {D} (hidden {Hd}, {x.dtype}) is taken by no kernel: bf16 needs D and "
+                     f"the hidden width multiples of 8 and 16-byte aligned weights, else D must be "
+                     f"a multiple of 32 up to {FMA_MAX_WIDTH}")
+
+
 def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                     w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                     eps: float = 1e-12, approximate_gelu: bool = False) -> torch.Tensor:
     """``x [M, D] -> x + MLP(LN(x))``. CPU tensors run
-    :func:`fused_mlp_block_plain`; CUDA tensors launch the kernel (all seven
-    tensors float32 or all bfloat16, contiguous, D in 384/768/1024)."""
+    :func:`fused_mlp_block_plain`; CUDA tensors launch the kernels of
+    :func:`mlp_route` (all seven tensors float32 or all bfloat16,
+    contiguous). ``launches`` counts one per call."""
     _build.refuse_grad("fused_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2,
                        instead='mlp_impl="xla"')
     if not x.is_cuda:
@@ -57,23 +91,31 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
                                      approximate_gelu)
     M, D = x.shape
     Hd = w1.shape[1]
-    if D not in _KERNEL_WIDTHS:
-        raise ValueError(f"width {D} not supported by the kernel ({_KERNEL_WIDTHS})")
     if (ln_scale.shape != (D,) or ln_bias.shape != (D,) or w1.shape != (D, Hd)
             or b1.shape != (Hd,) or w2.shape != (Hd, D) or b2.shape != (D,)):
         raise ValueError("LN/fc1/fc2 shapes do not fit x [M, D]")
     _build.check_tensors("fused_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2)
+    route = mlp_route(x, w1, w2)
     lib = _build.load("mlp_block", _FNS)
     out = torch.empty_like(x)
-    fn = getattr(lib, f"svt_mlp_block_{_build.SUFFIX[x.dtype]}")
+    args = [t.data_ptr() for t in (x, ln_scale, ln_bias, w1, b1, w2, b2, out)]
+    tail = (M, D, Hd, float(eps), int(approximate_gelu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(),
-                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), M, D, Hd,
-                 float(eps), int(approximate_gelu), stream)
+        if route == "wgmma":
+            # freed on return: the caching allocator hands their blocks only
+            # to work queued after these kernels on this stream
+            y = torch.empty((M, D), dtype=x.dtype, device=x.device)
+            h = torch.empty((M, Hd), dtype=x.dtype, device=x.device)
+            err = lib.svt_mlp_block_bf16(*args, y.data_ptr(), h.data_ptr(), *tail, stream)
+        else:
+            fn = lib.svt_mlp_block_f32 if x.dtype == torch.float32 else lib.svt_mlp_block_fma_bf16
+            err = fn(*args, *tail, stream)
     _build.check(err, "fused_mlp_block")
+    fused_mlp_block.route = route
     fused_mlp_block.launches += 1
     return out
 
 
 fused_mlp_block.launches = 0
+fused_mlp_block.route = None

@@ -8,6 +8,11 @@ There is no fallback between the two: a CUDA tensor gets the kernel or an
 exception. The kernel has no gradient, so neither path accepts inputs that
 autograd would differentiate: LoRA training needs none, since nothing
 upstream of the patch embedding trains.
+
+The route is the dtype's (``ROUTE``): bf16 runs the tensor-core kernel,
+whose copy widths and W loads adapt to alignment inside it, and float32 the
+FMA kernel. The wrapper keeps the route of its last launch in its ``route``
+attribute.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ _FNS = {
     f"svt_patch_embed_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     for t in ("f32", "bf16")
 }
+ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the kernel of each dtype's entry
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -70,9 +76,11 @@ def patch_embed(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
         err = fn(images.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
                  B, H, W, C, patch, D, stream)
     _build.check(err, "patch_embed")
+    patch_embed.route = ROUTE[images.dtype]
     patch_embed.launches += 1
     return out
 
 
 patch_embed.launches = 0
+patch_embed.route = None
 

@@ -70,6 +70,7 @@ def test_patch_embed_kernel_matches_plain(dtype, B, H, P, C, D):
     got = pe.patch_embed(img, w, b, P)
     torch.cuda.synchronize()
     assert pe.patch_embed.launches == before + 1
+    assert pe.patch_embed.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
     assert got.dtype == dtype and got.shape == (B, (H // P) ** 2, D)
     _close(got, pe.patch_embed_plain(img, w, b, P), dtype)
 
@@ -133,15 +134,30 @@ def test_attention_kernel_matches_plain(dtype, B, N, H):
     got = att.fused_attention_packed(q, k, v, heads=H)
     torch.cuda.synchronize()
     assert att.fused_attention_packed.launches == before + 1
+    assert att.fused_attention_packed.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("approximate", [False, True])
-@pytest.mark.parametrize("M,D,Hd", [(591, 768, 3072), (100, 384, 1536), (33, 1024, 4096), (70, 768, 3000)])
-def test_mlp_kernel_matches_plain(dtype, approximate, M, D, Hd):
-    rng = np.random.default_rng(2)
+# (M, D, hidden): the tiny (192) and micro (32) widths; M of 1 and of
+# ragged 128-row tiles; a hidden width (3000) that is not a multiple of the
+# 128-column tile or the 64-wide k stage
+MLP_SHAPES = [(591, 768, 3072), (100, 384, 1536), (33, 1024, 4096), (70, 768, 3000),
+              (985, 192, 768), (33, 32, 64), (1, 768, 3072), (129, 768, 3000)]
+# each dtype on each kernel that takes it: bf16 takes the FMA kernel where the
+# weights are not 16-byte aligned
+MLP_ROUTES = [(torch.float32, "fma"), (torch.bfloat16, "wgmma"), (torch.bfloat16, "fma")]
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned allocation."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _mlp_inputs(rng, M, D, Hd, dtype):
     x = _randn(rng, (M, D), dtype=dtype)
     ls = (1 + _randn(rng, (D,), 0.1)).to(dtype)
     lb = _randn(rng, (D,), 0.1, dtype)
@@ -149,14 +165,75 @@ def test_mlp_kernel_matches_plain(dtype, approximate, M, D, Hd):
     b1 = _randn(rng, (Hd,), 0.1, dtype)
     w2 = _randn(rng, (Hd, D), 0.03, dtype)
     b2 = _randn(rng, (D,), 0.1, dtype)
+    return [x, ls, lb, w1, b1, w2, b2]
+
+
+@pytest.mark.parametrize("dtype,route", MLP_ROUTES)
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("M,D,Hd", MLP_SHAPES)
+def test_mlp_kernel_matches_plain(dtype, route, approximate, M, D, Hd):
+    rng = np.random.default_rng(2)
+    args = _mlp_inputs(rng, M, D, Hd, dtype)
+    if route == "fma" and dtype == torch.bfloat16:
+        args[3], args[5] = _unaligned(args[3]), _unaligned(args[5])
+    assert mlp.mlp_route(args[0], args[3], args[5]) == route
     before = mlp.fused_mlp_block.launches
-    got = mlp.fused_mlp_block(x, ls, lb, w1, b1, w2, b2, eps=1e-12, approximate_gelu=approximate)
+    got = mlp.fused_mlp_block(*args, eps=1e-12, approximate_gelu=approximate)
     torch.cuda.synchronize()
     assert mlp.fused_mlp_block.launches == before + 1
-    assert got.dtype == dtype and got.shape == x.shape
-    want = mlp.fused_mlp_block_plain(x, ls, lb, w1, b1, w2, b2, eps=1e-12,
-                                     approximate_gelu=approximate)
+    assert mlp.fused_mlp_block.route == route
+    assert got.dtype == dtype and got.shape == args[0].shape
+    want = mlp.fused_mlp_block_plain(*args, eps=1e-12, approximate_gelu=approximate)
     _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("M,D,Hd", [(33, 32, 64), (129, 768, 3000), (70, 200, 808)])
+def test_mlp_reads_nothing_past_its_inputs(M, D, Hd):
+    """x, W1 and W2 end where NaN rows begin (x past row M, W1 past row D,
+    W2 past row Hd), and the workspaces are carved from memory that held
+    NaN: a bf16 kernel whose TMA boxes read a row past M, a k past K or a
+    workspace row past its tensor would put NaN into its outputs. D = 32
+    and 200 leave part of the last 64-wide k stage of fc1 past K, hidden
+    3000 and 808 that of fc2."""
+    rng = np.random.default_rng(11)
+    args = _mlp_inputs(rng, M, D, Hd, torch.bfloat16)
+    for i, rows in ((0, 129), (3, 64), (5, 64)):  # x, W1, W2
+        t = args[i]
+        buf = torch.full((t.shape[0] + rows, t.shape[1]), float("nan"), dtype=t.dtype, device="cuda")
+        buf[:t.shape[0]] = t
+        args[i] = buf[:t.shape[0]]
+    assert mlp.mlp_route(args[0], args[3], args[5]) == "wgmma"
+    poison = torch.full((4 * (M + 128) * (D + Hd),), float("nan"), dtype=torch.bfloat16,
+                        device="cuda")
+    del poison  # its blocks go back to the caching allocator, NaN inside
+    got = mlp.fused_mlp_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, mlp.fused_mlp_block_plain(*args, eps=1e-12), torch.bfloat16)
+
+
+def test_mlp_bf16_at_the_round_shape():
+    """The wgmma route at the round's shape (7 coalitions x 128 images x 197
+    tokens, ViT-B widths) within the bf16 tolerance of the plain version; the
+    share of outputs whose bf16 value differs from the plain version's is
+    printed (y and h are rounded to bf16 where the plain version rounds
+    them, so only the order of the float32 sums differs)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    M, D, Hd = 7 * 128 * 197, 768, 3072
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    args = [randn((M, D)), (1 + randn((D,), 0.1).float()).bfloat16(), randn((D,), 0.1),
+            randn((D, Hd), 0.03), randn((Hd,), 0.1), randn((Hd, D), 0.03), randn((D,), 0.1)]
+    assert mlp.mlp_route(args[0], args[3], args[5]) == "wgmma"
+    got = mlp.fused_mlp_block(*args, eps=1e-12)
+    want = mlp.fused_mlp_block_plain(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    differing = (got != want).float().mean().item()
+    print(f"max_abs_err {(got.float() - want.float()).abs().max().item()} "
+          f"share_differing {differing}")
+    _close(got, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -174,6 +251,7 @@ def test_bhnd_attention_kernel_matches_plain(dtype, B, H, N, layout):
     got = att.fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert att.fused_attention.launches == before + 1
+    assert att.fused_attention.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
     assert got.dtype == dtype and got.shape == (B, H, N, 64) and got.stride() == q.stride()
     _close(got, att.fused_attention_plain(q, k, v), dtype)
 
@@ -194,6 +272,47 @@ def test_bhnd_attention_gradient_on_the_card(dtype):
         before = att.fused_attention.launches
         out.backward(cot)
         assert att.fused_attention.launches == before
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (896, 17, 2)])
+def test_attention_narrow_head_dims(dtype, d, B, N, H):
+    """Head dims under 64 (micro's 16) are zero-padded to 64 by both
+    wrappers, with the true head dim's scale, and cut back."""
+    rng = np.random.default_rng(12)
+    q, k, v = (_randn(rng, (B, N, H * d), dtype=dtype) for _ in range(3))
+    before = att.fused_attention_packed.launches
+    got = att.fused_attention_packed(q, k, v, heads=H)
+    torch.cuda.synchronize()
+    assert att.fused_attention_packed.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), dtype)
+    qh, kh, vh = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
+    before = att.fused_attention.launches
+    got = att.fused_attention(qh, kh, vh)
+    torch.cuda.synchronize()
+    assert att.fused_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, N, d)
+    _close(got, att.fused_attention_plain(qh, kh, vh), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bhnd_attention_gradient_at_head_dim_16(dtype):
+    """The padded forward's gradient: the backward recomputes on the
+    unpadded tensors, as at head dim 64."""
+    rng = np.random.default_rng(13)
+    B, H, N, d = 4, 2, 65, 16
+    base = [_randn(rng, (B, N, H * d), dtype=dtype) for _ in range(3)]
+    cot = _randn(rng, (B, H, N, d), dtype=dtype)
+    grads = []
+    for fn in (att.fused_attention, att.fused_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        out = fn(*[t.view(B, N, H, d).transpose(1, 2) for t in leaves])
+        out.backward(cot)
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         _close(a, b, dtype)
@@ -231,7 +350,25 @@ def test_attention_bf16_unaligned_tensors_take_the_fma_path():
     q, k, v = (unaligned(_randn(rng, (B, N, H * 64), dtype=torch.bfloat16)) for _ in range(3))
     assert q.is_contiguous() and q.data_ptr() % 16
     got = att.fused_attention_packed(q, k, v, heads=H)
+    assert att.fused_attention_packed.route == "fma"
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), torch.bfloat16)
+
+
+def test_attention_bf16_entry_refuses_what_tma_cannot_read():
+    """The tensor-core entry takes only what ``attention_route`` sends it:
+    given unaligned bf16 tensors it returns an error and launches nothing,
+    rather than running another kernel."""
+    from shapley_vit_tpu_torch.ops import _build
+
+    lib = _build.load("attention", att._FNS)
+    B, N, H = 2, 17, 2
+    buf = torch.zeros(4 * B * N * H * 64 + 1, dtype=torch.bfloat16, device="cuda")
+    q, k, v, o = (buf[1 + i * B * N * H * 64:].data_ptr() for i in range(4))
+    err = lib.svt_attention_bhnd_bf16(q, k, v, o, B, H, N, N * H * 64, 64, H * 64, 0.125,
+                                      torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert torch.count_nonzero(buf) == 0
 
 
 @pytest.mark.parametrize("entry", ["packed", "bhnd"])
@@ -301,19 +438,25 @@ def test_attention_bf16_error_at_the_round_shape():
 
 def test_kernels_reject_what_they_do_not_take():
     rng = np.random.default_rng(3)
-    q = _randn(rng, (2, 10, 4 * 32))  # head dim 32
-    with pytest.raises(ValueError):
-        att.fused_attention_packed(q, q, q, heads=4)
-    qh = q.view(2, 10, 4, 32).transpose(1, 2)
-    with pytest.raises(ValueError, match="head dim"):
-        att.fused_attention(qh, qh, qh)
+    for d in (12, 80):  # not a multiple of 8; wider than 64
+        q = _randn(rng, (2, 10, 4 * d))
+        with pytest.raises(ValueError, match="head dim"):
+            att.fused_attention_packed(q, q, q, heads=4)
+        qh = q.view(2, 10, 4, d).transpose(1, 2)
+        with pytest.raises(ValueError, match="head dim"):
+            att.fused_attention(qh, qh, qh)
     long = _randn(rng, (1, 1, 300, 64))
     with pytest.raises(ValueError, match="sequence length"):
         att.fused_attention(long, long, long)
+    for dtype, D in ((torch.float32, 200), (torch.float32, 1056), (torch.bfloat16, 36)):
+        x = _randn(rng, (4, D), dtype=dtype)
+        w = _randn(rng, (D, 128), dtype=dtype)
+        with pytest.raises(ValueError, match="taken by no kernel"):
+            mlp.fused_mlp_block(x, x[0], x[0], w, w[0], w.T.contiguous(), x[0])
     x = _randn(rng, (4, 64))
     w = _randn(rng, (64, 128))
-    with pytest.raises(ValueError):
-        mlp.fused_mlp_block(x, x[0], x[0], w, w[0], w.T.contiguous(), x[0])
+    with pytest.raises(ValueError, match="shapes"):
+        mlp.fused_mlp_block(x, x[0], x[0], w, w[0], w, x[0])
     img = _randn(rng, (1, 32, 32, 3)).half()
     with pytest.raises(TypeError):
         pe.patch_embed(img, _randn(rng, (48, 16)).half(), _randn(rng, (16,)).half(), 4)

@@ -1,0 +1,196 @@
+"""The port at the widths of the tiny and micro ViTs, against the JAX package.
+
+The card's kernels take these widths (the MLP's wgmma route any D and hidden
+width that are multiples of 8, its FMA route any D that is a multiple of 32;
+attention head dims under 64 zero-padded to 64), so the CPU checks what the
+card's wrappers do around the kernels at those widths:
+
+* the plain fused MLP (what a CPU tensor runs and what the card holds the
+  kernels against) against the JAX Pallas kernel run by the interpreter, at
+  D = 32 (micro) and 192 (tiny), float32 (atol 1e-5) and bfloat16 (one bf16
+  step at the larger magnitude, at least 1: both round y and h to bf16 and
+  then the output, and a float32 sum taken in another order can carry a
+  value across a rounding boundary);
+* the head-dim padding of the attention wrappers (``resize_heads``), run
+  through the plain attention with the true head dim's scale, against the
+  JAX kernels at d = 16 and 32 (float32, atol 1e-5);
+* which MLP kernel a call would take on the card (``mlp_route``), and which
+  head dims the attention wrappers take;
+* a depth-2 tiny ViT against the JAX ViT at float32 (atol 2e-5, the house
+  bar of test_vit_parity.py).
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shapley_vit_tpu.models import vit as jvit
+from shapley_vit_tpu.ops import attention as jatt
+from shapley_vit_tpu.ops.mlp_block import fused_mlp_block as j_mlp
+from shapley_vit_tpu_torch.models import vit as tvit
+from shapley_vit_tpu_torch.models.convert import tree_from_numpy
+from shapley_vit_tpu_torch.ops import attention as tatt
+from shapley_vit_tpu_torch.ops import mlp_block as tmlp
+
+
+def _np(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+def _mlp_args(rng, M, D, Hd):
+    return (_np(rng, (M, D)), 1 + _np(rng, (D,), 0.1), _np(rng, (D,), 0.1),
+            _np(rng, (D, Hd), 0.05), _np(rng, (Hd,), 0.1), _np(rng, (Hd, D), 0.05),
+            _np(rng, (D,), 0.1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("M", [33, 197])
+@pytest.mark.parametrize("D", [32, 192])
+def test_mlp_at_micro_and_tiny_widths_matches_pallas(D, M, approximate, dtype):
+    rng = np.random.default_rng(D + M)
+    args = _mlp_args(rng, M, D, 4 * D)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    before = tmlp.fused_mlp_block.launches
+    got = tmlp.fused_mlp_block(*(torch.tensor(a).to(tdt) for a in args), eps=1e-12,
+                               approximate_gelu=approximate)
+    assert tmlp.fused_mlp_block.launches == before and got.dtype == tdt
+    want = np.asarray(j_mlp(*(jnp.asarray(a, dtype=jdt) for a in args), eps=1e-12,
+                            block_rows=64, interpret=True, approximate_gelu=approximate),
+                      dtype=np.float32)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    else:
+        _, e = np.frexp(np.maximum(np.maximum(np.abs(got), np.abs(want)), 1.0))
+        step = np.ldexp(1.0, e - 8)  # bf16: 8 significant bits
+        assert np.all(np.abs(got - want) <= step)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("N", [197, 50])
+def test_padded_head_dims_match_pallas(d, N, monkeypatch):
+    """What the card's wrappers launch for a head dim under 64: q/k/v
+    zero-padded to 64 per head, the kernel's arithmetic (the plain version)
+    at the true head dim's scale, the output cut back."""
+    B, H = 2, 3
+    rng = np.random.default_rng(d + N)
+    q, k, v = (_np(rng, (B, N, H * d)) for _ in range(3))
+    dk = tatt.kernel_head_dim(d)
+    assert dk == 64
+    scale = 1.0 / math.sqrt(d)
+
+    padded = [tatt.resize_heads(torch.tensor(t), H, dk) for t in (q, k, v)]
+    assert padded[0].shape == (B, N, H * dk)
+    got = tatt.resize_heads(tatt.fused_attention_packed_plain(*padded, heads=H, scale=scale), H, d)
+    want = np.asarray(jatt.fused_attention_packed(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                  heads=H, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+    monkeypatch.setenv("SVT_PALLAS_INTERPRET", "1")  # the JAX entry's Pallas kernel
+    qh, kh, vh = (t.reshape(B, N, H, d).transpose(0, 2, 1, 3) for t in (q, k, v))
+    padded = [tatt.resize_heads(torch.tensor(t), 1, dk) for t in (qh, kh, vh)]
+    assert padded[0].shape == (B, H, N, dk)
+    got = tatt.resize_heads(tatt.fused_attention_plain(*padded, scale=scale), 1, d)
+    want = np.asarray(jatt.fused_attention(jnp.asarray(qh), jnp.asarray(kh), jnp.asarray(vh)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_resize_heads_pads_with_zeros_and_cuts_back():
+    t = torch.arange(2 * 3 * 2 * 16, dtype=torch.float32).reshape(2, 3, 2 * 16)
+    p = tatt.resize_heads(t, 2, 64)
+    heads = p.reshape(2, 3, 2, 64)
+    assert torch.equal(heads[..., :16], t.reshape(2, 3, 2, 16))
+    assert not heads[..., 16:].any()
+    assert torch.equal(tatt.resize_heads(p, 2, 16), t)
+
+
+@pytest.mark.parametrize("d,ok", [(8, True), (16, True), (32, True), (56, True), (64, True),
+                                  (12, False), (4, False), (72, False), (128, False)])
+def test_attention_head_dims_the_kernel_takes(d, ok):
+    if ok:
+        assert tatt.kernel_head_dim(d) == 64
+    else:
+        with pytest.raises(ValueError, match="head dim"):
+            tatt.kernel_head_dim(d)
+
+
+def _offset(t, elements):
+    """A contiguous copy of ``t`` that starts ``elements`` past an aligned
+    allocation."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype)
+    out = buf[elements:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("D,Hd,dtype,offset,route", [
+    (768, 3072, torch.bfloat16, 0, "wgmma"),   # base
+    (192, 768, torch.bfloat16, 0, "wgmma"),    # tiny
+    (32, 64, torch.bfloat16, 0, "wgmma"),      # micro
+    (200, 808, torch.bfloat16, 0, "wgmma"),    # any multiple of 8
+    (768, 3000, torch.bfloat16, 0, "wgmma"),
+    (192, 768, torch.bfloat16, 1, "fma"),      # weights not 16-byte aligned
+    (64, 100, torch.bfloat16, 0, "fma"),       # hidden width not a multiple of 8
+    (32, 64, torch.float32, 0, "fma"),
+    (192, 768, torch.float32, 0, "fma"),
+    (1024, 4096, torch.float32, 0, "fma"),
+    (200, 808, torch.float32, 0, None),        # float32 needs D a multiple of 32
+    (1056, 64, torch.float32, 0, None),        # ... up to 1024
+    (36, 64, torch.bfloat16, 0, None),         # neither route
+])
+def test_mlp_route(D, Hd, dtype, offset, route):
+    x = torch.zeros((3, D), dtype=dtype)
+    w1 = _offset(torch.zeros((D, Hd), dtype=dtype), offset)
+    w2 = _offset(torch.zeros((Hd, D), dtype=dtype), offset)
+    if route is None:
+        with pytest.raises(ValueError, match="taken by no kernel"):
+            tmlp.mlp_route(x, w1, w2)
+    else:
+        assert tmlp.mlp_route(x, w1, w2) == route
+
+
+@pytest.mark.parametrize("dtype,offset,B,H,N,strides,route", [
+    (torch.bfloat16, 0, 896, 12, 197, (197 * 768, 64, 768), "wgmma"),   # the round, packed
+    (torch.bfloat16, 0, 64, 12, 197, (197 * 768, 64, 768), "wgmma"),    # training views
+    (torch.bfloat16, 0, 4, 2, 17, (17 * 128, 64, 128), "wgmma"),        # micro, padded to 64
+    (torch.bfloat16, 0, 1, 1, 5, (3, 3, 64), "wgmma"),                  # strides of extent 1 unused
+    (torch.bfloat16, 1, 2, 12, 197, (197 * 768, 64, 768), "fma"),       # pointers not 16-byte aligned
+    (torch.bfloat16, 0, 2, 2, 17, (17 * 130, 65, 130), "fma"),          # strides not multiples of 8
+    (torch.bfloat16, 0, 2, 2, 0, (0, 64, 128), "fma"),                  # nothing to attend
+    (torch.float32, 0, 896, 12, 197, (197 * 768, 64, 768), "fma"),
+])
+def test_attention_route(dtype, offset, B, H, N, strides, route):
+    """The kernel the attention entries launch on the card: the tensor-core
+    one for bf16 that the TMA can read (16-byte aligned pointers, strides
+    multiples of 8 where the extent is over 1), the FMA one otherwise."""
+    t = _offset(torch.zeros(64, dtype=dtype), offset)
+    assert tatt.attention_route((t, t, t, t), B, H, N, strides) == route
+
+
+@pytest.mark.parametrize("jax_path", ["xla", "pallas"])
+def test_tiny_depth2_forward_matches_jax(jax_path, monkeypatch):
+    """A depth-2 tiny ViT (D 192, 3 heads of 64, MLP 768, 224 px) with a
+    non-trivial LoRA overlay: the port against the JAX ViT on its XLA path
+    and on its Pallas kernels (interpreter)."""
+    over = dict(depth=2)
+    spec_j = jvit.make_spec("tiny", **over)
+    spec_t = tvit.make_spec("tiny", **over)
+    if jax_path == "pallas":
+        monkeypatch.setenv("SVT_PALLAS_INTERPRET", "1")
+        spec_j = spec_j.replace(attention_impl="pallas2", mlp_impl="pallas", patch_impl="pallas")
+    base = jax.device_get(jvit.init_vit(jax.random.key(0), spec_j))
+    lora = jvit.init_lora(jax.random.key(1), spec_j, classifier_from=base)
+    rng = np.random.default_rng(0)
+    lora = jax.tree.map(lambda a: np.asarray(a) + 0.05 * rng.normal(size=a.shape).astype(np.float32),
+                        jax.device_get(lora))
+    images = rng.normal(size=(2, 224, 224, 3)).astype(np.float32)
+    want = np.asarray(jvit.vit_forward(base, lora, images, spec_j))
+    got = tvit.vit_forward(tree_from_numpy(base), tree_from_numpy(lora), torch.tensor(images),
+                           spec_t).numpy()
+    assert got.shape == want.shape == (2, spec_t.num_classes)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
