@@ -70,6 +70,35 @@ Phases, each printing one JSON line:
    ``kernels`` phase's tolerances; then ``run_demo()`` at its defaults
    (micro, 16 px) and at tiny / 224 px, each through ``start()``, with the
    efficiency axiom checked as in ``train``.
+8. ``int8``    — the dynamic int8 (W8A8) round: ``driver.start.start`` at
+   bench.py's spec (ViT-B/16, bf16, tanh GELU, ``quant="int8"`` on
+   ``INT8_TARGETS``, merged eval; the MLP half runs as torch ops, since the
+   fused MLP kernel bypasses int8) on the round's data and drops, counters
+   zeroed just before: patch and packed attention must launch, the fused
+   MLP must not, and ``_int_mm`` must run. ``round_s`` is printed beside the
+   bf16 round's. Then one coalition pass at this spec under
+   ``torch.profiler``, as ``profile`` does. Then ``ops.quant.dynamic_int8_dense`` at each int8 shape
+   of the round (q and v per coalition: 25,216 rows x 768 x 768; k and fc1
+   over all 176,512 rows: x 768 x 768 and x 768 x 3072), card against the
+   same call on the CPU: identical int8 codes, scales and int32 sums, and
+   float32 outputs within 1e-6; with the card's times of the int8 product,
+   of the whole call and of the bf16 product of the same shape. Then the
+   float32 int8 forward of ViT-B/16 (8 images, LoRA overlay and two merged
+   coalitions), card against CPU within twice the CPU's own int8-vs-float32
+   difference (``int8_forward_check`` says why not the ``model`` phase's
+   1e-3).
+9. ``serve``   — the continuous service, ``driver.serve.serve``, on two
+   epochs of LoRA drops from three clients (default ``Config``: ViT-B/16,
+   bf16), counters zeroed just before: two rounds with TensorBoard and the
+   per-epoch global export on, plots off; finite SVs, the efficiency axiom
+   within 1e-6 per round from each epoch's utility table, the tables,
+   ``service_state.json``, the TensorBoard events and both exports on disk,
+   and the native inotify watcher in use. Then a recycle: a run with a
+   1 MB ``max_rss_mb`` stops after one round (``rss_ceiling``), and
+   ``start_epoch="auto"`` resumes at epoch 1; its SVs equal the
+   uninterrupted run's within 1e-5. It prints the prewarm seconds, each
+   round's ingest seconds (pipelined or not) and its seconds from the
+   moment every checkpoint was there to the SVs.
 
 Then the card's name and power limit, the kernels summary line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -394,14 +423,14 @@ def _metric(path: str, tag: str) -> float:
     return float(rows[-1]["value"])
 
 
-def exact_efficiency(output_dir: str, n: int):
+def exact_efficiency(output_dir: str, n: int, table_name: str = "utility_table.npz"):
     """Exact Shapley values from a round's persisted utility table, and how
     far their sum is from the grand coalition's utility (the efficiency
     axiom), the worse of the two utility dimensions."""
     from shapley_vit_tpu_torch.fl import checkpoint as ckpt
     from shapley_vit_tpu_torch.shapley import Game, shapley_exact
 
-    table, _ = ckpt.load_utility_table(os.path.join(output_dir, "utility_table.npz"))
+    table, _ = ckpt.load_utility_table(os.path.join(output_dir, table_name))
 
     def never(W):
         raise RuntimeError("coalition missing from the round's utility table")
@@ -413,9 +442,9 @@ def exact_efficiency(output_dir: str, n: int):
     return exact, max(abs(sum(exact[d].values()) - grand[d]) for d in range(2))
 
 
-def phase_round(counted) -> dict:
+def phase_round(counted) -> tuple:
     """One Shapley round through the port's entry point; returns the launch
-    count of each kernel during the round."""
+    count of each kernel during the round, and the round's seconds."""
     import numpy as np
     import torch
 
@@ -478,7 +507,7 @@ def phase_round(counted) -> dict:
     })
     if not ok:
         raise SystemExit("the Shapley round failed its checks")
-    return launches
+    return launches, round_s
 
 
 def phase_train(counted) -> dict:
@@ -677,12 +706,13 @@ def device_rows(prof) -> list:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
 
 
-def phase_profile(work: str) -> None:
+def phase_profile(work: str, int8: bool = False) -> None:
     """Device time by kernel over one coalition pass of the round (all 7
     coalitions x the 400 validation images, bf16), from ``torch.profiler``;
     the device's idle share is taken against the host-clock time of an
     unprofiled pass (``pass_ms``), since the profiler slows the host. The
-    inputs are rebuilt from the same seed, data and drops as the round."""
+    inputs are rebuilt from the same seed, data and drops as the round;
+    ``int8`` profiles the ``int8`` phase's spec instead."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -694,6 +724,8 @@ def phase_profile(work: str) -> None:
     from shapley_vit_tpu_torch.shapley import powerset
 
     cfg = Config()
+    if int8:
+        cfg.model.gelu, cfg.model.quant = "tanh", "int8"
     spec, base, init_lora = drv.build_model(cfg, device="cuda")
     valid = drv.load_validation_dataset(cfg, target_size=spec.image, device="cuda")
     paths = [os.path.join(work, f"client_{i + 1}_model", "ViT_epoch_9.npz") for i in range(3)]
@@ -725,7 +757,8 @@ def phase_profile(work: str) -> None:
         groups[name] += ms
         if name != "other":
             members[name].append({"name": key[:120], "device_ms": ms, "calls": n})
-    emit({"phase": "profile", "coalitions": int(W.shape[0]), "images": len(valid),
+    emit({"phase": "profile", "quant": cfg.model.quant, "coalitions": int(W.shape[0]),
+          "images": len(valid),
           "pass_ms": pass_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / pass_ms),
           "device_ms_by_group": groups,
@@ -733,8 +766,287 @@ def phase_profile(work: str) -> None:
           "top_kernels": [{"name": k[:120], "device_ms": ms, "calls": n} for k, ms, n in rows[:12]]})
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
-    if not any("mlp_block_gemm_kernel" in k["name"] for k in members["mlp_block"]):
-        raise SystemExit("the profiled pass ran no mlp_block_gemm_kernel")
+    if int8 == any("mlp_block_gemm_kernel" in k["name"] for k in members["mlp_block"]):
+        raise SystemExit("the profiled pass ran the fused MLP kernel where it should not, "
+                         "or not where it should")
+
+
+INT8_SHAPES = {  # the round's int8 products: (rows, K, N, kernel dtype)
+    "q_v_per_coalition": (IMAGES * N, D, D, "bfloat16"),
+    "k": (CB * N, D, D, "float32"),
+    "fc1": (CB * N, D, HID, "float32"),
+}
+
+
+def int8_product_rows() -> list:
+    """``dynamic_int8_dense`` at each int8 shape of the round, card against
+    the same call on the CPU, from the same seeded inputs: the activations
+    in bf16 (the round's compute dtype), q/v's merged kernels in bf16, k and
+    fc1's shared kernels in their float32 base."""
+    import torch
+
+    from shapley_vit_tpu_torch.ops import quant
+
+    rows = []
+    for name, (m, k, n, wdt) in INT8_SHAPES.items():
+        gen = torch.Generator().manual_seed(m + n)
+        x = torch.randn((m, k), generator=gen).to(torch.bfloat16)
+        w = (0.03 * torch.randn((k, n), generator=gen)).to(getattr(torch, wdt))
+        b = 0.1 * torch.randn((n,), generator=gen)
+        xg, wg, bg = x.cuda(), w.cuda(), b.cuda()
+        (xq, sx), (wq, sw) = quant.quantize_symmetric(x, -1), quant.quantize_symmetric(w, 0)
+        (xqg, sxg), (wqg, swg) = quant.quantize_symmetric(xg, -1), quant.quantize_symmetric(wg, 0)
+        codes_equal = (torch.equal(xqg.cpu(), xq) and torch.equal(wqg.cpu(), wq)
+                       and torch.equal(sxg.cpu(), sx) and torch.equal(swg.cpu(), sw))
+        acc_equal = torch.equal(quant.int8_matmul(xqg, wqg).cpu(), quant.int8_matmul(xq, wq))
+        got = quant.dynamic_int8_dense(xg, wg, bg, out_dtype=torch.float32)
+        want = quant.dynamic_int8_dense(x, w, b, out_dtype=torch.float32)
+        err = (got.cpu() - want).abs().max().item()
+        del got, want
+        wb = wg.to(torch.bfloat16)
+        row = {"name": name, "rows": m, "k": k, "n": n, "kernel_dtype": wdt,
+               "codes_and_scales_equal": codes_equal, "int32_sums_equal": acc_equal,
+               "max_abs_err": err, "atol": 1e-6,
+               "int8_matmul_ms": cuda_ms(lambda: quant.int8_matmul(xqg, wqg), 5),
+               "dynamic_int8_dense_ms": cuda_ms(lambda: quant.dynamic_int8_dense(xg, wg, bg), 5),
+               "bf16_matmul_ms": cuda_ms(lambda: xg @ wb, 5)}
+        row["ok"] = codes_equal and acc_equal and err <= 1e-6
+        rows.append(row)
+        del x, w, b, xg, wg, bg, xq, wq, xqg, wqg, wb
+        torch.cuda.empty_cache()
+    return rows
+
+
+def int8_forward_check() -> dict:
+    """The float32 int8 ViT-B/16 forward (the ``model`` phase's inputs: 8
+    images, a LoRA overlay and two merged coalitions), card against CPU.
+
+    The bar is the scheme's own error, not the ``model`` phase's 1e-3: the
+    two devices' float32 sums differ in their last bits, a value near a
+    rounding boundary gets the neighbouring int8 code on one of them, and
+    the flip moves later activations by a code step, which flips more codes
+    downstream. So two exact implementations differ by the int8 rounding
+    noise itself. The check: the card's logits within twice the CPU's own
+    int8-vs-float32 difference on the same inputs, with the CPU's
+    sensitivity beside it (its int8 logits again from images perturbed by
+    one part in 1e7, against the float32 logits' move)."""
+    import torch
+
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+
+    spec = tvit.make_spec("base", dtype="float32", gelu="tanh", quant="int8",
+                          quant_targets=tvit.INT8_TARGETS, mlp_impl="xla")
+    gen = torch.Generator().manual_seed(1)
+    base = tvit.init_vit(gen, spec)
+    lora = tvit.init_lora(gen, spec, classifier_from=base)
+    lora = tm.tree_map(lambda a: a + 0.02 * torch.randn(a.shape, generator=gen), lora)
+    deltas = tm.tree_map(lambda a: 0.02 * torch.randn((2, *a.shape), generator=gen), lora)
+    images = torch.rand((8, spec.image, spec.image, spec.channels), generator=gen)
+    nudged = images * (1 + 1e-7 * torch.randn(images.shape, generator=gen))
+    W = torch.tensor([[0.3, 0.7], [1.0, 0.0]])
+
+    def logits(dev, sp=spec, imgs=images):
+        b = tm.tree_map(lambda a: a.to(dev), base)
+        lo = tm.tree_map(lambda a: a.to(dev), lora)
+        de = tm.tree_map(lambda a: a.to(dev), deltas)
+        x = imgs.to(dev)
+        with torch.inference_mode():
+            one = tvit.vit_forward(b, lo, x, sp)
+            merged = tvit.merge_coalition_weights(b, tm.materialize_coalitions(lo, de, W), sp)
+            many = tvit.vit_forward_merged(b, merged, x, sp)
+        return torch.cat([one[None], many]).cpu()
+
+    def diff(a, b):
+        return (a - b).abs().max().item()
+
+    f32 = spec.replace(quant="none")
+    cpu, gpu, cpu_f32 = logits("cpu"), logits("cuda"), logits("cpu", f32)
+    err, int8_err = diff(gpu, cpu), diff(cpu, cpu_f32)
+    agree = (gpu.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+    return {"dtype": "float32", "images": 8, "logits_shape": list(gpu.shape),
+            "max_abs_err_vs_cpu": err, "cpu_int8_vs_float32": int8_err,
+            "bar": 2 * int8_err, "argmax_agreement": agree,
+            "cpu_sensitivity_1e-7": {"int8": diff(logits("cpu", imgs=nudged), cpu),
+                                     "float32": diff(logits("cpu", f32, nudged), cpu_f32)},
+            "logit_spread": (cpu.max() - cpu.min()).item(),
+            "ok": bool(torch.isfinite(gpu).all()) and err <= 2 * int8_err}
+
+
+def phase_int8(counted, bf16_round_s: float) -> None:
+    """The int8 round through ``start()``, the int8 products card vs CPU,
+    and the float32 int8 ViT-B forward card vs CPU."""
+    import torch
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import quant
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+
+    cfg = Config()  # ViT-B/16, bf16, merged, comp-contrib; bench.py's int8 spec:
+    cfg.model.gelu = "tanh"
+    cfg.model.quant = "int8"
+    work = os.path.join(ROOT, "exp", "chip_smoke_int8")
+    shutil.rmtree(work, ignore_errors=True)
+    cfg.obs.exp_dir = os.path.join(work, "out")
+    drops = os.path.join(ROOT, "exp", "chip_smoke")  # the round's drops
+    paths = [os.path.join(drops, f"client_{i + 1}_model", "ViT_epoch_9.npz") for i in range(3)]
+
+    for fn in counted:
+        fn.launches = 0
+    quant.int8_matmul.calls = 0
+    t0 = time.perf_counter()
+    all_rounds, _ = drv.start(cfg, checkpoint_paths=paths, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    products = quant.int8_matmul.calls
+    metrics = os.path.join(cfg.output_dir, f"party0_{cfg.obs.exp_id}_{cfg.data.mode}_metrics.csv")
+    round_s = _metric(metrics, "time/shapley_round")
+    evals = int(_metric(metrics, "shapley_round/coalition_evals"))
+    sv = [[all_rounds[d][1][c] for c in range(3)] for d in range(2)]
+    _, eff_err = exact_efficiency(cfg.output_dir, 3)
+    launches_ok = (launches["patch_embed"] > 0 and launches["fused_attention_packed"] > 0
+                   and launches["fused_mlp_block"] == 0 and products > 0)
+    round_ok = (launches_ok and eff_err <= 1e-4
+                and all(math.isfinite(x) for row in sv for x in row))
+
+    phase_profile(drops, int8=True)
+    products_rows = int8_product_rows()
+
+    fwd = int8_forward_check()
+    ok = round_ok and fwd["ok"] and all(r["ok"] for r in products_rows)
+    emit({
+        "phase": "int8", "variant": "base", "dtype": cfg.model.compute_dtype,
+        "gelu": cfg.model.gelu, "quant": cfg.model.quant, "quant_targets": list(tvit.INT8_TARGETS),
+        "mlp": "torch ops (mlp_half_xla)", "clients": 3,
+        "shapley_value": {"accuracy": sv[0], "loss": sv[1]}, "efficiency_err": eff_err,
+        "round_s": round_s, "bf16_round_s": bf16_round_s, "wall_s": wall,
+        "coalition_evals": evals, "launches": launches, "int8_products": products,
+        "products": products_rows,
+        "forward": fwd,
+        "ok": ok,
+    })
+    if not ok:
+        raise SystemExit("the int8 phase failed its checks")
+
+
+def _serve_round_numbers(records) -> list:
+    """Per round: ingest seconds (pipelined or not), and the seconds from the
+    moment every checkpoint was there (the wait's end) to the SVs."""
+    out = []
+    for r in records:
+        ph = r["phases"]
+        out.append({
+            "epoch": r["epoch"], "pipelined_ingest": r["pipelined_ingest"],
+            "ingest_s": ph.get("ingest", 0.0) + ph.get("stack_deltas", 0.0),
+            "arrival_to_sv_s": sum(ph.get(k, 0.0) for k in
+                                   ("ingest", "stack_deltas", "persist_setup", "shapley_round")),
+            "shapley_round_s": ph.get("shapley_round"), "wall_s": r["wall_s"],
+            "evals": r["evals"],
+        })
+    return out
+
+
+def phase_serve(counted) -> None:
+    """The continuous service on the card: two rounds, then a recycle and
+    an automatic resume that must reproduce them."""
+    import numpy as np
+    import torch
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import serve as svc
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.fl import ingestion, native
+    from shapley_vit_tpu_torch.models.convert import tree_to_numpy
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+
+    work = os.path.join(ROOT, "exp", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def service_cfg(name):
+        cfg = Config()  # ViT-B/16, bf16, merged, comp-contrib
+        cfg.obs.exp_dir = os.path.join(work, name)
+        cfg.paths.local_model_path = os.path.join(work, "local")
+        cfg.paths.global_model_path = os.path.join(work, name, "global")
+        cfg.obs.render_plots = False  # no matplotlib on the card's machine
+        cfg.obs.use_tensorboard = True
+        return cfg
+
+    cfg = service_cfg("service")
+    spec, _, init_lora = drv.build_model(cfg, device="cpu")
+    init_host = tree_to_numpy(init_lora)
+    for epoch in (0, 1):
+        rng = np.random.default_rng(100 + epoch)
+        for i, n_train in enumerate((120, 300, 580)):
+            drop = tm.tree_map(
+                lambda a: a + (0.02 * rng.normal(size=a.shape)).astype(np.float32), init_host)
+            ingestion.save_lora_checkpoint(
+                os.path.join(cfg.paths.local_model_path, f"client_{i + 1}_model",
+                             f"ViT_epoch_{epoch}.npz"),
+                drop, spec, num_local_data_train=n_train)
+
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = svc.serve(cfg, max_rounds=2, timeout=120.0, policy="fail", device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    out = cfg.output_dir
+    watcher = "native" if native.native_available() and native._LIB_PATH else "polling"
+    effs = [exact_efficiency(out, 3, f"utility_table_epoch_{e}.npz")[1] for e in (0, 1)]
+    svs = [[[r["shapley"][d][c] for c in range(3)] for d in range(2)] for r in records]
+    tb_dir = os.path.join(out, "tensorboard")
+    on_disk = {
+        "utility_tables": all(os.path.exists(os.path.join(out, f"utility_table_epoch_{e}.npz"))
+                              for e in (0, 1)),
+        "service_state": os.path.exists(os.path.join(out, svc.STATE_FILENAME)),
+        "tensorboard_events": os.path.isdir(tb_dir) and any(
+            "tfevents" in f for f in os.listdir(tb_dir)),
+        "global_exports": all(os.path.exists(os.path.join(
+            cfg.paths.global_model_path, f"ViT_global_epoch_{e}.npz")) for e in (0, 1)),
+    }
+    state = svc.read_service_state(out) or {}
+    service_ok = (
+        len(records) == 2 and [r["epoch"] for r in records] == [0, 1]
+        and all(math.isfinite(v) for r in svs for row in r for v in row)
+        and max(effs) <= 1e-6 and all(on_disk.values()) and watcher == "native"
+        and state.get("next_epoch") == 2
+        and launches["patch_embed"] > 0 and launches["fused_attention_packed"] > 0
+        and launches["fused_mlp_block"] > 0
+    )
+
+    # the recycle: one round under a 1 MB RSS ceiling, then an automatic resume
+    rcfg = service_cfg("recycle")
+    first = svc.serve(rcfg, max_rounds=5, timeout=120.0, policy="fail", max_rss_mb=1.0,
+                      device="cuda")
+    second = svc.serve(rcfg, max_rounds=1, timeout=120.0, policy="fail", start_epoch="auto",
+                       device="cuda")
+    resumed = [[[r["shapley"][d][c] for c in range(3)] for d in range(2)]
+               for r in list(first) + list(second)]
+    recycle_err = max(abs(a - b) for r1, r2 in zip(resumed, svs)
+                      for row1, row2 in zip(r1, r2) for a, b in zip(row1, row2))
+    recycle_ok = (first.stop_reason == "rss_ceiling" and [r["epoch"] for r in first] == [0]
+                  and [r["epoch"] for r in second] == [1] and recycle_err <= 1e-5)
+    emit({
+        "phase": "serve", "variant": "base", "dtype": cfg.model.compute_dtype, "clients": 3,
+        "rounds": len(records), "stop_reason": records.stop_reason, "wall_s": wall,
+        "prewarm_s": records.prewarm_s, "per_round": _serve_round_numbers(records),
+        "shapley_value": [{"accuracy": s[0], "loss": s[1]} for s in svs],
+        "utility": [r["utility"] for r in records], "efficiency_err": effs,
+        "on_disk": on_disk, "watcher": watcher, "native_library": native._LIB_PATH,
+        "launches": launches,
+        "recycle": {"first_stop_reason": first.stop_reason,
+                    "epochs": [r["epoch"] for r in list(first) + list(second)],
+                    "resumed_prewarm_s": second.prewarm_s,
+                    "max_abs_sv_diff_vs_uninterrupted": recycle_err, "atol": 1e-5,
+                    "ok": recycle_ok},
+        "ok": service_ok and recycle_ok,
+    })
+    if not (service_ok and recycle_ok):
+        raise SystemExit("the serve phase failed its checks")
 
 
 def variant_kernel_rows(spec, images: int) -> list:
@@ -892,11 +1204,15 @@ def main() -> int:
 
     summary = phase_kernels(card)
     phase_model()
-    launches = phase_round((patch_embed, fused_attention_packed, fused_mlp_block))
+    launches, bf16_round_s = phase_round((patch_embed, fused_attention_packed, fused_mlp_block))
     phase_profile(os.path.join(ROOT, "exp", "chip_smoke"))
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
     launches["fused_attention"] = phase_train(counted)["fused_attention"]
     phase_variants(counted)
+    # last, so that nothing they leave on the card moves the train phase's
+    # peak memory
+    phase_int8(counted, bf16_round_s)
+    phase_serve(counted)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -20,11 +20,13 @@ Layer map:
   config     — typed config tree (copy of shapley_vit_tpu.config)
   data       — array datasets, OCT loader, registry (OCT entry)
   models     — functional ViT + LoRA overlay, weight conversion/carrier
-  ops        — dict-of-tensor tree algebra + the Hopper kernels' wrappers
-  fl         — evaluation, checkpoint ingestion, client records, utility table
+  ops        — dict-of-tensor tree algebra, the Hopper kernels' wrappers, int8
+  fl         — evaluation, checkpoint ingestion (native inotify watcher),
+               client/server records, utility table and round fingerprints
   shapley    — Game + comp-contrib/exact estimators (numpy copies)
-  driver     — start() orchestration (python -m shapley_vit_tpu_torch.driver.start)
-  utils      — logging, profiling
+  driver     — start() (one round), serve() (the service), supervisor, status,
+               client training, demo, round reports
+  utils      — logging (CSV, TensorBoard), profiling, meters
 """
 
 __version__ = "0.1.0"

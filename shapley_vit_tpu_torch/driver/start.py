@@ -18,9 +18,11 @@ Entry points run on the card unless the caller passes ``device="cpu"``
 to the CPU on its own. The CLI (``python -m
 shapley_vit_tpu_torch.driver.start``) runs on the card only.
 
-Not in this slice of the port, and refused with ``NotImplementedError``:
-int8 quantization, Grad-CAM overlays, TensorBoard logging and the
-``GLOBAL_MODEL_PATH`` export of the round's global overlay.
+``model.quant="int8"`` evaluates with dynamic W8A8 on ``INT8_TARGETS``
+(``ops/quant.py``); ``paths.global_model_path`` receives the round's FedAvg
+global overlay as ``ViT_global.npz``; ``obs.use_tensorboard`` writes the
+round's scalars under ``<output_dir>/tensorboard``. Grad-CAM overlays
+(``obs.use_grad_cam``) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import tree_math as tm
 from shapley_vit_tpu_torch.shapley import Game, run_configured_comp_contrib
-from shapley_vit_tpu_torch.utils.logging import CSVLogger, get_logger
+from shapley_vit_tpu_torch.utils.logging import CSVLogger, TensorBoardWriter, get_logger
 from shapley_vit_tpu_torch.utils.profiling import StepTimer, trace
 
 Tree = Any
@@ -71,8 +73,6 @@ def build_model(cfg: Config, generator: Optional[torch.Generator] = None, device
         raise ValueError(
             f"model.quant must be 'none' or 'int8', got {cfg.model.quant!r}"
         )
-    if cfg.model.quant == "int8":
-        raise NotImplementedError("model.quant='int8' is not ported to the GPU yet")
     # fail config typos at bring-up, not after minutes of model/data setup
     if cfg.shapley.cc_stratify not in ("uniform", "balanced", "neyman"):
         raise ValueError(
@@ -86,6 +86,13 @@ def build_model(cfg: Config, generator: Optional[torch.Generator] = None, device
         lora_alpha=cfg.model.lora_alpha,
         dtype=cfg.model.compute_dtype,
         gelu=cfg.model.gelu,
+        quant=cfg.model.quant,
+        quant_targets=tvit.INT8_TARGETS,
+        # under int8 the MLP half runs as torch ops, so fc1 quantizes: the
+        # JAX drivers build their spec with mlp_impl="xla", and the port's
+        # fused MLP kernel (like the JAX Pallas MLP) bypasses int8. The
+        # int8 round computes what the JAX int8 round computes
+        **({"mlp_impl": "xla"} if cfg.model.quant == "int8" else {}),
     )
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     base = tvit.init_vit(gen, spec, device=device)
@@ -187,12 +194,8 @@ def load_validation_dataset(cfg: Config, target_size: Optional[int] = None,
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.paths.global_model_path:
-        raise NotImplementedError("the GLOBAL_MODEL_PATH export is not ported to the GPU yet")
     if cfg.obs.use_grad_cam:
         raise NotImplementedError("Grad-CAM overlays are not ported to the GPU yet")
-    if cfg.obs.use_tensorboard:
-        raise NotImplementedError("TensorBoard logging is not ported to the GPU yet")
 
 
 def get_initial_shapley_value(
@@ -322,6 +325,20 @@ def get_initial_shapley_value(
         timer.log_to(csv_logger, step=1)
         csv_logger.scalar_summary("shapley_round/coalition_evals", game.num_evaluations, 1)
 
+    # the post-round FedAvg global overlay, exported to GLOBAL_MODEL_PATH
+    # (the .env contract's third path: the FL loop reads the global model
+    # from there); aggregated only when it is exported
+    participating = [i for i, s in enumerate(selection) if s]
+    if participating and cfg.paths.global_model_path:
+        ratio = tm.fedavg_ratio([clients[i].num_local_data_train for i in participating])
+        agg = tm.aggregate_deltas(
+            tree_from_numpy(tm.tree_stack_host([deltas[i] for i in participating])), ratio
+        )
+        global_overlay = tm.apply_deltas(tm.tree_map(lambda a: a.cpu(), init_lora), agg)
+        ingestion.save_lora_checkpoint(
+            os.path.join(cfg.paths.global_model_path, "ViT_global.npz"), global_overlay, spec
+        )
+
     for i in range(utility_dim):
         shapley_value_all_rounds[i].append(shapley_value[i])
         for cid, v in shapley_value[i].items():
@@ -329,6 +346,13 @@ def get_initial_shapley_value(
     if csv_logger is not None:
         for i in range(utility_dim):
             csv_logger.log(["shapley_round1", i] + [shapley_value[i][c] for c in range(n)])
+    if cfg.obs.use_tensorboard:
+        tb = TensorBoardWriter(os.path.join(cfg.ensure_output_dir(), "tensorboard"))
+        tb.log_round(
+            1, shapley_value, se=_sv_se, utility=previous_utility,
+            wall_s=stats["total_s"], evals=game.num_evaluations,
+        )
+        tb.close()
     return shapley_value_all_rounds, shapley_value_sum
 
 

@@ -1,11 +1,19 @@
-"""Resumable coalition-utility table.
+"""Checkpoint / resume subsystem.
 
-The port of the utility-table part of ``shapley_vit_tpu/fl/checkpoint.py``
-(the reference's utility memo, game2.py:32-34, is RAM-only): a Shapley
-round's memo persists as ``utility_table.npz`` plus an append-only block log,
-stamped with a fingerprint of the round's inputs, so a killed round restarts
-without re-evaluating finished coalitions. The file format is the JAX
-package's, so either package reads the other's tables.
+The port of ``shapley_vit_tpu/fl/checkpoint.py``:
+
+  * ``save_pytree``/``load_pytree``: atomic save and restore of a tree of
+    tensors (one ``torch.save`` file written to a temporary name and renamed;
+    the JAX package uses an orbax directory, so the two formats differ);
+  * the resumable utility table (the reference's utility memo,
+    game2.py:32-34, is RAM-only): a Shapley round's memo persists as an npz
+    plus an append-only block log, stamped with a fingerprint of the round's
+    inputs, so a killed round restarts without re-evaluating finished
+    coalitions. The file format is the JAX package's, so either package
+    reads the other's tables;
+  * the round fingerprints (``fingerprint_inputs``, ``overlay_digest``,
+    ``fingerprint_files``), which give the JAX package's strings for the
+    same values, so a table's stamp means the same thing in both packages.
 """
 
 from __future__ import annotations
@@ -16,7 +24,33 @@ from typing import Dict, FrozenSet, List, Optional
 import numpy as np
 import torch
 
-from shapley_vit_tpu_torch.ops.tree_math import tree_leaves
+from shapley_vit_tpu_torch.ops.tree_math import tree_leaves, tree_map
+
+# ---------------------------------------------------------------------------
+# tree checkpoints
+# ---------------------------------------------------------------------------
+
+
+def save_pytree(path: str, tree) -> None:
+    """Atomic save of a tree of tensors (dicts, lists, tuples; overwrites an
+    existing checkpoint): written to ``path + '.tmp'``, then renamed."""
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(tree_map(lambda x: x.detach().cpu() if isinstance(x, torch.Tensor)
+                        else torch.as_tensor(np.asarray(x)), tree), tmp)
+    os.replace(tmp, path)
+
+
+def load_pytree(path: str, like=None):
+    """Restore a tree saved by :func:`save_pytree` (tensors and plain
+    containers only: ``torch.load(weights_only=True)``); ``like`` gives
+    each leaf's target dtype and device."""
+    tree = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
+    if like is not None:
+        tree = tree_map(lambda x, t: x.to(device=t.device, dtype=t.dtype), tree, like)
+    return tree
+
 
 # ---------------------------------------------------------------------------
 # resumable utility table
@@ -61,6 +95,88 @@ def fingerprint_inputs(*trees, extra=None) -> str:
                 h.update(np.sum(flat, axis=1, dtype=np.float64).tobytes())
             else:
                 h.update(b)
+    if extra is not None:
+        h.update(repr(extra).encode())
+    return h.hexdigest()
+
+
+def _dtype_name(leaf) -> str:
+    """The leaf's dtype as numpy and the JAX package print it."""
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).replace("torch.", "")
+    return str(leaf.dtype)
+
+
+def _strided_samples_impl(leaves, sample_bytes: int):
+    """A strided sample of about ``sample_bytes`` of each leaf, flattened."""
+    out = []
+    for leaf in leaves:
+        flat = leaf.reshape(-1)
+        itemsize = leaf.element_size() if isinstance(leaf, torch.Tensor) else leaf.dtype.itemsize
+        n_elem = max(1, sample_bytes // max(1, itemsize))
+        step = max(1, flat.shape[0] // n_elem)
+        out.append(flat[::step])
+    return tuple(out)
+
+
+def _host_sample(a):
+    """A sample as (its bytes, its float64 values) on the host."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:  # numpy has no bfloat16: same bytes
+            return a.view(torch.int16).numpy().tobytes(), a.double().numpy()
+        a = a.numpy()
+    a = np.asarray(a)
+    return a.tobytes(), a.astype(np.float64)
+
+
+def overlay_digest(overlay, max_leaves: int = 4, sample_bytes: int = 2048) -> str:
+    """Cheap, restart-stable identifier of a global overlay tree: a strided
+    byte sample and float64 sum of a few leaves spread across the tree (a
+    few KB from the device). Round fingerprints need the deltas' dependence
+    on the current global overlay, which ``previous_utility`` alone covers
+    only coarsely. The sums run on the host, so numpy and device overlays of
+    the same values digest identically, and as the JAX package digests
+    them."""
+    import hashlib
+
+    leaves = tree_leaves(overlay)
+    if not leaves:
+        return "empty"
+    if len(leaves) > max_leaves:
+        # deterministic spread across the traversal order
+        idx = np.linspace(0, len(leaves) - 1, max_leaves).astype(int)
+        leaves = [leaves[i] for i in idx]
+    samples = _strided_samples_impl(leaves, sample_bytes)
+    h = hashlib.blake2b(digest_size=16)
+    for leaf, a in zip(leaves, samples):
+        raw, values = _host_sample(a)
+        h.update(str(tuple(leaf.shape)).encode())
+        h.update(_dtype_name(leaf).encode())
+        h.update(raw)
+        h.update(values.sum().tobytes())
+    return h.hexdigest()
+
+
+def fingerprint_files(paths, extra=None) -> str:
+    """Digest of a round's inputs from the client checkpoint files
+    themselves (no device traffic; the service uses it instead of
+    :func:`fingerprint_inputs` over the stacked deltas). Covers each
+    client's file bytes keyed by position (a re-uploaded or permuted
+    checkpoint changes the digest), absent stragglers, and through ``extra``
+    the FedAvg weights, selection vector, overlay digest and the
+    ``previous_utility`` baseline."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for i, p in enumerate(paths):
+        h.update(f"[{i}]".encode())
+        if p is None or not os.path.exists(p):
+            h.update(b"<absent>")
+            continue
+        with open(p, "rb") as f:
+            for block in iter(lambda: f.read(1 << 20), b""):
+                h.update(block)
     if extra is not None:
         h.update(repr(extra).encode())
     return h.hexdigest()

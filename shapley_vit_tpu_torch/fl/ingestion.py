@@ -4,9 +4,10 @@ The port of ``shapley_vit_tpu/fl/ingestion.py`` (reference start.py:134-222):
 
 * writers use ATOMIC RENAME — write ``<file>.tmp`` then ``os.replace`` — so
   a file that exists is complete;
-* :func:`wait_for_checkpoints` takes a ``timeout`` and a straggler
-  ``policy`` (``"wait"``, ``"skip"``, ``"fail"``) and polls the filesystem
-  (the JAX package's native inotify watcher is a later slice of the port);
+* :func:`wait_for_checkpoints` takes a ``timeout``, a straggler ``policy``
+  (``"wait"``, ``"skip"``, ``"fail"``) and a ``should_stop`` callback (the
+  service's drain), and blocks on the native inotify watcher
+  (``fl/native.py``) or, where that cannot be built, polls the filesystem;
 * checkpoints load as torch ``.pth.tar`` (reference clients,
   ``ckpt['state_dict']`` with peft naming) or native ``.npz`` (peft-style
   keys, the svt-client format), both converted to LoRA trees via
@@ -129,6 +130,11 @@ def load_checkpoint_state_dict(path: str) -> Dict[str, np.ndarray]:
     return _load_raw(path)[0]
 
 
+def load_checkpoint_metadata(path: str) -> Dict[str, Any]:
+    """Metadata dict (e.g. ``num_local_data_train``) from a checkpoint."""
+    return _load_raw(path)[1]
+
+
 def load_client_lora(path: str, spec: ViTSpec) -> Tree:
     """Checkpoint -> LoRA overlay tree (lora A/B + classifier), numpy."""
     return convert.peft_lora_to_tree(load_checkpoint_state_dict(path), spec)
@@ -153,6 +159,17 @@ class WatchResult:
     paths: List[Optional[str]]          # per-client checkpoint path or None
     arrived: List[bool]                 # the client selection vector
     waited_seconds: float
+
+
+def default_checkpoint_paths(
+    root: str, num_clients: int, filename: str = "ViT_epoch_9.pth.tar"
+) -> List[str]:
+    """The reference's layout: ``<root>/client_{i}_model/<filename>`` with
+    1-based client directories (start.py:134-136)."""
+    return [
+        os.path.join(root, f"client_{i + 1}_model", filename)
+        for i in range(num_clients)
+    ]
 
 
 def checkpoint_path_candidates(
@@ -197,21 +214,87 @@ def wait_for_checkpoints(
     poll_interval: float = 1.0,
     policy: str = "wait",
     log_fn: Optional[Callable[[str], None]] = None,
+    _sleep=time.sleep,
+    use_native: bool = True,
+    should_stop: Optional[Callable[[], bool]] = None,
 ) -> WatchResult:
-    """Poll until every client's checkpoint exists (atomic-rename protocol:
+    """Wait until every client's checkpoint exists (atomic-rename protocol:
     existence == completeness). ``policy`` on timeout: 'wait' ignores the
     timeout (the reference blocks forever), 'skip' returns with the subset
-    that arrived, 'fail' raises TimeoutError. Each entry of
-    ``paths`` is one path or a sequence of candidate paths for that client
-    (:func:`checkpoint_path_candidates`)."""
+    that arrived, 'fail' raises TimeoutError.
+
+    ``should_stop`` (when given) is polled about once per ``poll_interval``;
+    when it turns true the wait returns EARLY with whatever arrived, never
+    raising, even under ``policy='fail'`` (the caller asked to stop and
+    tells a drain from a straggler itself): how a draining service escapes
+    an otherwise indefinite idle wait.
+
+    Each entry of ``paths`` is one path or a sequence of candidate paths for
+    that client (:func:`checkpoint_path_candidates`); the returned
+    ``WatchResult.paths`` hold the concrete path that arrived (first listed
+    candidate wins).
+
+    Backend: the native inotify watcher (``fl/native.py``) when it can be
+    built (event-driven, grouped candidates through
+    ``svt_wait_for_file_groups``), else polling."""
     if policy not in ("wait", "skip", "fail"):
         raise ValueError(f"unknown straggler policy {policy!r}")
     start = time.time()
     groups = [[p] if isinstance(p, str) else list(p) for p in paths]
+
+    if use_native:
+        try:
+            from shapley_vit_tpu_torch.fl import native
+
+            if native.native_available():
+                eff_timeout = None if policy == "wait" else timeout
+                stopped = False
+                if should_stop is None:
+                    # one event-driven block for the whole wait
+                    found, count = native.wait_for_file_groups(groups, timeout=eff_timeout)
+                else:
+                    # slice the block so should_stop is polled about once
+                    # per poll_interval; arrivals still return at once
+                    # (inotify), only the stop latency is the slice width
+                    deadline = None if eff_timeout is None else start + eff_timeout
+                    # `stopped` latches the observation: a should_stop that
+                    # flips back (a DRAIN file deleted between polls) must
+                    # not fall through to the policy='fail' raise
+                    while True:
+                        if should_stop():
+                            found = [next((p for p in g if os.path.exists(p)), None)
+                                     for g in groups]
+                            return WatchResult(found, [f is not None for f in found],
+                                               time.time() - start)
+                        sl = poll_interval
+                        if deadline is not None:
+                            sl = min(sl, max(0.0, deadline - time.time()))
+                        found, count = native.wait_for_file_groups(groups, timeout=sl)
+                        if count == len(groups):
+                            break
+                        if should_stop():
+                            stopped = True
+                            break
+                        if deadline is not None and time.time() >= deadline:
+                            break
+                elapsed = time.time() - start
+                arrived = [f is not None for f in found]
+                if count == len(groups):
+                    return WatchResult(found, arrived, elapsed)
+                if should_stop is not None and stopped:
+                    return WatchResult(found, arrived, elapsed)
+                if policy == "fail":
+                    missing = [g[0] for g, a in zip(groups, arrived) if not a]
+                    raise TimeoutError(f"clients never delivered: {missing}")
+                return WatchResult(found, arrived, elapsed)
+        except (OSError, RuntimeError, AttributeError):
+            pass  # fall through to polling
     while True:
         found = [next((p for p in g if os.path.exists(p)), None) for g in groups]
         arrived = [f is not None for f in found]
         if all(arrived):
+            return WatchResult(found, arrived, time.time() - start)
+        if should_stop is not None and should_stop():
             return WatchResult(found, arrived, time.time() - start)
         elapsed = time.time() - start
         if timeout is not None and elapsed >= timeout and policy != "wait":
@@ -222,7 +305,7 @@ def wait_for_checkpoints(
         if log_fn is not None:
             missing = sum(1 for a in arrived if not a)
             log_fn(f"waiting for {missing} client checkpoint(s)...")
-        time.sleep(poll_interval)
+        _sleep(poll_interval)
 
 
 def ingest_clients(

@@ -35,7 +35,17 @@ What changed in the port:
 * ``remat`` checkpoints each block with ``torch.utils.checkpoint`` (the
   JAX ``jax.checkpoint`` of ``_block``): the backward recomputes a block's
   intermediates instead of keeping them.
-* ``quant`` (int8) belongs to a later slice and is not a field here.
+* ``quant="int8"`` (dynamic W8A8, ``ops/quant.py``) quantizes the dense
+  projections named in ``quant_targets`` (``INT8_TARGETS`` in the drivers),
+  with the JAX package's rules: the rank-r LoRA path, the attention core and
+  the classifier stay in the compute dtype; the fused MLP kernel
+  (``mlp_impl="pallas"``) bypasses int8 on fc1 and fc2, as the JAX Pallas
+  MLP does (vit.py:64-65), so only ``mlp_impl="xla"`` quantizes them; the
+  merged q/v kernels quantize per coalition from the kernel already cast to
+  the compute dtype, the shared kernels from their float32 base. The port's
+  patch embedding is always the kernel (the JAX ``patch_impl="pallas"``
+  path), which never quantizes, so ``"patch"`` in ``quant_targets`` has no
+  effect here.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
 from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 from shapley_vit_tpu_torch.ops.patch_embed import patch_embed, patchify
+from shapley_vit_tpu_torch.ops.quant import dynamic_int8_dense
 from shapley_vit_tpu_torch.ops.tree_math import tree_leaves, tree_map
 
 Tree = Any
@@ -58,6 +69,7 @@ Tree = Any
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _ATTENTION_IMPLS = ("pallas2", "pallas")
 _MLP_IMPLS = ("pallas", "xla")
+_QUANTS = ("none", "int8")
 
 
 @dataclass(frozen=True)
@@ -98,12 +110,19 @@ class ViTSpec:
     attention_impl: str = "pallas2"
     # MLP half: 'pallas' (fused kernel, forward only) or 'xla' (torch ops)
     mlp_impl: str = "pallas"
+    # matmul quantization: 'none' | 'int8' (dynamic W8A8 on the dense
+    # projections named in quant_targets; ops/quant.py)
+    quant: str = "none"
+    # which dense matmuls quantize under quant='int8' (the JAX default; the
+    # drivers pass INT8_TARGETS)
+    quant_targets: tuple = ("patch", "q", "k", "v", "out", "fc1", "fc2")
     # recompute each block's intermediates on the backward pass (the client
     # sets it from cfg.train.remat)
     remat: bool = False
 
     def __post_init__(self):
-        for name, allowed in (("attention_impl", _ATTENTION_IMPLS), ("mlp_impl", _MLP_IMPLS)):
+        for name, allowed in (("attention_impl", _ATTENTION_IMPLS), ("mlp_impl", _MLP_IMPLS),
+                              ("quant", _QUANTS)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
 
@@ -135,6 +154,10 @@ VIT_VARIANTS = {
     # micro: CI-sized fixture for fast tests
     "micro": dict(hidden=32, depth=2, heads=2, mlp_dim=64, patch=4, image=16),
 }
+
+
+# the int8 target set the drivers use (JAX vit.py:125): q/k/v/fc1 only
+INT8_TARGETS = ("q", "k", "v", "fc1")
 
 
 def make_spec(variant: str = "base", **overrides) -> ViTSpec:
@@ -228,10 +251,13 @@ def _layer_norm(x, scale, bias, eps):
     return (y * scale + bias).to(x.dtype)
 
 
-def _dense(x, kernel, bias):
+def _dense(x, kernel, bias, spec: Optional[ViTSpec] = None, name: str = ""):
     """``x [C, T, Din]`` times a shared ``[Din, Dout]`` kernel (the coalition
     axis folds into the rows) or a per-coalition ``[C, Din, Dout]`` kernel
-    (a batched product), in the compute dtype."""
+    (a batched product), in the compute dtype, or in dynamic int8 under
+    ``spec.quant == "int8"`` when ``name`` is in ``spec.quant_targets``."""
+    if spec is not None and spec.quant == "int8" and name in spec.quant_targets:
+        return dynamic_int8_dense(x, kernel, bias, out_dtype=x.dtype)
     if bias.dim() == 2:  # per-coalition bias [C, Dout]
         bias = bias[:, None, :]
     return torch.matmul(x, kernel.to(x.dtype)) + bias.to(x.dtype)
@@ -255,8 +281,10 @@ def _attention(x, attn_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
 
     def proj(name, merged_kernel):
         p = attn_p[name]
-        y = _dense(xt, p["kernel"] if merged_kernel is None else merged_kernel, p["bias"])
+        y = _dense(xt, p["kernel"] if merged_kernel is None else merged_kernel, p["bias"],
+                   spec, name)
         if lora_p is not None and name in lora_p:
+            # the rank-r path stays in the compute dtype under int8
             a = lora_p[name]["A"].to(x.dtype)
             b = lora_p[name]["B"].to(x.dtype)
             y = y + torch.matmul(torch.matmul(xt, a), b) * scaling
@@ -273,7 +301,7 @@ def _attention(x, attn_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
 
         ctx = fused_attention(split_heads(q), split_heads(k), split_heads(v)).transpose(1, 2)
     ctx = ctx.reshape(C, B * N, D)
-    out = _dense(ctx, attn_p["out"]["kernel"], attn_p["out"]["bias"])
+    out = _dense(ctx, attn_p["out"]["kernel"], attn_p["out"]["bias"], spec, "out")
     return out.reshape(C, B, N, D)
 
 
@@ -283,12 +311,12 @@ def mlp_half_xla(x, blk_p, spec: ViTSpec):
     over ``x [..., D]``; ``blk_p`` holds ``ln2`` and ``mlp``."""
     mlp = blk_p["mlp"]
     y = _layer_norm(x, blk_p["ln2"]["scale"], blk_p["ln2"]["bias"], spec.layernorm_eps)
-    y = _dense(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"])
+    y = _dense(y, mlp["fc1"]["kernel"], mlp["fc1"]["bias"], spec, "fc1")
     if spec.gelu == "exact_f32":  # HF parity: erf GELU in f32
         y = F.gelu(y.float()).to(x.dtype)
     else:
         y = F.gelu(y, approximate="tanh" if spec.gelu == "tanh" else "none")
-    return x + _dense(y, mlp["fc2"]["kernel"], mlp["fc2"]["bias"])
+    return x + _dense(y, mlp["fc2"]["kernel"], mlp["fc2"]["bias"], spec, "fc2")
 
 
 def _block(x, blk_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
@@ -298,6 +326,7 @@ def _block(x, blk_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
     x = x + _attention(y, blk_p["attn"], lora_p, spec, q_kernel, v_kernel)
     if spec.mlp_impl == "xla":
         return mlp_half_xla(x, blk_p, spec)
+    # the fused kernel bypasses int8 on fc1 and fc2, as the JAX Pallas MLP does
     mlp = blk_p["mlp"]
     # the fused block, with the LN and fc weights cast to the compute dtype
     # first (the JAX wiring, vit.py:338-346)

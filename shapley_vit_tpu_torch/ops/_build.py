@@ -12,6 +12,10 @@ package and runs the plain versions on the CPU. ``<digest>`` hashes the
 source, every shared header (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is.
 Libraries go to ``shapley_vit_tpu_torch/build/``, which git ignores.
+
+Host code with a C interface (``csrc/svt_runtime.cpp``, the inotify
+watcher of ``fl/native.py``) is built the same way by :func:`build_host`,
+with ``g++``.
 """
 
 from __future__ import annotations
@@ -96,6 +100,37 @@ def build(names: Iterable[str] = KERNELS, extra_flags: Sequence[str] = ()) -> fl
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0
+
+
+GXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared", "-pthread"]
+
+
+def host_library_path(name: str) -> Path:
+    """The library of host source ``csrc/<name>.cpp``, named by a digest of
+    the source and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with ``g++`` unless its library exists;
+    returns the library's path. Raises with the compiler's output (or when
+    no ``g++`` is found)."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    gxx = os.environ.get("CXX") or shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {name}.cpp cannot be built on this machine")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ {name}.cpp failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def load(name: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:

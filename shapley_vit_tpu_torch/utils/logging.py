@@ -1,10 +1,12 @@
-"""Logging: one structured logger + CSV experiment log.
+"""Logging: one structured logger, the CSV experiment log and TensorBoard.
 
-The parts of ``shapley_vit_tpu/utils/logging.py`` the Shapley driver uses:
+The parts of ``shapley_vit_tpu/utils/logging.py`` the drivers use:
 ``get_logger`` builds a standard ``logging.Logger`` (file + stream);
 ``CSVLogger`` keeps the CSV experiment log (``party{rank}_{exp}_{mode}_log.csv``,
 reference utils/logger.py:17) and a metrics CSV fed by
-:meth:`CSVLogger.scalar_summary`.
+:meth:`CSVLogger.scalar_summary`; ``TensorBoardWriter`` writes the
+per-round scalars of ``--use-tensorboard`` through the native event writer
+(``utils/tb_events.py``).
 """
 
 from __future__ import annotations
@@ -96,3 +98,70 @@ class CSVLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+# Canonical utility-dimension names (reference start.py:88-91 utility_map);
+# driver/report.py and the TB writer share this single mapping.
+UTILITY_NAMES = {0: "accuracy", 1: "loss"}
+
+
+class TensorBoardWriter:
+    """Per-round TensorBoard scalars for the drivers (the reference ships a
+    ``--use-tensorboard`` flag with no wired backend, opts.py:70-72):
+    per-client SV (and ±σ) per utility dim, global utility, round wall time,
+    eval counts, the per-phase spans and service-health values, keyed by
+    epoch. Backed by the native event writer (``utils/tb_events.py``), not
+    ``torch.utils.tensorboard``, which imports TensorFlow when present.
+    Degrades to a no-op if the log dir is unwritable: observability is
+    optional, the service is not."""
+
+    def __init__(self, log_dir: str):
+        self._w = None
+        try:
+            from shapley_vit_tpu_torch.utils.tb_events import ScalarEventWriter
+
+            self._w = ScalarEventWriter(log_dir)
+        except Exception as e:  # unwritable dir: observability is optional
+            get_logger().info(f"tensorboard writer unavailable: {e}")
+
+    @property
+    def active(self) -> bool:
+        return self._w is not None
+
+    def log_round(self, step, shapley_value, se=None, utility=None,
+                  wall_s=None, evals=None, phases=None,
+                  health=None) -> None:
+        if self._w is None:
+            return
+        for dim, sv in enumerate(shapley_value):
+            name = UTILITY_NAMES.get(dim, str(dim))
+            for cid, v in sv.items():
+                self._w.add_scalar(f"shapley/{name}/client_{cid}", v, step)
+                if se is not None:
+                    self._w.add_scalar(
+                        f"shapley_se/{name}/client_{cid}", se[dim][cid], step
+                    )
+            # cross-client SV distribution per round (a HistogramProto)
+            if len(sv) > 1:
+                self._w.add_histogram(
+                    f"shapley/{name}/distribution", list(sv.values()), step,
+                    bins=min(30, max(2, len(sv))),
+                )
+        if utility is not None:
+            for dim, u in enumerate(utility):
+                name = UTILITY_NAMES.get(dim, str(dim))
+                self._w.add_scalar(f"global/{name}", u, step)
+        if wall_s is not None:
+            self._w.add_scalar("round/wall_s", wall_s, step)
+        if evals is not None:
+            self._w.add_scalar("round/coalition_evals", evals, step)
+        for span, total in (phases or {}).items():
+            self._w.add_scalar(f"round/phase_s/{span}", total, step)
+        for name, v in (health or {}).items():
+            self._w.add_scalar(f"health/{name}", v, step)
+        self._w.flush()
+
+    def close(self) -> None:
+        if self._w is not None:
+            self._w.close()
+            self._w = None

@@ -36,6 +36,20 @@ def trace(log_dir: Optional[str], enabled: bool = True):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def process_rss_mb() -> float:
+    """Resident set size of this process in MB (0.0 where /proc is absent).
+    The service exports it per round (``health/rss_mb``) and recycles the
+    process at ``max_rss_mb``."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return 0.0
+
+
 class StepTimer:
     """Named wall-clock spans with running stats.
 

@@ -128,9 +128,12 @@ def test_start_runs_on_the_cpu_only_when_asked(tmp_path, rounds):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tstart.start(cfg, checkpoint_paths=rounds["paths"])
+    int8 = _cfg(TConfig, tmp_path)
+    int8.model.quant = "int8"  # ported: no longer refused
+    assert tstart.build_model(int8, device="cpu")[0].quant == "int8"
     bad = _cfg(TConfig, tmp_path)
-    bad.model.quant = "int8"
-    with pytest.raises(NotImplementedError):
+    bad.model.quant = "int4"
+    with pytest.raises(ValueError):
         tstart.build_model(bad, device="cpu")
     bad = _cfg(TConfig, tmp_path)
     bad.obs.use_grad_cam = True

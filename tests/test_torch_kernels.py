@@ -492,3 +492,48 @@ def test_training_step_on_the_card_matches_the_cpu(remat):
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-5
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# int8 (W8A8): torch._int_mm on the card against the same call on the CPU
+# ---------------------------------------------------------------------------
+
+from shapley_vit_tpu_torch.ops import quant  # noqa: E402
+
+
+# rows: fewer than the 17 cuBLASLt takes (padded), exactly 17, a row count
+# that is no multiple of any tile; K and N the ViT-B widths and narrow ones
+@pytest.mark.parametrize("M,K,N", [(1, 768, 768), (16, 64, 32), (17, 768, 3072),
+                                   (985, 192, 768), (197, 768, 768)])
+def test_int8_matmul_matches_the_cpu(M, K, N):
+    gen = torch.Generator().manual_seed(M)
+    a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (K, N), generator=gen, dtype=torch.int8)
+    got = quant.int8_matmul(a.cuda(), b.cuda())
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu(), quant.int8_matmul(a, b))  # int32: exact
+
+
+@pytest.mark.parametrize("C", [0, 3])
+def test_dynamic_int8_dense_matches_the_cpu(C):
+    """Shared ([K, N]) and per-coalition ([C, K, N]) kernels: the same codes,
+    scales and int32 sums on both devices; the float32 outputs within 1e-6."""
+    rng = np.random.default_rng(C)
+    lead = (C,) if C else (2,)
+    x = torch.as_tensor(rng.normal(size=(*lead, 197, 768)), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(*((C,) if C else ()), 768, 768)) * 0.03,
+                        dtype=torch.float32)
+    b = torch.as_tensor(rng.normal(size=768) * 0.1, dtype=torch.float32)
+    want = quant.dynamic_int8_dense(x, w, b)
+    got = quant.dynamic_int8_dense(x.cuda(), w.cuda(), b.cuda())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6, rtol=0)
+    for dev in ("cpu", "cuda"):
+        q, s = quant.quantize_symmetric(x.to(dev), dim=-1)
+        assert torch.equal(q.cpu(), quant.quantize_symmetric(x, dim=-1)[0])
+        assert torch.equal(s.cpu(), quant.quantize_symmetric(x, dim=-1)[1])
+
+
+def test_int8_refuses_on_the_card_what_it_refuses_on_the_cpu():
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.dynamic_int8_dense(torch.ones((20, 12), device="cuda"),
+                                 torch.ones((12, 8), device="cuda"))
