@@ -99,6 +99,29 @@ Phases, each printing one JSON line:
    uninterrupted run's within 1e-5. It prints the prewarm seconds, each
    round's ingest seconds (pipelined or not) and its seconds from the
    moment every checkpoint was there to the SVs.
+10. ``rounds``  — multi-round FL with per-round Shapley valuation,
+   ``driver.rounds.run_federated_rounds`` on ``driver.rounds.build_round_fns``
+   (default ``Config``: ViT-B/16, bf16, merged eval; synthetic OCT at scale
+   1.0, 400 validation images), counters zeroed just before: three clients
+   of 120/300/580 training images, three rounds with participation
+   ``[[1,1,1],[1,0,1],[1,1,1]]``, 4 local Adam 5e-3 steps at batch 64 per
+   participant and round, a MILP budget of 2, comp-contrib (m = 50·n) on the
+   valued rounds; all four kernels must launch. Then each valued round's
+   Game again (``driver.rounds.round_game``): exact Shapley values within
+   1e-6 of the efficiency axiom, comp-contrib from the round's seed
+   reproducing the driver's values within 1e-6 and within 4 standard errors
+   (+1e-6) of exact (comp-contrib does not satisfy the axiom itself: its
+   gap is printed). Round 1's Game: the non-participant's value exactly
+   0.0 under exact and comp-contrib. On the last valued round's Game, after
+   exact: Monte-Carlo, Owen, KernelSHAP, Beta Shapley, Banzhaf, GTG, MR and
+   TMR score from the cache with no launch. Then
+   ``shapley.fed_shapley.compute_utilities_lazy`` over the 3 x 3 stacked
+   (round, client) deltas, all 7 subsets in one evaluator call, against a
+   sequential reconstruction (each round's FedAvg applied in turn, then
+   ``fl.evaluation.evaluate_model`` on the merged forward): mean loss
+   within 1e-3, accuracy within 1/200. It prints per-round training,
+   evaluation and Shapley seconds, the MILP and GTG host seconds, the
+   launches per kernel, peak memory and every check's measured error.
 
 Then the card's name and power limit, the kernels summary line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -1049,6 +1072,212 @@ def phase_serve(counted) -> None:
         raise SystemExit("the serve phase failed its checks")
 
 
+ROUNDS_PARTICIPATION = ((1, 1, 1), (1, 0, 1), (1, 1, 1))
+ROUNDS_CLIENTS = (120, 300, 580)
+
+
+def phase_rounds(counted, cfg=None, device="cuda") -> None:
+    """Multi-round FL with per-round Shapley valuation on the card (ViT-B/16,
+    bf16, the default ``Config``; ``cfg`` and ``device`` exist to rehearse
+    the phase at a small size on the CPU), then the compared estimators on
+    the valued rounds' Games and the lazy multi-round utilities against a
+    sequential reconstruction."""
+    import numpy as np
+    import torch
+
+    from shapley_vit_tpu_torch import shapley as sh
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import rounds
+    from shapley_vit_tpu_torch.fl import evaluation as ev
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.shapley import fed_shapley as fs
+    from shapley_vit_tpu_torch.utils.profiling import StepTimer
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    cfg = cfg or Config()  # ViT-B/16, bf16, merged, synthetic OCT at scale 1.0
+    fns = rounds.build_round_fns(cfg, device=device, local_steps=4)  # Adam 5e-3, batch 64
+    spec, base, init_lora = fns["spec"], fns["base"], fns["init_lora"]
+    valid, data, train = fns["valid"], fns["data"], fns.pop("train")
+    order = np.random.default_rng(5).permutation(len(train))
+    ends = np.cumsum((0,) + ROUNDS_CLIENTS)
+    clients = [rounds.client_tensors(train.images[order[a:b]], train.labels[order[a:b]],
+                                     spec.image, device) for a, b in zip(ends[:-1], ends[1:])]
+    del train
+    participation = np.array(ROUNDS_PARTICIPATION, dtype=bool)
+    n, n_rounds, budget, seed = 3, len(participation), 2, cfg.shapley.seed
+    factory = fns["eval_coalitions_fn_factory"]
+
+    timer = StepTimer()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = rounds.run_federated_rounds(
+        num_rounds=n_rounds, clients_data=clients, init_overlay=init_lora,
+        train_client_fn=fns["train_client_fn"], evaluate_fn=fns["evaluate_fn"],
+        eval_coalitions_fn_factory=factory, num_local_data=ROUNDS_CLIENTS,
+        participation=participation, estimator="comp_contrib", shapley_budget=budget,
+        seed=seed, timer=timer)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    valued = [t for t, r in enumerate(records) if r.shapley is not None]
+
+    train_s = iter(timer.times("train"))
+    per_round = [{"round": t, "participants": [int(c) for c in np.nonzero(participation[t])[0]],
+                  "train_s": [next(train_s) for _ in range(int(participation[t].sum()))],
+                  "evaluate_s": timer.times("evaluate")[t], "utility": records[t].utility,
+                  "valued": t in valued} for t in range(n_rounds)]
+    shapley_s = dict(zip(valued, timer.times("shapley")))
+    for row in per_round:
+        row["shapley_s"] = shapley_s.get(row["round"])
+
+    def game_of(t):
+        return rounds.round_game(records, t, init_lora, fns["evaluate_fn"], factory,
+                                 ROUNDS_CLIENTS)
+
+    def gap(sv, game):
+        grand = game.eval_utility(game.selected_clients)
+        return max(abs(sum(sv[d].values()) - grand[d]) for d in range(2))
+
+    def arr(sv):
+        return np.array([[sv[d][c] for c in range(n)] for d in range(2)])
+
+    # each valued round again: exact's efficiency, comp-contrib reproduced
+    valued_rows = []
+    for t in valued:
+        game = game_of(t)
+        exact = sh.shapley_exact(game)
+        cc, se = sh.shapley_comp_contrib(game, 50 * game.n, return_se=True,
+                                         rng=np.random.default_rng(seed + 1000 + t))
+        vs_exact = np.abs(arr(cc) - arr(exact))
+        valued_rows.append({
+            "round": t, "exact_efficiency_err": gap(exact, game),
+            "comp_contrib_efficiency_gap": gap(cc, game),
+            "comp_contrib_vs_driver": float(np.abs(arr(cc) - arr(records[t].shapley)).max()),
+            "comp_contrib_vs_exact": float(vs_exact.max()),
+            "comp_contrib_within_4se": bool((vs_exact <= 4 * arr(se) + 1e-6).all()),
+            "shapley_value": {"accuracy": [records[t].shapley[0][c] for c in range(n)],
+                              "loss": [records[t].shapley[1][c] for c in range(n)]},
+            "exact_shapley_value": {"accuracy": [exact[0][c] for c in range(n)],
+                                    "loss": [exact[1][c] for c in range(n)]},
+        })
+    valued_ok = all(r["exact_efficiency_err"] <= 1e-6 and r["comp_contrib_vs_driver"] <= 1e-6
+                    and r["comp_contrib_within_4se"] for r in valued_rows)
+
+    # round 1: client 1 sat out; its value is exactly 0.0
+    game1 = game_of(1)
+    sat_out = {"exact": [d[1] for d in sh.shapley_exact(game1)],
+               "comp_contrib": [d[1] for d in sh.shapley_comp_contrib(
+                   game1, 50 * game1.n, rng=np.random.default_rng(seed + 1001))]}
+    sat_out_ok = all(v == 0.0 for vals in sat_out.values() for v in vals)
+
+    # the compared estimators on the last valued round's Game: exact fills
+    # the cache, every later family scores from it with no launch
+    game = game_of(valued[-1])
+    rng = np.random.default_rng(seed + 3000)
+    sh.shapley_exact(game)
+    evals = game.num_evaluations
+    for fn in counted:
+        fn.launches = 0
+    host_s = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        fn()
+        host_s[name] = time.perf_counter() - t1
+
+    timed("monte_carlo", lambda: sh.shapley_monte_carlo(game, 50 * game.n, rng=rng))
+    timed("owen", lambda: sh.shapley_owen(game, rng=rng))
+    timed("kernel", lambda: sh.shapley_kernel(game))
+    timed("beta", lambda: sh.shapley_beta(game, alpha=1.0, beta=4.0, m=50, rng=rng))
+    timed("banzhaf", lambda: sh.banzhaf_value(game, m=50, rng=rng))
+    timed("gtg", lambda: [sh.GTG(d, rng=np.random.default_rng(seed + 2000 + valued[-1]),
+                                 batch_prefixes=True).compute_shapley_value(game, valued[-1])
+                          for d in range(2)])
+    timed("mr", lambda: [sh.MR(d).compute_shapley_value(game, valued[-1]) for d in range(2)])
+    timed("tmr", lambda: [sh.TMR(d).compute_shapley_value(game, valued[-1]) for d in range(2)])
+    cached_launches = {fn.__name__: fn.launches for fn in counted}
+    cached_ok = (all(v == 0 for v in cached_launches.values())
+                 and game.num_evaluations == evals == 2 ** game.n - 1)
+
+    # the lazy multi-round utilities: one evaluator call over the 3 x 3 stack
+    zeros = tm.tree_zeros_like(init_lora)
+    stacked_all = tm.tree_stack([d if d is not None else zeros for r in records for d in r.deltas])
+    init_utility = list(fns["evaluate_fn"](init_lora))
+    evaluate_all = factory(init_lora, stacked_all)
+    calls = []
+
+    def lazy_eval(W):
+        calls.append(W.shape)
+        return evaluate_all(W)
+
+    all_subsets = fs.all_subsets_enumeration(n)
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        _, lazy = fs.compute_utilities_lazy(
+            num_clients=n, previous_utility=init_utility,
+            client_deltas_all_rounds=[r.deltas for r in records],
+            client_selection_matrix=participation, num_local_data=ROUNDS_CLIENTS,
+            eval_coalitions_fn=lazy_eval, all_subsets=all_subsets, utility_dim=2,
+            current_round=n_rounds - 1)
+    sync()
+    lazy_s = time.perf_counter() - t1
+
+    def merged_forward(overlay, images):
+        stacked = tm.tree_map(lambda a: a[None], overlay)
+        return tvit.vit_forward_merged(base, tvit.merge_coalition_weights(base, stacked, spec),
+                                       images, spec)[0]
+
+    lazy_err = {"accuracy": 0.0, "loss": 0.0}
+    for subset in all_subsets:
+        overlay = init_lora
+        for t, rec in enumerate(records):
+            members = [j for j in subset if participation[t][j]]
+            if members:
+                ratio = tm.fedavg_ratio([ROUNDS_CLIENTS[j] for j in members])
+                overlay = tm.apply_deltas(overlay, tm.aggregate_deltas(
+                    tm.tree_stack([rec.deltas[j] for j in members]), ratio))
+        acc, loss = ev.evaluate_model(merged_forward, overlay, data, dataset_size=len(valid))
+        for d, (name, got) in enumerate((("accuracy", acc), ("loss", loss))):
+            lazy_err[name] = max(lazy_err[name], abs(lazy[d][subset] + init_utility[d] - got))
+    lazy_ok = (calls == [(7, n_rounds * n)] and lazy_err["loss"] <= 1e-3
+               and lazy_err["accuracy"] <= 1 / 200)
+
+    svs = [v for r in records if r.shapley for d in r.shapley for v in d.values()]
+    run_ok = (len(valued) <= budget and all(math.isfinite(v) for v in svs)
+              and (all(v > 0 for v in launches.values()) or not on_card))
+    ok = run_ok and valued_ok and sat_out_ok and cached_ok and lazy_ok
+    emit({
+        "phase": "rounds", "variant": cfg.model.vit_variant, "dtype": cfg.model.compute_dtype,
+        "eval_mode": cfg.model.eval_mode, "clients": list(ROUNDS_CLIENTS),
+        "validation_images": len(valid), "participation": participation.astype(int).tolist(),
+        "local_steps": 4, "batch": cfg.train.train_batch * 8, "estimator": "comp_contrib",
+        "budget": budget,
+        "valued_rounds": valued, "wall_s": wall, "per_round": per_round,
+        "milp_s": timer.times("milp")[0], "coalition_eval_s": timer.times("coalition_eval"),
+        "launches": launches, "peak_memory_gb": peak_gb,
+        "valued": valued_rows, "efficiency_atol": 1e-6,
+        "round1_sat_out_sv": sat_out,
+        "cached_game": {"round": valued[-1], "launches": cached_launches,
+                        "coalition_evals": game.num_evaluations, "host_s": host_s, "ok": cached_ok},
+        "lazy": {"evaluator_calls": [list(c) for c in calls], "seconds": lazy_s,
+                 "max_abs_err_vs_sequential": lazy_err, "atol": {"loss": 1e-3, "accuracy": 1 / 200},
+                 "ok": lazy_ok},
+        "ok": ok,
+    })
+    if not ok:
+        raise SystemExit("the rounds phase failed its checks")
+
+
 def variant_kernel_rows(spec, images: int) -> list:
     """Each of the four kernels at a variant's widths (``images`` images of
     ``spec.image`` px) against its plain version on the same seeded inputs,
@@ -1213,6 +1442,7 @@ def main() -> int:
     # peak memory
     phase_int8(counted, bf16_round_s)
     phase_serve(counted)
+    phase_rounds(counted)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -171,17 +171,25 @@ def resize_images(images: np.ndarray, target: int, device="cpu", block: int = 25
     return np.concatenate(out, axis=0)
 
 
-def load_validation_dataset(cfg: Config, target_size: Optional[int] = None,
-                            device="cpu") -> ArrayDataset:
-    """OCT validation data via the .env path (reference getOCTData2,
-    start.py:51-56) with the synthetic fallback for offline runs. Images are
-    resized once (on ``device``) to the model's input size."""
+def load_oct_splits(cfg: Config) -> Dict[str, ArrayDataset]:
+    """The OCT splits via the .env path (reference getOCTData2,
+    start.py:51-56) with the synthetic fallback for offline runs, at the
+    images' own size."""
     root = cfg.paths.validation_dataset or cfg.data.data_dir
     splits, _ = get_dataset(
         "oct", data_dir=root, synthetic_ok=True, seed=cfg.shapley.seed,
         synthetic_scale=cfg.data.synthetic_scale,
     )
-    ds = splits["val"]
+    return splits
+
+
+def load_validation_dataset(cfg: Config, target_size: Optional[int] = None,
+                            device="cpu", splits: Optional[Dict[str, ArrayDataset]] = None
+                            ) -> ArrayDataset:
+    """OCT validation data (:func:`load_oct_splits`, or ``splits`` when a
+    caller has them already). Images are resized once (on ``device``) to
+    the model's input size."""
+    ds = (splits or load_oct_splits(cfg))["val"]
     target = target_size or cfg.data.image_size
     if ds.images.shape[1] != target:
         ds = ArrayDataset(

@@ -1,11 +1,17 @@
-"""Shapley-value estimators: the comp-contrib and exact estimators the
-Shapley round runs.
+"""Shapley-value estimators: every estimator of
+``shapley_vit_tpu/shapley/estimators.py`` (reference
+``fed_client_contribution/utils_shapley.py``), as a numpy copy.
 
-A numpy copy of the matching parts of ``shapley_vit_tpu/shapley/estimators.py``
-(reference ``fed_client_contribution/utils_shapley.py``). The arithmetic and
-the order in which every function draws from ``rng`` are the same as there,
-so one seed samples the same coalitions in both packages and the tests can
-hold the port's Shapley values against the JAX package's.
+Each estimator draws every sample from an explicit ``np.random.Generator``
+first, then evaluates the distinct coalitions in one batched
+``game.precompute`` call, then scores on the host. The arithmetic and the
+order in which every function draws from ``rng`` are the same as in the JAX
+package, so one seed samples the same coalitions in both packages and the
+tests hold the port's Shapley values against the JAX package's.
+
+Estimators never share mutable state: ``game.default_shapley_value`` returns
+a fresh structure (the reference's in-place aliasing at utils_shapley.py:254
+is a bug not replicated).
 """
 
 from __future__ import annotations
@@ -20,6 +26,10 @@ import numpy as np
 
 from shapley_vit_tpu_torch.shapley.game import Game
 
+
+# ---------------------------------------------------------------------------
+# helpers (reference utils_shapley.py:141-152, 214-331)
+# ---------------------------------------------------------------------------
 
 def powerset(iterable) -> Dict[tuple, int]:
     """Non-empty subsets, sorted tuples -> enumeration index
@@ -37,6 +47,55 @@ def ncr(n: int, r: int) -> int:
     return numer // denom
 
 
+def split_permutation(m: int, num: int) -> List[List[int]]:
+    """Partition range(m) into ``num`` near-equal chunks
+    (utils_shapley.py:214-231) — kept for sharding Monte-Carlo sample budgets
+    across hosts (SURVEY.md §2.3)."""
+    assert m > 0
+    quotient, remainder = divmod(m, num)
+    out, r = [], []
+    for i in range(m):
+        r.append(i)
+        if (remainder > 0 and len(r) == quotient + 1) or (
+            remainder <= 0 and len(r) == quotient
+        ):
+            remainder -= 1
+            out.append(r)
+            r = []
+    return out
+
+
+def split_permutation_num(m: int, num: int) -> np.ndarray:
+    """Chunk sizes of :func:`split_permutation` (utils_shapley.py:234-245)."""
+    assert m > 0
+    quotient, remainder = divmod(m, num)
+    if remainder > 0:
+        arr = [quotient] * (num - remainder) + [quotient + 1] * remainder
+    else:
+        arr = [quotient] * num
+    return np.asarray(arr)
+
+
+def split_num(m_list: Sequence[int], num: int, rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Column-stacked chunking of several budgets (utils_shapley.py:303-328)."""
+    rng = rng or np.random.default_rng()
+    cols = None
+    for m in m_list:
+        assert m >= 0
+        if m != 0:
+            quotient, remainder = divmod(int(m), num)
+            if remainder > 0:
+                arr = [[quotient]] * (num - remainder) + [[quotient + 1]] * remainder
+                arr = list(arr)
+                rng.shuffle(arr)
+            else:
+                arr = [[quotient]] * num
+        else:
+            arr = [[0]] * num
+        cols = arr if cols is None else np.concatenate((cols, arr), axis=-1)
+    return np.asarray(cols)
+
+
 def _merge_with_default(game: Game, sv_arrays: List[np.ndarray]) -> List[Dict[int, float]]:
     """Map per-selected-client arrays onto the full client-id dict, keeping
     default (zero) SV for non-selected clients (utils_shapley.py:355-360)."""
@@ -46,6 +105,10 @@ def _merge_with_default(game: Game, sv_arrays: List[np.ndarray]) -> List[Dict[in
             out[i][client_id] = float(sv_arrays[i][idx])
     return out
 
+
+# ---------------------------------------------------------------------------
+# exact estimators
+# ---------------------------------------------------------------------------
 
 def shapley_exact(game: Game) -> List[Dict[int, float]]:
     """Exact SV, factorial-coefficient form over the powerset
@@ -83,6 +146,129 @@ def shapley_exact(game: Game) -> List[Dict[int, float]]:
         for c, k in pos.items():
             shapley_value[i][c] += float(sv_arr[k, i])
     return shapley_value
+
+
+def shapley_exact_own(game: Game) -> List[Dict[int, float]]:
+    """Exact SV, marginal-contribution form (utils_shapley.py:156-182)."""
+    n = game.n
+    participants = list(game.selected_clients)
+    game.precompute(list(powerset(participants)))
+    shapley_value = game.default_shapley_value
+    for client_id in participants:
+        others = [c for c in participants if c != client_id]
+        for s in powerset(others):
+            v1 = game.eval_utility(s)
+            v2 = game.eval_utility(list(s) + [client_id])
+            for i in range(game.utility_dim):
+                shapley_value[i][client_id] += (v2[i] - v1[i]) / ncr(n - 1, len(s))
+        v = game.eval_utility([client_id])
+        for i in range(game.utility_dim):
+            shapley_value[i][client_id] += v[i]
+            shapley_value[i][client_id] /= n
+    return shapley_value
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo estimators
+# ---------------------------------------------------------------------------
+
+def shapley_monte_carlo(
+    game: Game,
+    m: int,
+    rng: Optional[np.random.Generator] = None,
+    antithetic: bool = False,
+    return_se: bool = False,
+):
+    """Permutation Monte-Carlo (utils_shapley.py:248-269): m permutations,
+    credit marginal contributions along each prefix chain.
+
+    ``antithetic=True`` (beyond-reference variance reduction, default off for
+    rng-stream parity) pairs each drawn permutation with its reverse: a
+    client early in one chain is late in the mirror, anti-correlating their
+    marginal contributions when utility has consistent curvature in
+    coalition size. Each reversed permutation is still marginally uniform,
+    so the estimator stays unbiased at any ``m``. Measured MSE vs plain at
+    equal budget (tools/sample_efficiency.py): ~0 on supermodular games,
+    0.6x on submodular (the diminishing-returns shape FL accuracy utilities
+    typically have), ~1x on additive, but 2.2x WORSE on threshold/voting
+    games — enable only when the utility is known to be smooth in |S|.
+
+    ``return_se=True`` returns ``(sv, se)``: each permutation yields one iid
+    marginal-contribution sample per client, so the SE is the sample std /
+    √m. Under ``antithetic`` the two halves of a pair are correlated — the
+    pair MEAN is the iid unit, which is exactly what makes the antithetic
+    SE smaller when the pairing works. Antithetic sampling pairs
+    permutations, so an odd ``m`` is rounded DOWN to even (an unpaired tail
+    permutation has ~2× the variance of a pair mean and would miscalibrate
+    the SE if weighted equally — ADVICE r2)."""
+    rng = rng or np.random.default_rng()
+    n = game.n
+    idxs = np.array(game.selected_clients)
+    if m < 1:
+        # fail here with the real cause, not a ZeroDivisionError deep in
+        # the scoring loop (callers computing m from a budget split can
+        # round to 0)
+        raise ValueError(f"shapley_monte_carlo needs m >= 1, got {m}")
+
+    # phase 1: draw all permutations up front
+    if antithetic:
+        if m % 2:
+            import warnings
+
+            warnings.warn(
+                f"antithetic sampling pairs permutations: m={m} rounded "
+                f"down to {m - 1}",
+                stacklevel=2,
+            )
+            m -= 1
+        if m < 2:
+            raise ValueError("antithetic sampling needs m >= 2 (paired draws)")
+        perms = []
+        for _ in range(m // 2):
+            p = rng.permutation(idxs)
+            perms += [p, p[::-1]]
+    else:
+        perms = [rng.permutation(idxs) for _ in range(m)]
+    # phase 2: one batched eval of every distinct prefix coalition
+    game.precompute([perm[:j] for perm in perms for j in range(1, n + 1)])
+
+    # phase 3: scoring (identical arithmetic to the reference loop; the
+    # per-perm marginals bookkeeping for SEs only runs when asked — the
+    # default path keeps the reference-parity loop unchanged)
+    shapley_value = game.default_shapley_value
+    pos = {int(c): k for k, c in enumerate(idxs)}
+    if return_se:
+        marginals = np.zeros((m, game.utility_dim, n))  # per-perm samples
+    for p_i, perm in enumerate(perms):
+        old_u = [0.0] * game.utility_dim
+        for j in range(1, n + 1):
+            temp_u = game.eval_utility(perm[:j])
+            for i in range(game.utility_dim):
+                shapley_value[i][perm[j - 1]] += temp_u[i] - old_u[i]
+                if return_se:
+                    marginals[p_i, i, pos[int(perm[j - 1])]] = temp_u[i] - old_u[i]
+                old_u[i] = temp_u[i]
+    for i in range(game.utility_dim):
+        for j in idxs:
+            shapley_value[i][j] /= m
+    if not return_se:
+        return shapley_value
+    if antithetic:
+        # a pair's halves are correlated; the pair mean is the iid unit
+        units = marginals.reshape(m // 2, 2, game.utility_dim, n).mean(axis=1)
+    else:
+        units = marginals
+    k = len(units)
+    se_arr = (
+        units.std(axis=0, ddof=1) / np.sqrt(k)
+        if k >= 2
+        else np.zeros((game.utility_dim, n))
+    )
+    se = game.default_shapley_value
+    for i in range(game.utility_dim):
+        for c in idxs:
+            se[i][int(c)] = float(se_arr[i, pos[int(c)]])
+    return shapley_value, se
 
 
 def _cc_samples(n: int, m: int, rng: np.random.Generator):
@@ -416,6 +602,362 @@ def shapley_comp_contrib_adaptive(
     )
 
 
+def shapley_owen(
+    game: Game,
+    q_num: int = 8,
+    m_per_q: int = 4,
+    rng: Optional[np.random.Generator] = None,
+    return_se: bool = False,
+):
+    """Owen / multilinear-extension sampling (beyond reference; Okhrati &
+    Lipani 2020): φ_i = ∫₀¹ E[v(S_q ∪ i) − v(S_q ∖ i)] dq, with S_q
+    including every client independently with probability q.
+
+    Midpoint rule over ``q_num`` levels; at each level draw ``m_per_q``
+    membership vectors S and evaluate S plus its n single-client flips —
+    every draw yields ALL n marginals from n+1 coalitions, and all distinct
+    coalitions go through ONE batched ``game.precompute``. Complements the
+    permutation samplers when utility varies most at specific coalition
+    densities (q near the voting quota, say) rather than specific sizes.
+
+    ``return_se=True`` returns ``(sv, se)``: draws are iid WITHIN each q
+    level (a stratum of the midpoint rule), so the estimate's variance is
+    (1/q_num²)·Σ_q s²_q/m_per_q per client from the per-level sample
+    variances — analytic, no extra evaluations. Levels with fewer than 2
+    draws contribute zero (the SE is a lower bound at m_per_q = 1)."""
+    rng = rng or np.random.default_rng()
+    n = game.n
+    selected = np.array(game.selected_clients)
+
+    qs = (np.arange(q_num) + 0.5) / q_num
+    draws = []  # (membership bool vector over selected clients)
+    for q in qs:
+        for _ in range(m_per_q):
+            draws.append(rng.random(n) < q)
+
+    coalitions = []
+    for mem in draws:
+        coalitions.append(selected[mem])
+        for i in range(n):
+            flipped = mem.copy()
+            flipped[i] = ~flipped[i]
+            coalitions.append(selected[flipped])
+    game.precompute(coalitions)
+
+    # [draws, dim, n] per-draw marginal samples; draw k belongs to q level
+    # k // m_per_q
+    marg = np.zeros((len(draws), game.utility_dim, n))
+    for k, mem in enumerate(draws):
+        u_s = game.eval_utility(selected[mem])
+        for i in range(n):
+            flipped = mem.copy()
+            flipped[i] = ~flipped[i]
+            u_f = game.eval_utility(selected[flipped])
+            sign = -1.0 if mem[i] else 1.0  # marginal of ADDING client i
+            for d in range(game.utility_dim):
+                marg[k, d, i] = sign * (u_f[d] - u_s[d])
+    sv_arr = list(marg.mean(axis=0))
+    sv = _merge_with_default(game, sv_arr)
+    if not return_se:
+        return sv
+    levels = marg.reshape(q_num, m_per_q, game.utility_dim, n)
+    if m_per_q >= 2:
+        # stratified variance: per-level sample variance / draws-per-level,
+        # averaged over levels² (the midpoint rule averages level means)
+        var = levels.var(axis=1, ddof=1).sum(axis=0) / (q_num**2 * m_per_q)
+    else:
+        var = np.zeros((game.utility_dim, n))
+    se = _merge_with_default(game, list(np.sqrt(var)))
+    return sv, se
+
+
+def shapley_kernel(
+    game: Game,
+    m: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+    return_se: bool = False,
+):
+    """KernelSHAP (beyond reference; Lundberg & Lee 2017): constrained
+    weighted least squares over coalition values with the Shapley kernel
+    w(|S|) = (n−1)/(C(n,|S|)·|S|·(n−|S|)), efficiency enforced exactly
+    (Σφ = v(N), v(∅) = 0 in this game's delta-utility convention).
+
+    ``m=None`` enumerates every proper coalition — the WLS solution then
+    equals the exact Shapley value; sampled mode draws ``m`` coalitions
+    from the kernel-weighted size distribution (each size's members
+    uniform) and solves the same regression with uniform weights (the
+    kernel is absorbed into the sampling). All coalition values come from
+    ONE batched ``game.precompute``.
+
+    ``return_se=True`` returns ``(sv, se)`` from the WLS covariance: the
+    heteroskedasticity-robust sandwich A⁻¹(Σ_r e_r² w_r² z_r z_rᵀ)A⁻¹ of
+    the unconstrained solution, projected through the efficiency
+    constraint (φ_c = Mφ_u + const ⇒ Cov_c = M Cov_u Mᵀ). Zero in
+    enumeration mode, where the solution is exact."""
+    rng = rng or np.random.default_rng()
+    n = game.n
+    selected = np.array(game.selected_clients)
+    if n == 1:
+        u = game.eval_utility(selected)
+        sv1 = _merge_with_default(
+            game, [np.array([u[d]]) for d in range(game.utility_dim)]
+        )
+        if return_se:
+            return sv1, game.default_shapley_value
+        return sv1
+
+    sizes = np.arange(1, n)
+    # keep the ncr(n,k)·k·(n−k) product in PYTHON ints: as an int64 numpy
+    # array it wraps negative from n=40 (ncr(64,32)≈1.8e18, ×k(n−k)
+    # overflows), which surfaced as "probabilities are not non-negative"
+    # in the n=64 frontier run. Python ints are exact; the final division
+    # is one float per size.
+    kernel_by_size = np.array(
+        [(n - 1) / (ncr(n, int(k)) * int(k) * (n - int(k))) for k in sizes]
+    )
+
+    if m is None:
+        if n > 14:
+            raise ValueError("full KernelSHAP enumeration needs n <= 14; pass m")
+        subsets = [list(c) for r in sizes for c in combinations(range(n), int(r))]
+        weights = np.array([kernel_by_size[len(s) - 1] for s in subsets])
+    else:
+        # kernel(k)·ncr(n,k) ∝ 1/(k(n−k)) — the (n−1) and the binomial
+        # cancel, so the sampling distribution never touches big integers
+        size_p = 1.0 / (sizes * (n - sizes))
+        size_p = size_p / size_p.sum()
+        subsets = []
+        for _ in range(m):
+            k = int(rng.choice(sizes, p=size_p))
+            subsets.append(sorted(rng.choice(n, size=k, replace=False).tolist()))
+        weights = np.ones(len(subsets))
+
+    full = list(range(n))
+    game.precompute([selected[s] for s in subsets] + [selected[full]])
+
+    Z = np.zeros((len(subsets), n))
+    for r, s in enumerate(subsets):
+        Z[r, s] = 1.0
+    if m is not None and (Z.sum(axis=0) == 0).any():
+        # an unsampled client would absorb the efficiency residual through
+        # the ridge — an arbitrary huge SV with no warning. Fail loudly.
+        missing = np.nonzero(Z.sum(axis=0) == 0)[0].tolist()
+        raise ValueError(
+            f"KernelSHAP draws covered no coalition containing client(s) "
+            f"{missing}; increase m (got {m})"
+        )
+    v_full = np.array(game.eval_utility(selected[full]))  # [dim]
+    Y = np.array([game.eval_utility(selected[s]) for s in subsets])  # [m, dim]
+
+    # weights scale rows elementwise — never materialize diag(weights)
+    # (dense m x m is ~2 GB at the n=14 enumeration limit)
+    A = Z.T @ (weights[:, None] * Z)
+    if m is not None:
+        # ridge for sampled mode only (A can be singular when draws repeat);
+        # the enumeration A = Z'WZ is nonsingular for n >= 2 and must stay
+        # unperturbed so the WLS solution equals the exact Shapley value
+        A = A + 1e-10 * np.eye(n)
+    Ainv = np.linalg.inv(A)
+    ones = np.ones(n)
+    sv = [np.zeros(n) for _ in range(game.utility_dim)]
+    se = [np.zeros(n) for _ in range(game.utility_dim)]
+    # constraint projection: φ_c = M φ_u + const with M = I − (A⁻¹11ᵀ)/(1ᵀA⁻¹1)
+    M = np.eye(n) - np.outer(Ainv @ ones, ones) / (ones @ Ainv @ ones)
+    for d in range(game.utility_dim):
+        b = Z.T @ (weights * Y[:, d])
+        unconstrained = Ainv @ b
+        lam = (ones @ unconstrained - v_full[d]) / (ones @ Ainv @ ones)
+        sv[d] = unconstrained - lam * (Ainv @ ones)
+    if not return_se:
+        return _merge_with_default(game, sv)
+    if m is not None:
+        for d in range(game.utility_dim):
+            resid = Y[:, d] - Z @ sv[d]
+            meat = Z.T @ (((weights * resid) ** 2)[:, None] * Z)  # Σ e²w² z zᵀ
+            cov_u = Ainv @ meat @ Ainv
+            se[d] = np.sqrt(np.maximum(np.diag(M @ cov_u @ M.T), 0.0))
+    return _merge_with_default(game, sv), _merge_with_default(game, se)
+
+
+def _score_iid_marginal_draws(game, selected, draws, m, return_se):
+    """Shared MC scoring tail for semivalues whose estimate is a plain
+    mean of ``m`` iid marginal draws per client (:func:`shapley_beta` and
+    :func:`banzhaf_value` — their samplers already bake the semivalue's
+    weighting into the draw distribution).
+
+    ``draws`` is a list of ``(client i, subset S of others)`` in ANY order
+    — the SE bookkeeping indexes by an explicit per-client counter, not by
+    draw position (the old per-copy ``k % m`` indexing was only correct
+    because both samplers happened to emit draws client-major; an edit to
+    one loop structure would have silently mis-assigned marginals to the
+    wrong client's SE rows). One batched ``game.precompute`` covers every
+    distinct coalition; SV = mean marginal, SE = sample std / √m."""
+    n = game.n
+    game.precompute(
+        [selected[list(S)] for _, S in draws]
+        + [selected[list(S) + [i]] for i, S in draws]
+    )
+    sv = [np.zeros(n) for _ in range(game.utility_dim)]
+    draws_arr = np.empty((n, m, game.utility_dim))  # per-client iid marginals
+    seen = [0] * n
+    for i, S in draws:
+        u_s = game.eval_utility(selected[list(S)])
+        u_si = game.eval_utility(selected[list(S) + [i]])
+        k_i = seen[i]
+        seen[i] += 1
+        for d in range(game.utility_dim):
+            delta = u_si[d] - u_s[d]
+            sv[d][i] += delta / m
+            draws_arr[i, k_i, d] = delta
+    if not return_se:
+        return _merge_with_default(game, sv)
+    se_arr = (
+        draws_arr.std(axis=1, ddof=1) / np.sqrt(m)
+        if m >= 2
+        else np.zeros((n, game.utility_dim))
+    )
+    se = [se_arr[:, d].copy() for d in range(game.utility_dim)]
+    return _merge_with_default(game, sv), _merge_with_default(game, se)
+
+
+def shapley_beta(
+    game: Game,
+    alpha: float = 1.0,
+    beta: float = 1.0,
+    m: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+    return_se: bool = False,
+):
+    """Beta Shapley (beyond reference; Kwon & Zou 2022): the semivalue
+    φ_i = Σ_{S ⊆ N∖i} w^{α,β}_{|S|} · (u(S∪i) − u(S)) with per-size weights
+    from a Beta(β, α) prior over the inclusion probability —
+    w̃_j ∝ B(j − 1 + β, n − j + α)/B(α, β) for position j = |S| + 1,
+    normalized so Σ_j C(n−1, j−1)·w_j = 1 per client.
+
+    ``alpha = beta = 1`` recovers the exact Shapley value (uniform over
+    positions — verified against :func:`shapley_exact` in the tests);
+    larger ``beta`` up-weights SMALL coalitions (where marginal signal is
+    strongest and least noisy — the paper's recommended (α=1, β=4..16)
+    family for noisy utilities), larger ``alpha`` up-weights large ones.
+
+    ``m=None`` enumerates every subset (needs n <= ~16); otherwise draws
+    ``m`` Monte-Carlo samples per client: position j from the normalized
+    weight-mass distribution, then a uniform size-(j−1) subset of the
+    others. All distinct coalitions evaluate in ONE batched
+    ``game.precompute``. Semivalues other than Shapley do NOT satisfy
+    efficiency — Σφ generally differs from u(N).
+
+    ``return_se=True`` returns ``(sv, se)``: in Monte-Carlo mode each
+    client's estimate is the mean of ``m`` iid marginal draws (the position
+    mass already matches the estimand's weighting), so the SE is the
+    per-client sample std / √m — analytic, no extra evaluations, same house
+    contract as the other estimators (measured 2σ coverage:
+    tools/sample_efficiency.py). Enumeration mode is exact → SE ≡ 0.
+    Scoring shares :func:`_score_iid_marginal_draws` with
+    :func:`banzhaf_value` (the two MC modes differ only in how draws are
+    sampled)."""
+    from math import lgamma
+
+    rng = rng or np.random.default_rng()
+    n = game.n
+    selected = np.array(game.selected_clients)
+
+    def log_beta_fn(a, b):
+        return lgamma(a) + lgamma(b) - lgamma(a + b)
+
+    # per-position weights (position j = |S| + 1 in 1..n)
+    logw = np.array(
+        [
+            log_beta_fn(j - 1 + beta, n - j + alpha) - log_beta_fn(alpha, beta)
+            for j in range(1, n + 1)
+        ]
+    )
+    w = np.exp(logw - logw.max())
+    counts = np.array([ncr(n - 1, j - 1) for j in range(1, n + 1)], dtype=float)
+    w = w / (w * counts).sum()          # Σ_j C(n−1, j−1)·w_j = 1
+
+    sv = [np.zeros(n) for _ in range(game.utility_dim)]
+    if m is None:
+        if n > 16:
+            raise ValueError("full Beta-Shapley enumeration needs n <= 16; pass m")
+        game.precompute(list(powerset(list(selected))))
+        for i in range(n):
+            others = [k for k in range(n) if k != i]
+            subsets = chain.from_iterable(
+                combinations(others, r) for r in range(0, n)
+            )
+            for S in subsets:
+                u_s = game.eval_utility(selected[list(S)])
+                u_si = game.eval_utility(selected[list(S) + [i]])
+                for d in range(game.utility_dim):
+                    sv[d][i] += w[len(S)] * (u_si[d] - u_s[d])
+        if return_se:
+            return _merge_with_default(game, sv), game.default_shapley_value
+        return _merge_with_default(game, sv)
+
+    # Monte-Carlo: position ~ weight mass, subset uniform at that size.
+    # The position mass already matches the estimand's weighting (sampled
+    # ∝ w·counts, target weight w per subset), so each sample contributes
+    # its raw marginal / m — the shared iid-draw scorer applies.
+    pos_p = w * counts
+    pos_p = pos_p / pos_p.sum()
+    draws = []  # (client i, subset S of others)
+    for i in range(n):
+        others = np.array([k for k in range(n) if k != i])
+        for _ in range(m):
+            j = int(rng.choice(n, p=pos_p)) + 1
+            S = tuple(sorted(rng.choice(others, size=j - 1, replace=False)))
+            draws.append((i, S))
+    return _score_iid_marginal_draws(game, selected, draws, m, return_se)
+
+
+def banzhaf_value(
+    game: Game,
+    m: Optional[int] = None,
+    rng: Optional[np.random.Generator] = None,
+    return_se: bool = False,
+):
+    """Data Banzhaf (beyond reference; Wang & Jia 2023): the semivalue with
+    UNIFORM subset weights, φ_i = (1/2^{n−1}) Σ_{S ⊆ N∖i} (u(S∪i) − u(S)) —
+    the maximally noise-robust semivalue (its ranking is the most stable
+    under noisy utility evaluations). ``m=None`` enumerates (n <= ~16);
+    otherwise ``m`` uniform subset draws per client. Not efficient:
+    Σφ ≠ u(N) in general.
+
+    ``return_se=True`` returns ``(sv, se)``: each client's MC estimate is
+    the mean of ``m`` iid marginal draws (subsets uniform over 2^{n−1} —
+    exactly the semivalue's weighting), so the SE is the per-client sample
+    std / √m. Enumeration mode is exact → SE ≡ 0."""
+    rng = rng or np.random.default_rng()
+    n = game.n
+    selected = np.array(game.selected_clients)
+    sv = [np.zeros(n) for _ in range(game.utility_dim)]
+    if m is None:
+        if n > 16:
+            raise ValueError("full Banzhaf enumeration needs n <= 16; pass m")
+        game.precompute(list(powerset(list(selected))))
+        scale = 1.0 / 2 ** (n - 1)
+        for i in range(n):
+            others = [k for k in range(n) if k != i]
+            for S in chain.from_iterable(
+                combinations(others, r) for r in range(0, n)
+            ):
+                u_s = game.eval_utility(selected[list(S)])
+                u_si = game.eval_utility(selected[list(S) + [i]])
+                for d in range(game.utility_dim):
+                    sv[d][i] += scale * (u_si[d] - u_s[d])
+        if return_se:
+            return _merge_with_default(game, sv), game.default_shapley_value
+        return _merge_with_default(game, sv)
+    draws = []
+    for i in range(n):
+        others = [k for k in range(n) if k != i]
+        for _ in range(m):
+            mask = rng.random(n - 1) < 0.5
+            draws.append((i, tuple(np.array(others)[mask])))
+    return _score_iid_marginal_draws(game, selected, draws, m, return_se)
+
+
 def run_configured_comp_contrib(game: Game, shapley_cfg, rng, logger=None):
     """One dispatch point for the drivers (serve/start): adaptive budget
     when ``shapley_cfg.target_se > 0``, else the reference's fixed m = 50·n
@@ -443,6 +985,10 @@ def run_configured_comp_contrib(game: Game, shapley_cfg, rng, logger=None):
         samples_per_client=getattr(shapley_cfg, "samples_per_client", 50),
     )
 
+
+# ---------------------------------------------------------------------------
+# driver entry (utils_shapley.py:13-51)
+# ---------------------------------------------------------------------------
 
 def call_shapley_computation_method(
     args,
