@@ -27,9 +27,12 @@ Phases, each printing one JSON line:
    share of outputs whose value differs from the plain version's; ``route``
    is the kernel that ran, as the wrapper recorded it at the launch (its
    ``route`` attribute): ``wgmma`` (the bf16 tensor-core kernels) or
-   ``fma`` (the FMA units). ``fused_attention``'s gradient (the
-   ``autograd.Function``) is held against autograd through its plain
-   version on the same inputs, with the same tolerances.
+   ``fma`` (the FMA units). ``fused_attention``'s and ``patch_embed``'s
+   gradients (each an ``autograd.Function``) are held against autograd
+   through the plain version on the same inputs, with the same tolerances
+   (``grad_check``: every input's gradient, in its dtype, one launch on the
+   dtype's route; forward + backward and backward-alone times beside the
+   plain version's and the library call's).
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
    merged coalitions) on the card through the kernels, against the port on
    the CPU through the plain versions, from the same weights (atol 1e-3).
@@ -122,6 +125,38 @@ Phases, each printing one JSON line:
    within 1e-3, accuracy within 1/200. It prints per-round training,
    evaluation and Shapley seconds, the MILP and GTG host seconds, the
    launches per kernel, peak memory and every check's measured error.
+11. ``robust``  — adversarial evaluation, interpretability and the
+   Inception-v3 defense (default ``Config``: ViT-B/16, bf16, on the
+   training spec ``driver.client.TRAIN_SPEC``, whose patch embedding and
+   ``[B, H, N, d]`` attention have a gradient; ``init_lora`` as the overlay;
+   the 400 synthetic OCT validation images in batches of 128), counters
+   zeroed just before each run. First the patch and ``[B, H, N, d]``
+   attention kernels at every batch the phase gives them (128, the
+   defended FGSM's 32 and the last batch's 16), bf16 on seeded inputs:
+   the forward against the plain version on ``wgmma`` and the gradient by
+   ``grad_check``, within the ``kernels`` phase's 2e-2. Then
+   ``fl.adversarial.adversarial_evaluation``
+   with FGSM at ε = 8/255 (adversarial loss above the clean one; 3
+   forwards a batch, so 12 patch and 144 ``fused_attention`` launches and
+   none of the packed attention or the fused MLP), PGD-10 from a seeded
+   random start (every input the forward sees within ε of its clean batch,
+   every iterate in [0, 1]; 48 and 576 launches) and
+   ``multi_epsilon_evaluation`` over [0, 2/255, 8/255] (the ε = 0 metrics
+   equal the clean ones; clean metrics at the first ε only); one FGSM batch
+   under ``torch.profiler`` (host against device-busy time); a float32
+   FGSM at batch 2, card against CPU from the same weights (the image
+   gradient within 1e-3 of its largest magnitude, the adversarial images
+   equal wherever |g| > 1e-3·max|g|). Then ``attention_rollout`` (mean and
+   max) and ``grad_cam`` of 4 images: float32 card against CPU within
+   1e-3, every attention row summing to 1 within 1e-5; bf16 maps finite,
+   in [0, 1], of shape [4, 14, 14]; ``driver.report.saliency_overlays``
+   (the device half of ``render_saliency``) writing four image events that
+   ``utils.tb_events`` reads back and decodes. Then ``Inception3(4)`` with
+   ``Denoise`` at 299 px, He-initialized, float32 with the defense, card
+   against CPU within 1e-3 of the largest logit's magnitude (at least 1);
+   the paired ``Net`` (finite outputs and losses); FGSM of the ViT through
+   a ``Denoise(224, 224)`` front-end on 32 images (finite metrics). It
+   prints seconds, metrics and peak memory of each run.
 
 Then the card's name and power limit, the kernels summary line, and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
@@ -273,7 +308,7 @@ def phase_kernels(card: str) -> dict:
         inp = kernel_inputs(gen, dtype)
 
         img, pw, pb = inp["img"], inp["pw"], inp["pb"]
-        conv_w = pw.reshape(P, P, CH, D).permute(3, 2, 0, 1).contiguous()
+        conv_w = conv_weight(pw, P, CH)
         img_nchw = img.permute(0, 3, 1, 2)
         cases["patch_embed"] = dict(
             kernel=lambda: pe.patch_embed(img, pw, pb, P),
@@ -323,7 +358,7 @@ def phase_kernels(card: str) -> dict:
             bytes=4 * tq.numel() * isz,
             reps=10,
         )
-        grads.append(attention_grad_check(dtype, tol, tqh, tkh, tvh))
+        grads += kernel_grad_checks(dtype, tol, img, pw, pb, tqh, tkh, tvh)
 
         wrappers = {"patch_embed": pe.patch_embed, "fused_attention_packed": att.fused_attention_packed,
                     "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention}
@@ -370,37 +405,94 @@ def phase_kernels(card: str) -> dict:
     bad = [r for r in results + grads if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    summary["patch_embed"]["backward_ms"] = next(
+        g["backward_ms"] for g in grads if g["name"] == "patch_embed.backward"
+        and g["dtype"] == "bfloat16")
     return summary
 
 
-def attention_grad_check(dtype, tol, q, k, v) -> dict:
-    """``fused_attention``'s gradient (its ``autograd.Function``: kernel
-    forward, recomputed backward) against autograd through the plain
-    version, on the same inputs and cotangent."""
+def grad_check(wrapper, kernel, plain, library, args, dtype, tol, seed: int) -> dict:
+    """``wrapper``'s gradient (its ``autograd.Function``: the kernel
+    forward, a torch-op backward) for every input in ``args`` against
+    autograd through the plain version, on the same inputs and a seeded
+    cotangent. ``ok`` only when every gradient agrees within ``tol`` and
+    keeps its input's dtype, and the forward launched the kernel once on
+    the dtype's route. Times (CUDA events): forward + backward, and the
+    backward alone (the graph kept and run again), of the wrapper, of the
+    plain version and of ``library`` (a PyTorch call for the same function,
+    with its own inputs)."""
     import torch
+
+    lib_fn, lib_args = library
+
+    def graph(fn, inputs):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return fn(*leaves), leaves
+
+    def fwd_bwd(fn, inputs):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        return lambda: torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    def backward(fn, inputs):
+        out, leaves = graph(fn, inputs)
+        return lambda: torch.autograd.grad(out, leaves, cot, retain_graph=True)
+
+    launched = wrapper.launches
+    out, leaves = graph(kernel, args)
+    route = wrapper.route
+    cot = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(seed),
+                      device="cuda").to(dtype)
+    got = torch.autograd.grad(out, leaves, cot)
+    want = torch.autograd.grad(*graph(plain, args), cot)
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+    ok = (all(torch.allclose(a.float(), b.float(), **tol) for a, b in zip(got, want))
+          and all(g.dtype == t.dtype for g, t in zip(got, args))
+          and wrapper.launches == launched + 1
+          and route == ("wgmma" if dtype == torch.bfloat16 else "fma"))
+    del out, leaves, got, want
+    return {"name": f"{wrapper.__name__}.backward", "dtype": str(dtype).replace("torch.", ""),
+            "shape": list(args[0].shape), "route": route, "max_abs_err": errs,
+            "fwd_bwd_ms": cuda_ms(fwd_bwd(kernel, args), 10),
+            "plain_fwd_bwd_ms": cuda_ms(fwd_bwd(plain, args), 10),
+            "library_fwd_bwd_ms": cuda_ms(fwd_bwd(lib_fn, lib_args), 10),
+            "backward_ms": cuda_ms(backward(kernel, args), 10),
+            "plain_backward_ms": cuda_ms(backward(plain, args), 10),
+            "library_backward_ms": cuda_ms(backward(lib_fn, lib_args), 10),
+            "ok": ok}
+
+
+def patch_conv(P_: int):
+    """``F.conv2d`` on ``patch_embed``'s NHWC images, with the [D, C, P, P]
+    form of its kernel: the library's function for the same output."""
+    import torch.nn.functional as F
+
+    def conv(x, w, b):
+        return F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=P_).flatten(2).transpose(1, 2)
+
+    return conv
+
+
+def conv_weight(pw, P_: int, C: int):
+    return pw.reshape(P_, P_, C, pw.shape[1]).permute(3, 2, 0, 1).contiguous()
+
+
+def kernel_grad_checks(dtype, tol, img, pw, pb, qh, kh, vh) -> list:
+    """:func:`grad_check` of ``fused_attention`` on [B, H, N, d] views and of
+    ``patch_embed`` (images, kernel, bias), each beside its library call
+    (SDPA; ``F.conv2d``)."""
     import torch.nn.functional as F
 
     from shapley_vit_tpu_torch.ops import attention as att
+    from shapley_vit_tpu_torch.ops import patch_embed as pe
 
-    cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(1),
-                      device="cuda").to(dtype)
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-
-    def fwd_bwd(fn):
-        return lambda: torch.autograd.grad(fn(*leaves), leaves, cot)
-
-    out = [fwd_bwd(fn)() for fn in (att.fused_attention, att.fused_attention_plain)]
-    torch.cuda.synchronize()
-    errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(*out)]
-    ok = all(torch.allclose(a.float(), b.float(), **tol) for a, b in zip(*out))
-    # forward + backward times: the kernel's forward and the recomputed
-    # backward; autograd through the plain version; SDPA's own backward
-    return {"name": "fused_attention.backward", "dtype": str(dtype).replace("torch.", ""),
-            "shape": list(q.shape), "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
-            "fwd_bwd_ms": cuda_ms(fwd_bwd(att.fused_attention), 10),
-            "plain_fwd_bwd_ms": cuda_ms(fwd_bwd(att.fused_attention_plain), 10),
-            "library_fwd_bwd_ms": cuda_ms(fwd_bwd(F.scaled_dot_product_attention), 10),
-            "ok": ok}
+    return [
+        grad_check(att.fused_attention, att.fused_attention, att.fused_attention_plain,
+                   (F.scaled_dot_product_attention, (qh, kh, vh)), (qh, kh, vh), dtype, tol, 1),
+        grad_check(pe.patch_embed, lambda *a: pe.patch_embed(*a, P),
+                   lambda *a: pe.patch_embed_plain(*a, P),
+                   (patch_conv(P), (img, conv_weight(pw, P, CH), pb)), (img, pw, pb), dtype, tol, 2),
+    ]
 
 
 def phase_model() -> None:
@@ -1278,6 +1370,354 @@ def phase_rounds(counted, cfg=None, device="cuda") -> None:
         raise SystemExit("the rounds phase failed its checks")
 
 
+ROBUST_EPS = 8 / 255
+SMALL_DENOISE = dict(fwd_out=(8, 16), num_fwd=(1, 1), back_out=(8,), num_back=(1,))
+
+
+def _he_init(model, gen) -> None:
+    """Redraw every convolution and linear weight of an inception module
+    from N(0, 2/fan_in) (1/fan_in for the classifier): the reference's init
+    (std 0.1 whatever the fan-in) grows activations by orders of magnitude
+    over 17 stages, which would leave no digits to compare."""
+    import torch
+
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)) and m.weight.numel():
+            fan_in = m.weight[0].numel()
+            gain = 1.0 if isinstance(m, torch.nn.Linear) else 2.0
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * math.sqrt(gain / fan_in))
+
+
+def robust_kernel_rows(batch_sizes) -> list:
+    """The patch and [B, H, N, d] attention kernels at each batch size the
+    ``robust`` phase gives them (ViT-B/16 at 224 px, bf16, as its training
+    spec runs them): the forward against the plain version on seeded card
+    inputs, on the ``wgmma`` route, and the gradient by :func:`grad_check`,
+    with the ``kernels`` phase's bf16 tolerance."""
+    import torch
+
+    from shapley_vit_tpu_torch.ops import attention as att
+    from shapley_vit_tpu_torch.ops import patch_embed as pe
+
+    dtype, tol = torch.bfloat16, dict(atol=2e-2, rtol=2e-2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    rows = []
+    for b in batch_sizes:
+        img = torch.rand((b, IMG, IMG, CH), generator=gen, device="cuda").to(dtype)
+        pw, pb = randn((P * P * CH, D), 0.05), randn((D,), 0.1)
+        qh, kh, vh = (randn((b, N, D)).view(b, N, HEADS, 64).transpose(1, 2) for _ in range(3))
+        for wrapper, kernel, plain, args in (
+                (pe.patch_embed, lambda: pe.patch_embed(img, pw, pb, P),
+                 lambda: pe.patch_embed_plain(img, pw, pb, P), img),
+                (att.fused_attention, lambda: att.fused_attention(qh, kh, vh),
+                 lambda: att.fused_attention_plain(qh, kh, vh), qh)):
+            launched = wrapper.launches
+            got = kernel()
+            route = wrapper.route
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = (torch.allclose(got.float(), want.float(), **tol) and route == "wgmma"
+                  and wrapper.launches == launched + 1)
+            rows.append({"name": wrapper.__name__, "dtype": "bfloat16", "shape": list(args.shape),
+                         "route": route, "max_abs_err": err, "ok": ok})
+            del got, want
+        grads = kernel_grad_checks(dtype, tol, img, pw, pb, qh, kh, vh)
+        rows += grads
+        del img, pw, pb, qh, kh, vh
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_robust(counted, cfg=None, device="cuda") -> None:
+    """Adversarial evaluation, interpretability and the Inception-v3 defense
+    on the card (ViT-B/16, bf16, the default ``Config``; ``cfg`` and
+    ``device`` exist to rehearse the phase at a small size on the CPU)."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import client, report
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.fl import adversarial as adv
+    from shapley_vit_tpu_torch.models import inception as inc
+    from shapley_vit_tpu_torch.models import interpret
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.utils import tb_events
+    from shapley_vit_tpu_torch.utils.logging import TensorBoardWriter
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        return result, time.perf_counter() - t0
+
+    work = os.path.join(ROOT, "exp", "chip_smoke_robust")
+    shutil.rmtree(work, ignore_errors=True)
+    t_phase = time.perf_counter()
+    cfg = cfg or Config()  # ViT-B/16, bf16, synthetic OCT at scale 1.0
+    spec, base, overlay = drv.build_model(cfg, device=device)
+    # the attack needs a gradient: the training spec, for attack and evaluation
+    tspec = spec.replace(**client.TRAIN_SPEC)
+    valid = drv.load_validation_dataset(cfg, target_size=spec.image, device=device)
+    bs = cfg.data.eval_batch_size
+    images = torch.as_tensor(valid.images, dtype=torch.float32).to(device)
+    labels = torch.as_tensor(np.asarray(valid.labels), dtype=torch.long).to(device)
+    batches = [(images[i:i + bs], labels[i:i + bs]) for i in range(0, len(valid), bs)]
+    nb = len(batches)
+
+    def forward(p, x):
+        return tvit.vit_forward(base, p, x, tspec)
+
+    def zero():
+        for fn in counted:
+            fn.launches = 0
+
+    def launches():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    def want(forwards):  # patch, packed attention, fused MLP, [B, H, N, d] attention
+        return dict(zip([fn.__name__ for fn in counted], (forwards, 0, 0, forwards * spec.depth)))
+
+    checks = {}
+    out = {"phase": "robust", "variant": cfg.model.vit_variant, "dtype": cfg.model.compute_dtype,
+           "validation_images": len(valid), "batch": bs, "epsilon": ROBUST_EPS}
+    db = min(32, len(valid))  # the defended FGSM's batch
+    if on_card:
+        # every batch size the attacks give the kernels (the last batch is
+        # the remainder), forward and gradient against the plain versions
+        sizes = sorted({len(x) for x, _ in batches} | {db}, reverse=True)
+        rows = robust_kernel_rows(sizes)
+        checks["kernels_at_robust_shapes"] = all(r["ok"] for r in rows)
+        out["kernels"] = rows
+
+    # FGSM with clean evaluation: three forwards a batch (clean, attack, adversarial)
+    reset_peak()
+    zero()
+    fgsm, fgsm_s = timed(lambda: adv.adversarial_evaluation(forward, overlay, batches, ROBUST_EPS))
+    fgsm_launches = launches()
+    checks["fgsm_adv_loss_above_clean"] = fgsm["adv_loss"] > fgsm["clean_loss"]
+    checks["fgsm_launches"] = fgsm_launches == want(3 * nb) or not on_card
+    out["fgsm"] = {**fgsm, "seconds": fgsm_s, "seconds_per_batch": fgsm_s / nb,
+                   "launches": fgsm_launches, "expected_launches": want(3 * nb),
+                   "peak_memory_gb": peak_gb()}
+
+    # PGD-10 from a seeded random start; every input the forward sees is
+    # held against its batch's clean images
+    current, seen = {}, []
+
+    def tracked():
+        for x, y in batches:
+            current["clean"] = x
+            yield x, y
+
+    def watched(p, x):
+        d = x.detach()
+        seen.append(torch.stack([(d - current["clean"]).abs().max(), d.min(), d.max()]))
+        return forward(p, x)
+
+    reset_peak()
+    zero()
+    pgd, pgd_s = timed(lambda: adv.adversarial_evaluation(
+        watched, overlay, tracked(), ROBUST_EPS, attack="pgd", pgd_steps=10, key=cfg.shapley.seed))
+    pgd_launches = launches()
+    # per batch: the clean forward, the random start, iterates 1-9, the final one
+    stats = torch.stack(seen).cpu().numpy().reshape(nb, 12, 3)
+    ball = float(stats[:, 1:, 0].max())
+    lo, hi = float(stats[:, 2:, 1].min()), float(stats[:, 2:, 2].max())
+    checks["pgd_in_ball"] = ball <= ROBUST_EPS + 1e-6
+    checks["pgd_in_range"] = lo >= 0.0 and hi <= 1.0
+    checks["pgd_launches"] = pgd_launches == want(12 * nb) or not on_card
+    out["pgd"] = {**pgd, "steps": 10, "seconds": pgd_s, "launches": pgd_launches,
+                  "expected_launches": want(12 * nb), "max_dist_from_clean": ball,
+                  "iterate_min": lo, "iterate_max": hi, "peak_memory_gb": peak_gb()}
+
+    # the multi-epsilon sweep: two forwards a batch at each epsilon
+    zero()
+    eps = [0.0, 2 / 255, ROBUST_EPS]
+    sweep, sweep_s = timed(lambda: adv.multi_epsilon_evaluation(forward, overlay, batches, eps))
+    at0 = sweep[0.0]
+    checks["eps0_equals_clean"] = (at0["adv_acc"] == at0["clean_acc"]
+                                   and at0["adv_loss"] == at0["clean_loss"])
+    checks["clean_once"] = [("clean_acc" in sweep[e]) for e in eps] == [True, False, False]
+    checks["sweep_launches"] = launches() == want(6 * nb) or not on_card
+    out["multi_epsilon"] = {"results": {str(e): r for e, r in sweep.items()}, "seconds": sweep_s,
+                            "launches": launches()}
+
+    # one FGSM batch (attack and adversarial evaluation): host clock against
+    # the device's busy time
+    one = batches[:1]
+
+    def fgsm_batch():
+        return adv.adversarial_evaluation(forward, overlay, one, ROBUST_EPS, use_clean_eval=False)
+
+    timed(fgsm_batch)
+    _, batch_s = timed(fgsm_batch)
+    out["fgsm_batch_profile"] = {"images": len(one[0][0]), "host_ms": 1e3 * batch_s}
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            timed(fgsm_batch)
+        rows = device_rows(prof)
+        busy = sum(ms for _, ms, _ in rows)
+        out["fgsm_batch_profile"].update({
+            "device_busy_ms": busy, "device_idle_share": max(0.0, 1.0 - busy / (1e3 * batch_s)),
+            "top_kernels": [{"name": k[:100], "device_ms": ms, "calls": n}
+                            for k, ms, n in rows[:8]]})
+
+    # float32 FGSM of the same model at batch 2: the card against the CPU
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.compute_dtype = "float32"
+    spec32, base32, lora32 = drv.build_model(cfg32, device="cpu")
+    x2, y2 = images[:2].cpu(), labels[:2].cpu()
+
+    def to(tree, dev):
+        return tm.tree_map(lambda a: a.to(dev), tree)
+
+    def fgsm32(dev):
+        b, lo_ = to(base32, dev), to(lora32, dev)
+        sp = spec32.replace(**client.TRAIN_SPEC)
+
+        def f(p, x):
+            return tvit.vit_forward(b, p, x, sp)
+
+        x = x2.to(dev).requires_grad_(True)
+        (g,) = torch.autograd.grad(F.cross_entropy(f(lo_, x), y2.to(dev)), x)
+        return g.cpu(), adv.fgsm(f, lo_, x2.to(dev), y2.to(dev), ROBUST_EPS).cpu()
+
+    g_cpu, a_cpu = fgsm32("cpu")
+    g_dev, a_dev = fgsm32(device)
+    scale = g_cpu.abs().max().item()
+    grad_err = (g_dev - g_cpu).abs().max().item() / scale
+    sure = g_cpu.abs() > 1e-3 * scale
+    checks["fgsm32_grad"] = scale > 0 and grad_err <= 1e-3
+    checks["fgsm32_images"] = bool(torch.equal(a_dev[sure], a_cpu[sure]))
+    out["fgsm_float32_vs_cpu"] = {"images": 2, "grad_max_abs": scale,
+                                  "grad_err_vs_largest": grad_err, "bar": 1e-3,
+                                  "differing_where_sure": int((a_dev[sure] != a_cpu[sure]).sum()),
+                                  "differing_elsewhere": int((a_dev[~sure] != a_cpu[~sure]).sum()),
+                                  "elements": int(a_cpu.numel())}
+
+    # interpretability on 4 validation images: float32 card against CPU,
+    # then the model's own dtype (bf16) on the card
+    g = spec.image // spec.patch
+    x4 = images[:4]
+    b32, l32 = to(base32, device), to(lora32, device)
+    methods = {
+        "rollout_mean": lambda b, lo_, x, sp: interpret.attention_rollout(b, lo_, x, sp, "mean"),
+        "rollout_max": lambda b, lo_, x, sp: interpret.attention_rollout(b, lo_, x, sp, "max"),
+        "grad_cam": lambda b, lo_, x, sp: interpret.grad_cam(b, lo_, x, sp),
+    }
+    maps = {}
+    for name, fn in methods.items():
+        cpu = fn(base32, lora32, x4.cpu(), spec32)
+        dev32, s32 = timed(lambda: fn(b32, l32, x4, spec32))
+        dev16, s16 = timed(lambda: fn(base, overlay, x4, spec))
+        err = (dev32.cpu() - cpu).abs().max().item()
+        ok16 = (tuple(dev16.shape) == (4, g, g) and bool(torch.isfinite(dev16).all())
+                and dev16.min().item() >= 0.0 and dev16.max().item() <= 1.0)
+        checks[f"{name}_float32"] = err <= 1e-3
+        checks[f"{name}_model_dtype"] = ok16
+        maps[name] = {"float32_max_abs_err_vs_cpu": err, "float32_seconds": s32,
+                      "model_dtype_seconds": s16, "model_dtype_shape": list(dev16.shape),
+                      "model_dtype_ok": ok16}
+    with torch.no_grad():
+        _, probs, _ = interpret._forward_collect(b32, l32, x4, spec32)
+    row_err = (probs.sum(-1) - 1).abs().max().item()
+    checks["attention_rows_sum_to_one"] = row_err <= 1e-5
+    tb_dir = os.path.join(work, "tensorboard")
+    tb = TensorBoardWriter(tb_dir)
+    (_, sal), sal_s = timed(lambda: report.saliency_overlays(base, overlay, valid.images, spec,
+                                                             round_idx=1, tb=tb))
+    tb.close()
+    events = [e for f in sorted(os.listdir(tb_dir))
+              for e in tb_events.read_image_events(os.path.join(tb_dir, f))]
+    decoded = [tb_events.decode_png(e[4]).shape for e in events]
+    checks["saliency_events"] = ([e[0] for e in events]
+                                 == [f"saliency/grad_cam/img_{i}" for i in range(4)]
+                                 and decoded == [(spec.image, spec.image, 3)] * 4)
+    out["interpretability"] = {"images": 4, "maps": maps, "attention_row_sum_err": row_err,
+                               "saliency_overlays_seconds": sal_s, "saliency_shape": list(sal.shape),
+                               "tensorboard_events": [e[0] for e in events]}
+    del b32, l32, probs
+
+    # the defense: Inception3 with Denoise, float32, card against CPU from
+    # the same weights; the paired Net; FGSM through a Denoise front-end
+    size = 299 if on_card else 75
+    den_kw = {} if on_card else SMALL_DENOISE
+    gen = torch.Generator().manual_seed(cfg.shapley.seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.shapley.seed)
+        model = inc.Inception3(num_classes=4, denoise=inc.Denoise(size, size, **den_kw),
+                               image_size=(size, size))
+    _he_init(model, gen)
+    model.eval()
+    xi = torch.rand((2, size, size, 3), generator=gen)
+    with torch.no_grad():
+        cpu = model(xi, defense=True)
+        dev_model = copy.deepcopy(model).to(device)
+        dev, inc_s = timed(lambda: dev_model(xi.to(device), defense=True))
+    inc_err = (dev.cpu() - cpu).abs().max().item()
+    inc_bar = 1e-3 * max(1.0, cpu.abs().max().item())
+    checks["inception_denoise_float32"] = inc_err <= inc_bar
+    net = inc.get_net((size, size), seed=cfg.shapley.seed, **den_kw)
+    _he_init(net, gen)
+    net = net.to(device).eval()
+    xa = (xi + 0.03 * torch.randn(xi.shape, generator=gen)).clamp(0, 1)
+    with torch.no_grad():
+        paired, net_s = timed(lambda: net(xi.to(device), xa.to(device)))
+    orig, adv_out, loss, control, control_loss = paired
+    checks["paired_net_finite"] = all(bool(torch.isfinite(t).all())
+                                      for t in (orig, adv_out, control, *loss, *control_loss))
+    del model, dev_model, net, paired, orig, adv_out, control
+    denoise = inc.Denoise(spec.image, spec.image).to(device).eval()
+    reset_peak()
+    defended, def_s = timed(lambda: adv.adversarial_evaluation(
+        forward, overlay, [(images[:db], labels[:db])], ROBUST_EPS, defense_fn=denoise))
+    checks["defended_fgsm_finite"] = all(math.isfinite(v) for v in defended.values())
+    out["defense"] = {
+        "inception_image": size, "inception_denoise_max_abs_err_vs_cpu": inc_err,
+        "inception_bar": inc_bar, "inception_logits_max_abs": cpu.abs().max().item(),
+        "inception_seconds": inc_s, "paired_net_seconds": net_s,
+        "paired_losses": {"defended": [v.item() for v in loss],
+                          "control": [v.item() for v in control_loss]},
+        "defended_fgsm": {**defended, "images": db, "seconds": def_s, "peak_memory_gb": peak_gb()},
+    }
+    del denoise
+    if on_card:
+        torch.cuda.empty_cache()
+
+    ok = all(checks.values())
+    out.update({"wall_s": time.perf_counter() - t_phase, "checks": checks, "ok": ok})
+    emit(out)
+    if not ok:
+        raise SystemExit(f"the robust phase failed its checks: {[k for k, v in checks.items() if not v]}")
+
+
 def variant_kernel_rows(spec, images: int) -> list:
     """Each of the four kernels at a variant's widths (``images`` images of
     ``spec.image`` px) against its plain version on the same seeded inputs,
@@ -1443,6 +1883,7 @@ def main() -> int:
     phase_int8(counted, bf16_round_s)
     phase_serve(counted)
     phase_rounds(counted)
+    phase_robust(counted)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -1455,7 +1896,8 @@ def main() -> int:
             "library_ms": s["library_ms"], "library": s["library"], "bound_share": s["bound_share"],
             "vs_library": s["vs_library"],
             **{key: s[key] for key in ("ms_back_to_back", "library_ms_back_to_back",
-                                       "vs_library_back_to_back", "host_us", "library_host_us")},
+                                       "vs_library_back_to_back", "host_us", "library_host_us",
+                                       "backward_ms") if key in s},
         })
     print(smi, flush=True)
     emit({"kernels": rows})

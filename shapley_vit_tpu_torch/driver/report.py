@@ -1,9 +1,9 @@
 """Round reporting: render Shapley results into CSV + plots.
 
 The port of ``shapley_vit_tpu/driver/report.py`` (host code: CSV writers,
-the single artifact worker thread, matplotlib plots imported lazily).
-``render_saliency`` (Grad-CAM overlays) needs ``models/interpret.py``, which
-is not ported yet, and raises ``NotImplementedError``.
+the single artifact worker thread, matplotlib plots imported lazily) and
+the Grad-CAM overlays (``render_saliency``), whose saliency runs on the
+device of the model's weights.
 
 The reference's reporting is scattered prints plus offline plotly notebooks
 (SURVEY.md §5 observability). This consolidates a round's outputs — per-client
@@ -248,8 +248,91 @@ def render_round_report(
     return paths
 
 
-def render_saliency(out_dir: str, base, lora, images, spec, round_idx: int = 0, k: int = 4,
-                    method: str = "grad_cam", tb=None) -> str:
-    """Grad-CAM (or attention-rollout) overlays of the round's global model:
-    not ported yet (it needs ``models/interpret.py``)."""
-    raise NotImplementedError("Grad-CAM overlays are not ported to the GPU yet")
+def saliency_overlays(base, lora, images, spec, round_idx: int = 0, k: int = 4,
+                      method: str = "grad_cam", tb=None):
+    """The device half of :func:`render_saliency`, on the caller's thread:
+    the saliency maps of the first ``k`` images by ``grad_cam`` (or
+    ``attention_rollout``) on the base's device, upsampled to the image
+    size by ``np.kron``; with an active ``tb``, the numpy blends as image
+    events ``saliency/{method}/img_{i}``. Returns (images [k, H, W, C],
+    maps [k, H, W]) as float32 numpy."""
+    import torch
+
+    from shapley_vit_tpu_torch.models import interpret
+
+    imgs = np.asarray(images[:k], dtype=np.float32)
+    fn = interpret.grad_cam if method == "grad_cam" else interpret.attention_rollout
+    device = base["patch_embed"]["kernel"].device
+    sal = fn(base, lora, torch.as_tensor(imgs, device=device), spec).float().cpu().numpy()
+    scale = imgs.shape[1] // sal.shape[1]
+    sal_up = np.kron(sal, np.ones((1, scale, scale)))
+
+    if tb is not None and getattr(tb, "active", False):
+        # native TB image events of the blended overlays: pure numpy, no
+        # matplotlib on this thread
+        for i, (img, s) in enumerate(zip(imgs, sal_up)):
+            rng = float(s.max() - s.min())
+            s_n = (s - s.min()) / rng if rng > 0 else np.zeros_like(s)
+            heat = np.stack([s_n, np.zeros_like(s_n), 1.0 - s_n], axis=-1)
+            shown = np.clip(img, 0.0, 1.0)
+            if shown.ndim == 2:
+                shown = shown[:, :, None]
+            if shown.shape[-1] == 1:
+                shown = np.repeat(shown, 3, axis=-1)
+            tb.add_image(
+                f"saliency/{method}/img_{i}",
+                np.clip(0.6 * shown + 0.4 * heat, 0.0, 1.0),
+                round_idx,
+            )
+    return imgs, sal_up
+
+
+def render_saliency(
+    out_dir: str,
+    base,
+    lora,
+    images,
+    spec,
+    round_idx: int = 0,
+    k: int = 4,
+    method: str = "grad_cam",
+    tb=None,
+) -> str:
+    """Grad-CAM (or attention-rollout) overlays of the round's global model
+    on ``k`` validation images (the backend for the reference's
+    ``--use-grad-cam`` / ``--sal-image-fname-dir`` flags, opts.py:70-72).
+    Synchronous and opt-in.
+
+    Two-thread split: the device compute (:func:`saliency_overlays`) stays
+    on the caller's thread, while the matplotlib render of
+    ``saliency_r{round_idx}.png`` runs ON the single artifact worker and is
+    waited for: serve() queues its bar/trajectory plots on that same worker,
+    and pyplot's global figure state is not re-entrant. Without matplotlib
+    the render raises ``ImportError``."""
+    imgs, sal_up = saliency_overlays(base, lora, images, spec, round_idx=round_idx, k=k,
+                                     method=method, tb=tb)
+
+    def _render() -> str:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(1, len(imgs), figsize=(2.4 * len(imgs), 2.6))
+        if len(imgs) == 1:
+            axes = [axes]
+        for ax, img, s in zip(axes, imgs, sal_up):
+            shown = img.squeeze()
+            ax.imshow(
+                np.clip(shown, 0, 1), cmap="gray" if shown.ndim == 2 else None
+            )
+            ax.imshow(s, cmap="jet", alpha=0.4)
+            ax.axis("off")
+        fig.suptitle(f"{method} — round {round_idx} global model")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"saliency_r{round_idx}.png")
+        fig.savefig(path, dpi=110, bbox_inches="tight")
+        plt.close(fig)
+        return path
+
+    return submit_async_artifact(_render).result()

@@ -21,8 +21,7 @@ the port:
   recycled process (``start_epoch="auto"``) scores its rounds as the
   uninterrupted service would. The JAX service restarts the chain from the
   initial model after a recycle, which shifts every later round's Shapley
-  values by a per-client constant;
-* Grad-CAM overlays (``obs.use_grad_cam``) are not ported and raise.
+  values by a per-client constant.
 
 The reference's driver runs ONE round against ``ViT_epoch_9.pth.tar`` and
 exits (start.py:134-222); the enclosing FL system (out of repo) retrains and
@@ -352,7 +351,6 @@ def serve(
     restart).
     """
     cfg = cfg or Config.from_env()
-    start_mod._refuse_unported(cfg)
     device = start_mod.resolve_device(device)
     if _world_size() > 1:
         _max_across_ranks(0)  # raises: one process serves
@@ -857,6 +855,17 @@ def serve(
             render_plots=cfg.obs.render_plots,
             plots_async=cfg.obs.render_plots_async,
         )
+        if cfg.obs.use_grad_cam:
+            # Grad-CAM overlays of the round's global model. Synchronous:
+            # the saliency runs on this thread, the matplotlib render on the
+            # artifact worker, after the plots queued there (report.py)
+            artifacts.append(
+                report_mod.render_saliency(
+                    os.path.join(cfg.obs.sal_image_dir, cfg.obs.exp_id),
+                    base, current_overlay, valid.images, spec,
+                    round_idx=epoch, tb=tb,
+                )
+            )
         if cfg.obs.render_plots and records:
             # cumulative per-client SV trajectory across the service's
             # rounds (reference: the offline nice_plot* family), rendered on

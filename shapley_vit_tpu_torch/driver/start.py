@@ -21,8 +21,10 @@ shapley_vit_tpu_torch.driver.start``) runs on the card only.
 ``model.quant="int8"`` evaluates with dynamic W8A8 on ``INT8_TARGETS``
 (``ops/quant.py``); ``paths.global_model_path`` receives the round's FedAvg
 global overlay as ``ViT_global.npz``; ``obs.use_tensorboard`` writes the
-round's scalars under ``<output_dir>/tensorboard``. Grad-CAM overlays
-(``obs.use_grad_cam``) are not ported yet and raise ``NotImplementedError``.
+round's scalars under ``<output_dir>/tensorboard``; ``obs.use_grad_cam``
+renders Grad-CAM overlays of that global overlay on four validation images
+to ``<obs.sal_image_dir>/<obs.exp_id>/saliency_r1.png`` (the saliency on
+the card, the PNG with matplotlib, which raises ``ImportError`` without it).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from shapley_vit_tpu_torch.config import Config
 from shapley_vit_tpu_torch.data.arrays import ArrayDataset
 from shapley_vit_tpu_torch.data.registry import get_dataset
+from shapley_vit_tpu_torch.driver import report
 from shapley_vit_tpu_torch.fl import evaluation as ev
 from shapley_vit_tpu_torch.fl import ingestion
 from shapley_vit_tpu_torch.fl.client import EvalClient
@@ -201,11 +204,6 @@ def load_validation_dataset(cfg: Config, target_size: Optional[int] = None,
     return ds
 
 
-def _refuse_unported(cfg: Config) -> None:
-    if cfg.obs.use_grad_cam:
-        raise NotImplementedError("Grad-CAM overlays are not ported to the GPU yet")
-
-
 def get_initial_shapley_value(
     cfg: Config,
     valid: ArrayDataset,
@@ -218,7 +216,6 @@ def get_initial_shapley_value(
 ) -> Tuple[List[List[Dict[int, float]]], List[Dict[int, float]]]:
     """Round bootstrap + first Shapley round (reference start.py:82-222).
     Returns (per-round SVs, summed SVs), one dict per utility dimension."""
-    _refuse_unported(cfg)
     device = resolve_device(device)
     logger = get_logger()
     n = cfg.shapley.num_clients
@@ -333,19 +330,31 @@ def get_initial_shapley_value(
         timer.log_to(csv_logger, step=1)
         csv_logger.scalar_summary("shapley_round/coalition_evals", game.num_evaluations, 1)
 
-    # the post-round FedAvg global overlay, exported to GLOBAL_MODEL_PATH
-    # (the .env contract's third path: the FL loop reads the global model
-    # from there); aggregated only when it is exported
+    # the post-round FedAvg global overlay, on the device: exported to
+    # GLOBAL_MODEL_PATH (the .env contract's third path: the FL loop reads
+    # the global model from there) and used for the saliency overlays;
+    # aggregated only when something consumes it
     participating = [i for i, s in enumerate(selection) if s]
-    if participating and cfg.paths.global_model_path:
+    global_overlay = init_lora
+    if participating and (cfg.paths.global_model_path or cfg.obs.use_grad_cam):
         ratio = tm.fedavg_ratio([clients[i].num_local_data_train for i in participating])
         agg = tm.aggregate_deltas(
-            tree_from_numpy(tm.tree_stack_host([deltas[i] for i in participating])), ratio
+            tree_from_numpy(tm.tree_stack_host([deltas[i] for i in participating]), device),
+            ratio,
         )
-        global_overlay = tm.apply_deltas(tm.tree_map(lambda a: a.cpu(), init_lora), agg)
-        ingestion.save_lora_checkpoint(
-            os.path.join(cfg.paths.global_model_path, "ViT_global.npz"), global_overlay, spec
+        global_overlay = tm.apply_deltas(init_lora, agg)
+        if cfg.paths.global_model_path:
+            ingestion.save_lora_checkpoint(
+                os.path.join(cfg.paths.global_model_path, "ViT_global.npz"), global_overlay, spec
+            )
+    if cfg.obs.use_grad_cam:
+        # Grad-CAM of the round's global model on sample validation images
+        # (reference --use-grad-cam/--sal-image-fname-dir, unwired there)
+        p = report.render_saliency(
+            os.path.join(cfg.obs.sal_image_dir, cfg.obs.exp_id),
+            base, global_overlay, valid.images, spec, round_idx=1,
         )
+        logger.info(f"saliency overlays: {p}")
 
     for i in range(utility_dim):
         shapley_value_all_rounds[i].append(shapley_value[i])
@@ -377,7 +386,6 @@ def start(cfg: Optional[Config] = None, checkpoint_paths: Optional[List] = None,
     """Entry point (reference mainShapley.py -> start.py:248-331); runs on
     the card unless ``device="cpu"`` is passed."""
     cfg = cfg or Config.from_env()
-    _refuse_unported(cfg)
     device = resolve_device(device)
     logger = get_logger()
     out_dir = cfg.ensure_output_dir()

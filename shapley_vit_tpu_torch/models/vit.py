@@ -26,7 +26,8 @@ What changed in the port:
   ops (the JAX default path, vit.py:353-362). LoRA training uses
   ``spec.replace(attention_impl="pallas", mlp_impl="xla")``; the forward-only
   kernels raise when autograd would need their gradient. The patch
-  embedding always runs ``patch_embed`` (nothing upstream of it trains).
+  embedding always runs ``patch_embed``, whose backward (torch ops) gives
+  the adversarial attacks their image gradient.
   The kernels' numerics follow the Pallas kernels (f32 softmax and
   accumulation in attention; LN -> fc1 -> GELU in f32 in the MLP, ``h``
   cast to the weight dtype before fc2, the residual added in f32), so at

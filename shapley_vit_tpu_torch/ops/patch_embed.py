@@ -5,9 +5,11 @@ The port of ``shapley_vit_tpu/ops/patch_embed.py`` (Pallas
 Hopper kernel (``csrc/patch_embed.cu``) for a CUDA tensor and runs
 :func:`patch_embed_plain`, the same function in torch ops, for a CPU tensor.
 There is no fallback between the two: a CUDA tensor gets the kernel or an
-exception. The kernel has no gradient, so neither path accepts inputs that
-autograd would differentiate: LoRA training needs none, since nothing
-upstream of the patch embedding trains.
+exception. :func:`patch_embed` is a ``torch.autograd.Function``: its
+backward, for the images, the kernel and the bias, is torch ops on either
+device (the JAX package differentiates its XLA path, ``_patchify`` and a
+matmul, since the Pallas kernel has no VJP). The adversarial attacks and
+Grad-CAM need the image gradient; LoRA training needs none.
 
 The route is the dtype's (``ROUTE``): bf16 runs the tensor-core kernel,
 whose copy widths and W loads adapt to alignment inside it, and float32 the
@@ -48,17 +50,19 @@ def patch_embed_plain(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Te
     return out.to(images.dtype)
 
 
-def patch_embed(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
-                patch: int) -> torch.Tensor:
-    """[B, H, W, C] images, [P*P*C, D] kernel, [D] bias -> [B, N, D] tokens in
-    the image dtype. CPU tensors run :func:`patch_embed_plain`; CUDA tensors
-    launch the kernel (float32 or bfloat16, all three of one dtype,
-    contiguous, H and W multiples of ``patch``). Forward only: it raises
-    when autograd would need a gradient through it (images or weights that
-    require grad)."""
-    _build.refuse_grad("patch_embed", images, kernel, bias)
-    if not images.is_cuda:
-        return patch_embed_plain(images, kernel, bias, patch)
+def unpatchify(patches: torch.Tensor, patch: int, H: int, W: int) -> torch.Tensor:
+    """Inverse of :func:`patchify`: [B, N, patch*patch*C] -> [B, H, W, C]
+    (the patches do not overlap, so this is the inverse permutation)."""
+    B = patches.shape[0]
+    gh, gw = H // patch, W // patch
+    C = patches.shape[-1] // (patch * patch)
+    x = patches.reshape(B, gh, gw, patch, patch, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H, W, C)
+
+
+def _patch_embed_kernel(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                        patch: int) -> torch.Tensor:
+    """The Hopper kernel on CUDA tensors."""
     B, H, W, C = images.shape
     D = kernel.shape[1]
     if H % patch or W % patch:
@@ -81,6 +85,46 @@ def patch_embed(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+class _PatchEmbed(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or its plain version (CPU). Backward, in
+    float32 torch ops, each gradient cast to its input's dtype; it launches
+    no kernel: dX = unpatchify(dY·Wᵀ), dW = patchesᵀ·dY, db = Σ dY."""
+
+    @staticmethod
+    def forward(ctx, images, kernel, bias, patch):
+        ctx.save_for_backward(images, kernel)
+        ctx.patch, ctx.bias_dtype = patch, bias.dtype
+        if not images.is_cuda:
+            return patch_embed_plain(images, kernel, bias, patch)
+        return _patch_embed_kernel(images, kernel, bias, patch)
+
+    @staticmethod
+    def backward(ctx, dy):
+        images, kernel = ctx.saved_tensors
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        g = dy.float()
+        dx = dw = db = None
+        if need_x:
+            dp = torch.matmul(g, kernel.float().t())
+            dx = unpatchify(dp, ctx.patch, images.shape[1], images.shape[2]).to(images.dtype)
+        if need_w:
+            x = patchify(images.to(kernel.dtype), ctx.patch).float()
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(),
+                              g.reshape(-1, g.shape[-1])).to(kernel.dtype)
+        if need_b:
+            db = g.sum(dim=(0, 1)).to(ctx.bias_dtype)
+        return dx, dw, db, None
+
+
+def patch_embed(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                patch: int) -> torch.Tensor:
+    """[B, H, W, C] images, [P*P*C, D] kernel, [D] bias -> [B, N, D] tokens in
+    the image dtype. CPU tensors run :func:`patch_embed_plain`; CUDA tensors
+    launch the kernel (float32 or bfloat16, all three of one dtype,
+    contiguous, H and W multiples of ``patch``). Differentiable in all three
+    inputs on either device."""
+    return _PatchEmbed.apply(images, kernel, bias, patch)
+
+
 patch_embed.launches = 0
 patch_embed.route = None
-

@@ -37,6 +37,12 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def graph_ready(t):
+    """``t``, or a normal copy of it when it was made in inference mode (a
+    tensor made under ``torch.inference_mode`` cannot enter a graph)."""
+    return t.clone() if isinstance(t, torch.Tensor) and t.is_inference() else t
+
+
 def tree_leaves(tree: Tree) -> List[Any]:
     """Leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
     if isinstance(tree, dict):

@@ -5,8 +5,8 @@ The parts of ``shapley_vit_tpu/utils/logging.py`` the drivers use:
 ``CSVLogger`` keeps the CSV experiment log (``party{rank}_{exp}_{mode}_log.csv``,
 reference utils/logger.py:17) and a metrics CSV fed by
 :meth:`CSVLogger.scalar_summary`; ``TensorBoardWriter`` writes the
-per-round scalars of ``--use-tensorboard`` through the native event writer
-(``utils/tb_events.py``).
+per-round scalars of ``--use-tensorboard`` and the Grad-CAM images through
+the native event writer (``utils/tb_events.py``).
 """
 
 from __future__ import annotations
@@ -160,6 +160,14 @@ class TensorBoardWriter:
         for name, v in (health or {}).items():
             self._w.add_scalar(f"health/{name}", v, step)
         self._w.flush()
+
+    def add_image(self, tag: str, img, step: int) -> None:
+        """uint8 or [0,1]-float HW / HW1 / HW3 / HW4 image -> Summary.Image
+        (stdlib PNG; the backend for the reference's dead image_summary,
+        logger.py:34-54)."""
+        if self._w is not None:
+            self._w.add_image(tag, img, step)
+            self._w.flush()
 
     def close(self) -> None:
         if self._w is not None:

@@ -10,7 +10,8 @@ ops. Tolerances: atol 2e-5 (rtol 1e-4 on the forward), float32 sums over at
 most 197 keys taken in another order.
 
 Also here: the forward-only kernels refuse a call that autograd would need
-a gradient through, instead of cutting the graph.
+a gradient through, instead of cutting the graph; ``patch_embed``'s
+gradient (torch ops) against autograd and ``jax.grad``.
 """
 
 import jax
@@ -104,13 +105,35 @@ def test_forward_only_kernels_refuse_a_gradient():
             torch.testing.assert_close(tmlp.fused_mlp_block(*bad), tmlp.fused_mlp_block(*args))
     with torch.no_grad():
         tatt.fused_attention_packed(leaf, q, q, heads=2)
-    img = torch.tensor(rng.normal(size=(2, 8, 8, 3)).astype(np.float32))
-    pw = torch.tensor(rng.normal(size=(48, 8)).astype(np.float32))
-    pargs = [img, pw, torch.zeros(8)]
-    for i in range(len(pargs)):
-        bad = list(pargs)
-        bad[i] = bad[i].clone().requires_grad_(True)
-        with pytest.raises(RuntimeError, match="patch_embed is forward only"):
-            tpe.patch_embed(*bad, 4)
-        with torch.no_grad():
-            torch.testing.assert_close(tpe.patch_embed(*bad, 4), tpe.patch_embed(*pargs, 4))
+
+
+@pytest.mark.parametrize("wrt", ["images", "kernel", "bias"])
+def test_patch_embed_gradient_matches_autograd_and_jax(wrt):
+    """``patch_embed``'s backward (torch ops) against autograd through
+    ``patch_embed_plain``, for each of its three inputs, and the image
+    gradient against ``jax.grad`` through the JAX package's ``_patchify`` and
+    matmul (the path JAX differentiates): float32, atol 1e-5 (sums over at
+    most 48 terms)."""
+    from shapley_vit_tpu.models.vit import _patchify as j_patchify
+
+    rng = np.random.default_rng(5)
+    img, pw, pb, cot = (rng.normal(size=s).astype(np.float32)
+                        for s in ((2, 8, 12, 3), (48, 8), (8,), (2, 6, 8)))
+    which = ["images", "kernel", "bias"].index(wrt)
+
+    def grad_of(fn):
+        leaves = [torch.tensor(a, requires_grad=i == which) for i, a in enumerate((img, pw, pb))]
+        (fn(*leaves, 4) * torch.tensor(cot)).sum().backward()
+        return leaves[which].grad.numpy()
+
+    got = grad_of(tpe.patch_embed)
+    assert float(np.abs(got).max()) > 1e-3
+    np.testing.assert_allclose(got, grad_of(tpe.patch_embed_plain), atol=1e-5, rtol=0)
+    if wrt == "images":
+        want = jax.grad(lambda x: jnp.sum((j_patchify(x, 4) @ pw + pb) * cot))(jnp.asarray(img))
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+    # each gradient in its input's dtype
+    leaves = [torch.tensor(a).bfloat16().requires_grad_(i == which)
+              for i, a in enumerate((img, pw, pb))]
+    tpe.patch_embed(*leaves, 4).float().sum().backward()
+    assert leaves[which].grad.dtype == torch.bfloat16

@@ -135,7 +135,11 @@ def test_start_runs_on_the_cpu_only_when_asked(tmp_path, rounds):
     bad.model.quant = "int4"
     with pytest.raises(ValueError):
         tstart.build_model(bad, device="cpu")
-    bad = _cfg(TConfig, tmp_path)
-    bad.obs.use_grad_cam = True
-    with pytest.raises(NotImplementedError):
-        tstart.start(bad, checkpoint_paths=rounds["paths"], device="cpu")
+    # Grad-CAM of the round's global model (ported: no longer refused)
+    cam = _cfg(TConfig, tmp_path)
+    cam.obs.use_grad_cam = True
+    cam.obs.sal_image_dir = str(tmp_path / "sal")
+    again = tstart.start(cam, checkpoint_paths=rounds["paths"], device="cpu")
+    np.testing.assert_array_equal(_svs(again), _svs(result))
+    assert os.path.getsize(os.path.join(cam.obs.sal_image_dir, cam.obs.exp_id,
+                                        "saliency_r1.png")) > 0

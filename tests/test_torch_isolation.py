@@ -4,8 +4,9 @@ Checked in a subprocess: the suite's conftest has already imported jax into
 this process. There, ``jax`` (with ``jaxlib`` and ``flax``) and
 ``shapley_vit_tpu`` are blocked in ``sys.modules``, and every module of
 ``shapley_vit_tpu_torch`` plus ``chip_smoke`` is imported, each new module
-of the service slice also on its own. The native watcher the port loads is
-its own build, never the JAX package's ``csrc/libsvt_runtime.so``.
+of the service and adversarial slices also on its own. The native watcher
+the port loads is its own build, never the JAX package's
+``csrc/libsvt_runtime.so``.
 """
 
 import os
@@ -49,7 +50,11 @@ SERVICE_MODULES = [
 ]
 
 
-@pytest.mark.parametrize("name", SERVICE_MODULES)
+# the adversarial/interpretability slice's modules
+ROBUST_MODULES = ["fl.adversarial", "models.interpret", "models.inception", "models.convert"]
+
+
+@pytest.mark.parametrize("name", SERVICE_MODULES + ROBUST_MODULES)
 def test_service_module_imports_alone_without_jax(name):
     probe = ("import sys\n"
              "for n in ('jax', 'jaxlib', 'flax', 'shapley_vit_tpu'):\n"

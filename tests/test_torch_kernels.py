@@ -116,6 +116,30 @@ def test_patch_embed_bf16_within_one_step_at_the_round_shape():
     assert excess.max().item() <= 0, f"{(excess > 0).sum().item()} outputs past the bound"
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,P,C,D", [(8, 224, 16, 3, 768), (2, 48, 8, 3, 100)])
+def test_patch_embed_gradient_on_the_card(dtype, B, H, P, C, D):
+    """The Function's gradients (kernel forward, torch-op backward) for the
+    images, the kernel and the bias against autograd through the plain
+    version, each in its input's dtype; the forward launches the kernel
+    once and the backward nothing."""
+    rng = np.random.default_rng(11)
+    inputs = _patch_inputs(rng, B, H, P, C, D, dtype)
+    cot = _randn(rng, (B, (H // P) ** 2, D), dtype=dtype)
+    grads = []
+    for fn in (pe.patch_embed, pe.patch_embed_plain):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        before = pe.patch_embed.launches
+        fn(*leaves, P).backward(cot)
+        torch.cuda.synchronize()
+        assert pe.patch_embed.launches - before == (fn is pe.patch_embed)
+        grads.append([t.grad for t in leaves])
+    assert pe.patch_embed.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    for a, b in zip(*grads):
+        assert a.dtype == dtype
+        _close(a, b, dtype)
+
+
 # N of 1 to 4 query tiles of 64, key counts that are not multiples of 8 or
 # 16, a unit count (B * H = 133) that does not divide the persistent grid,
 # and the round's [896, 197, 12 heads]

@@ -4,6 +4,7 @@ timeout, all-corrupt rounds and their consecutive bound, a hostile pickle,
 utility-table pruning and a mid-round resume from the table. Micro ViT on
 the CPU."""
 
+import glob
 import os
 import threading
 import time
@@ -13,6 +14,7 @@ import pytest
 
 from shapley_vit_tpu_torch.driver import serve as tserve
 from shapley_vit_tpu_torch.fl import checkpoint as ckpt
+from shapley_vit_tpu_torch.utils import tb_events
 from test_torch_serve_common import corrupt_epoch, port_model, service_cfg, write_epoch
 
 
@@ -210,11 +212,24 @@ def test_serve_prewarm_keeps_results_identical(cfg, tmp_path):
     assert warm[0]["shapley"] == cold[0]["shapley"]
 
 
+def test_serve_writes_grad_cam_overlays(cfg, tmp_path):
+    # per-round Grad-CAM overlays of the global model, listed among the
+    # round's artifacts, with their TensorBoard images (JAX
+    # tests/test_serve.py:640-653)
+    cfg.obs.use_grad_cam = cfg.obs.use_tensorboard = True
+    cfg.obs.sal_image_dir = str(tmp_path / "sal")
+    spec, _, init = port_model(cfg)
+    write_epoch(cfg, spec, init, 0)
+    records = serve(cfg, max_rounds=1, timeout=30.0, policy="fail")
+    p = os.path.join(cfg.obs.sal_image_dir, cfg.obs.exp_id, "saliency_r0.png")
+    assert os.path.getsize(p) > 0 and p in records[0]["artifacts"]
+    (events,) = glob.glob(os.path.join(cfg.output_dir, "tensorboard", "events.out.tfevents.*"))
+    images = tb_events.read_image_events(events)
+    assert [(tag, step) for tag, *_, step in images] == [
+        (f"saliency/grad_cam/img_{i}", 0) for i in range(4)]
+
+
 def test_serve_refuses_what_is_not_ported(cfg, monkeypatch):
-    cfg.obs.use_grad_cam = True
-    with pytest.raises(NotImplementedError, match="Grad-CAM"):
-        serve(cfg, max_rounds=1)
-    cfg.obs.use_grad_cam = False
     monkeypatch.setattr(tserve, "_world_size", lambda: 2)
     with pytest.raises(NotImplementedError, match="one process"):
         serve(cfg, max_rounds=1)

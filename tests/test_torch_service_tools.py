@@ -361,8 +361,15 @@ def test_report_plots_and_async_worker(tmp_path):
     report.submit_async_artifact(boom)
     assert report.flush_async_plots(raise_errors=False) == 1
     assert report.pending_artifact_jobs() == 0
-    with pytest.raises(NotImplementedError):
-        report.render_saliency(str(tmp_path), None, None, None, None)
+    # the saliency PNG renders on the same worker, after the plots queued
+    # before it (pyplot is not re-entrant), and is waited for
+    spec, base, lora = port_model(service_cfg(tmp_path))
+    paths = report.render_round_report(str(tmp_path), sv, round_idx=6, plots_async=True)
+    images = np.random.default_rng(0).uniform(size=(2, spec.image, spec.image, 3))
+    sal = report.render_saliency(str(tmp_path / "sal"), base, lora, images, spec, round_idx=6)
+    assert report.pending_artifact_jobs() == 0
+    assert os.path.getsize(sal) > 0 and any(p.endswith("sv_bar_r6.png") and os.path.getsize(p) > 0
+                                             for p in paths)
 
 
 def test_average_meters():
