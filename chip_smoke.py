@@ -18,7 +18,8 @@ Phases, each printing one JSON line:
    fused MLP the yardstick is the port's own torch-op MLP half,
    ``models.vit.mlp_half_xla``: LN, two cuBLAS products, GELU, residual,
    which rounds differently and is a yardstick of time only), and
-   the least time the card could take (``bound_ms``; ``bound_share`` is
+   the least time the card could take (``bound_ms``, by the peak of the
+   route that ran: 3xTF32 counts three TF32 products; ``bound_share`` is
    ``bound_ms / ms``). The
    kernel and the library call are also timed back to back
    (``*_back_to_back``: the device's time per call among calls launched
@@ -26,27 +27,33 @@ Phases, each printing one JSON line:
    one call (``host_us``, ``library_host_us``); ``share_differing`` is the
    share of outputs whose value differs from the plain version's; ``route``
    is the kernel that ran, as the wrapper recorded it at the launch (its
-   ``route`` attribute): ``wgmma`` (the bf16 tensor-core kernels) or
-   ``fma`` (the FMA units). ``fused_attention``'s and ``patch_embed``'s
+   ``route`` attribute), and must be the one ``expected_route`` names:
+   ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 fused
+   MLP on the tensor cores) or ``fma`` (the FMA units). The float32 fused
+   MLP is also held on its ``fma`` route, with its weights one element past
+   an aligned allocation. ``fused_attention``'s and ``patch_embed``'s
    gradients (each an ``autograd.Function``) are held against autograd
    through the plain version on the same inputs, with the same tolerances
    (``grad_check``: every input's gradient, in its dtype, one launch on the
    dtype's route; forward + backward and backward-alone times beside the
    plain version's and the library call's).
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
-   merged coalitions) on the card through the kernels, against the port on
-   the CPU through the plain versions, from the same weights (atol 1e-3).
+   merged coalitions) on the card through the kernels (the MLP on
+   ``tf32x3``), against the port on the CPU through the plain versions,
+   from the same weights (atol 1e-3).
 4. ``round``   — one Shapley round through ``driver.start.start`` with the
    default ``Config`` (ViT-B/16, bf16, merged LoRA, comp-contrib m = 50·n) on
    the synthetic OCT validation set and three client drops written by
    ``save_lora_checkpoint``; the launch counters are zeroed just before and
-   read just after, and every kernel of the round must have run.
-   ``shapley_exact`` over the round's persisted utility table checks the
-   efficiency axiom.
+   read just after, and every kernel of the round must have run, the MLP on
+   ``wgmma``. ``shapley_exact`` over the round's persisted utility table
+   checks the efficiency axiom. Then the same round at
+   ``compute_dtype="float32"`` (the reference's numerics; its own drops
+   and outputs), the MLP on ``tf32x3``, reported as ``round_s_float32``.
 5. ``profile`` — device time by kernel, and the device's idle share, over
-   one more coalition pass of the round (7 coalitions, 400 images) under
-   ``torch.profiler``, after the round so it touches neither its counts
-   nor its time.
+   one more coalition pass of each round (7 coalitions, 400 images; bf16,
+   then float32) under ``torch.profiler``, after the round so it touches
+   neither its counts nor its time.
 6. ``train``   — LoRA client training, in three parts:
    ``run_client`` with the default ``Config`` (ViT-B/16, bf16, synthetic OCT
    at scale 1.0, batch 64, Adam) for 4 steps on the card, counters zeroed
@@ -69,7 +76,8 @@ Phases, each printing one JSON line:
    advancing (zeroed just before); each of the four kernels at the
    variant's widths (4 images: patch P 16 or 4, attention heads of 64 or
    16, MLP D 192 / 768 or 32 / 64) against its plain version on the same
-   seeded inputs, bf16 on ``wgmma`` and float32 on ``fma``, with the
+   seeded inputs, bf16 on ``wgmma`` and float32 on ``fma`` (the MLP on
+   ``tf32x3``), with the
    ``kernels`` phase's tolerances; then ``run_demo()`` at its defaults
    (micro, 16 px) and at tiny / 224 px, each through ``start()``, with the
    efficiency axiom checked as in ``train``.
@@ -158,7 +166,10 @@ Phases, each printing one JSON line:
    a ``Denoise(224, 224)`` front-end on 32 images (finite metrics). It
    prints seconds, metrics and peak memory of each run.
 
-Then the card's name and power limit, the kernels summary line, and as the
+Then the card's name and power limit, the kernels summary line (a row for
+each kernel of the bf16 paths, launches from the bf16 round and the train
+phase, and one for each kernel of the float32 round, launches from it),
+and as the
 last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 before that line; without a CUDA device the script exits non-zero at once.
 """
@@ -177,11 +188,30 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks (NVIDIA data sheets, dense): matrix rate by dtype, memory rate.
+# Published peaks (NVIDIA data sheets, dense): matrix rate by dtype (float32
+# on the FMA units, "tfloat32" on the tensor cores), memory rate.
 _PEAKS = {
-    "sxm": {"bfloat16": 989e12, "float32": 67e12, "bytes": 3.35e12},
-    "pcie": {"bfloat16": 756e12, "float32": 51e12, "bytes": 2.0e12},
+    "sxm": {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 495e12, "bytes": 3.35e12},
+    "pcie": {"bfloat16": 756e12, "float32": 51e12, "tfloat32": 378e12, "bytes": 2.0e12},
 }
+
+
+def expected_route(name: str, dtype: str) -> str:
+    """The kernel each wrapper launches for a dtype on the paths chip_smoke
+    drives (ViT widths, aligned weights): the bf16 tensor-core kernels,
+    float32 on the FMA units except the fused MLP's 3xTF32 route."""
+    if dtype == "bfloat16":
+        return "wgmma"
+    return "tf32x3" if name == "fused_mlp_block" else "fma"
+
+
+def peak_ops(pk: dict, dtype: str, route: str, flops: float) -> float:
+    """Seconds the card's peak rate needs for a kernel's ``flops`` on its
+    route: 3xTF32 does three TF32 products for each float32 one."""
+    if route == "tf32x3":
+        return 3 * flops / pk["tfloat32"]
+    return flops / pk[dtype]
+
 
 KERNELS = {
     "patch_embed": ("shapley_vit_tpu_torch/csrc/patch_embed.cu",
@@ -280,8 +310,8 @@ def kernel_inputs(gen, dtype) -> dict:
 
 
 def phase_kernels(card: str) -> dict:
-    """Every kernel at the round's shapes, both dtypes. Returns the bf16
-    numbers per kernel (the round's dtype) for the summary line."""
+    """Every kernel at the round's shapes, both dtypes. Returns each
+    kernel's row by (name, dtype), for the summary line."""
     import torch
     import torch.nn.functional as F
 
@@ -336,8 +366,7 @@ def phase_kernels(card: str) -> dict:
         mlp_blk = {"ln2": {"scale": inp["ls"], "bias": inp["lb"]},
                    "mlp": {"fc1": {"kernel": inp["w1"], "bias": inp["b1"]},
                            "fc2": {"kernel": inp["w2"], "bias": inp["b2"]}}}
-        cases["fused_mlp_block"] = dict(
-            kernel=lambda: mlp.fused_mlp_block(*mlp_args, eps=1e-12),
+        mlp_case = dict(
             plain=lambda: mlp.fused_mlp_block_plain(*mlp_args, eps=1e-12),
             library=lambda: tvit.mlp_half_xla(inp["x"], mlp_blk, mlp_spec),
             library_name="models.vit.mlp_half_xla (torch ops: LN, cuBLAS fc1, GELU, cuBLAS fc2, residual)",
@@ -345,6 +374,16 @@ def phase_kernels(card: str) -> dict:
             bytes=(2 * M * D + 2 * D * HID + HID + 3 * D) * isz,
             reps=3,
         )
+        cases["fused_mlp_block"] = dict(
+            mlp_case, kernel=lambda: mlp.fused_mlp_block(*mlp_args, eps=1e-12))
+        if dtype == torch.float32:
+            # the FMA route, which float32 weights that TMA cannot read take:
+            # the same weights one element past an aligned allocation
+            inp["w1_fma"], inp["w2_fma"] = unaligned(inp["w1"]), unaligned(inp["w2"])
+            cases["fused_mlp_block_fma"] = dict(
+                mlp_case, wrapper="fused_mlp_block", route="fma", reps=1,
+                kernel=lambda: mlp.fused_mlp_block(*mlp_args[:3], inp["w1_fma"], mlp_args[4],
+                                                   inp["w2_fma"], mlp_args[6], eps=1e-12))
 
         # the training path's [B, H, N, d] views of packed projections
         tq, tk, tv = inp["tq"], inp["tk"], inp["tv"]
@@ -362,17 +401,19 @@ def phase_kernels(card: str) -> dict:
 
         wrappers = {"patch_embed": pe.patch_embed, "fused_attention_packed": att.fused_attention_packed,
                     "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention}
-        for name, c in cases.items():
+        for key, c in cases.items():
+            name = c.get("wrapper", key)
             launched = wrappers[name].launches
             got = c["kernel"]()
             route = wrappers[name].route
             want = c["plain"]()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), **tol)
+            ok = (torch.allclose(got.float(), want.float(), **tol)
+                  and route == c.get("route", expected_route(name, dname)))
             differing = (got != want).float().mean().item()
             del got, want
-            t_ops = c["flops"] / pk[dname]
+            t_ops = peak_ops(pk, dname, route, c["flops"])
             t_bytes = c["bytes"] / pk["bytes"]
             ms = cuda_ms(c["kernel"], c["reps"])
             ms_b2b, host_us = back_to_back(c["kernel"], 5 * c["reps"])
@@ -394,10 +435,10 @@ def phase_kernels(card: str) -> dict:
                 "launches": wrappers[name].launches - launched,  # this phase's, not the round's
             }
             results.append(row)
-            if dtype == torch.bfloat16:
-                summary[name] = row
+            if key == name:  # the main paths' route
+                summary[name, dname] = row
             torch.cuda.empty_cache()
-        del cases, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh, tkh, tvh
+        del cases, mlp_case, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh, tkh, tvh
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = tf32
     emit({"phase": "kernels", "card": card, "cudnn_allow_tf32": False, "results": results,
@@ -405,10 +446,21 @@ def phase_kernels(card: str) -> dict:
     bad = [r for r in results + grads if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
-    summary["patch_embed"]["backward_ms"] = next(
-        g["backward_ms"] for g in grads if g["name"] == "patch_embed.backward"
-        and g["dtype"] == "bfloat16")
+    for dname in ("bfloat16", "float32"):
+        summary["patch_embed", dname]["backward_ms"] = next(
+            g["backward_ms"] for g in grads if g["name"] == "patch_embed.backward"
+            and g["dtype"] == dname)
     return summary
+
+
+def unaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned allocation."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def grad_check(wrapper, kernel, plain, library, args, dtype, tol, seed: int) -> dict:
@@ -501,6 +553,7 @@ def phase_model() -> None:
 
     from shapley_vit_tpu_torch.models import vit as tvit
     from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 
     spec = tvit.make_spec("base", dtype="float32")
     gen = torch.Generator().manual_seed(1)
@@ -525,9 +578,12 @@ def phase_model() -> None:
     cpu = logits("cpu")
     gpu = logits("cuda")
     err = (gpu - cpu).abs().max().item()
-    ok = bool(torch.isfinite(gpu).all()) and err <= 1e-3
+    route = fused_mlp_block.route
+    ok = bool(torch.isfinite(gpu).all()) and err <= 1e-3 and route == expected_route(
+        "fused_mlp_block", "float32")
     emit({"phase": "model", "variant": "base", "dtype": "float32", "images": 8,
-          "logits_shape": list(gpu.shape), "max_abs_err_vs_cpu": err, "atol": 1e-3, "ok": ok})
+          "logits_shape": list(gpu.shape), "max_abs_err_vs_cpu": err, "atol": 1e-3,
+          "mlp_route": route, "ok": ok})
     if not ok:
         raise SystemExit("ViT-B logits on the card disagree with the CPU")
 
@@ -557,9 +613,13 @@ def exact_efficiency(output_dir: str, n: int, table_name: str = "utility_table.n
     return exact, max(abs(sum(exact[d].values()) - grand[d]) for d in range(2))
 
 
-def phase_round(counted) -> tuple:
-    """One Shapley round through the port's entry point; returns the launch
-    count of each kernel during the round, and the round's seconds."""
+def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None) -> tuple:
+    """One Shapley round through the port's entry point at ``dtype`` (the
+    default ``Config``'s bf16, or float32, the reference's numerics); returns
+    the launch count of each kernel during the round, and the round's
+    seconds. ``mlp_route``: the fused MLP's route the round must take (None:
+    any). The float32 round's drops and outputs go to their own
+    directory."""
     import numpy as np
     import torch
 
@@ -568,9 +628,11 @@ def phase_round(counted) -> tuple:
     from shapley_vit_tpu_torch.fl import ingestion
     from shapley_vit_tpu_torch.models.convert import tree_to_numpy
     from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 
     cfg = Config()  # ViT-B/16, bf16, exact_f32 GELU, merged, comp-contrib
-    work = os.path.join(ROOT, "exp", "chip_smoke")
+    cfg.model.compute_dtype = dtype
+    work = round_dir(dtype)
     shutil.rmtree(work, ignore_errors=True)  # a stale utility table would skip evaluations
     cfg.obs.exp_dir = os.path.join(work, "out")
 
@@ -608,9 +670,11 @@ def phase_round(counted) -> tuple:
         all(math.isfinite(x) for row in sv for x in row)
         and eff_err <= 1e-4
         and all(n > 0 for n in launches.values())
+        and mlp_route in (None, fused_mlp_block.route)
     )
     emit({
         "phase": "round", "variant": "base", "dtype": cfg.model.compute_dtype,
+        f"round_s_{dtype}": round_s, "mlp_route": fused_mlp_block.route,
         "eval_mode": cfg.model.eval_mode, "clients": 3, "validation_images": valid_n,
         "batches": math.ceil(valid_n / cfg.data.eval_batch_size),
         "shapley_value": {"accuracy": sv[0], "loss": sv[1]},
@@ -623,6 +687,11 @@ def phase_round(counted) -> tuple:
     if not ok:
         raise SystemExit("the Shapley round failed its checks")
     return launches, round_s
+
+
+def round_dir(dtype: str) -> str:
+    """Where the round at ``dtype`` writes its drops and outputs."""
+    return os.path.join(ROOT, "exp", "chip_smoke" if dtype == "bfloat16" else f"chip_smoke_{dtype}")
 
 
 def phase_train(counted) -> dict:
@@ -821,13 +890,16 @@ def device_rows(prof) -> list:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
 
 
-def phase_profile(work: str, int8: bool = False) -> None:
+def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
+                  mlp_kernel: str | None = "mlp_block_gemm_kernel") -> None:
     """Device time by kernel over one coalition pass of the round (all 7
-    coalitions x the 400 validation images, bf16), from ``torch.profiler``;
-    the device's idle share is taken against the host-clock time of an
-    unprofiled pass (``pass_ms``), since the profiler slows the host. The
-    inputs are rebuilt from the same seed, data and drops as the round;
-    ``int8`` profiles the ``int8`` phase's spec instead."""
+    coalitions x the 400 validation images, at ``dtype``), from
+    ``torch.profiler``; the device's idle share is taken against the
+    host-clock time of an unprofiled pass (``pass_ms``), since the profiler
+    slows the host. The inputs are rebuilt from the same seed, data and
+    drops as the round; ``int8`` profiles the ``int8`` phase's spec
+    instead. ``mlp_kernel``: the fused MLP's GEMM kernel that must run in
+    the pass (never under ``int8``, which bypasses it; None: no check)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -839,6 +911,7 @@ def phase_profile(work: str, int8: bool = False) -> None:
     from shapley_vit_tpu_torch.shapley import powerset
 
     cfg = Config()
+    cfg.model.compute_dtype = dtype
     if int8:
         cfg.model.gelu, cfg.model.quant = "tanh", "int8"
     spec, base, init_lora = drv.build_model(cfg, device="cuda")
@@ -872,7 +945,7 @@ def phase_profile(work: str, int8: bool = False) -> None:
         groups[name] += ms
         if name != "other":
             members[name].append({"name": key[:120], "device_ms": ms, "calls": n})
-    emit({"phase": "profile", "quant": cfg.model.quant, "coalitions": int(W.shape[0]),
+    emit({"phase": "profile", "dtype": dtype, "quant": cfg.model.quant, "coalitions": int(W.shape[0]),
           "images": len(valid),
           "pass_ms": pass_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / pass_ms),
@@ -881,7 +954,7 @@ def phase_profile(work: str, int8: bool = False) -> None:
           "top_kernels": [{"name": k[:120], "device_ms": ms, "calls": n} for k, ms, n in rows[:12]]})
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
-    if int8 == any("mlp_block_gemm_kernel" in k["name"] for k in members["mlp_block"]):
+    if mlp_kernel and int8 == any(mlp_kernel in k["name"] for k in members["mlp_block"]):
         raise SystemExit("the profiled pass ran the fused MLP kernel where it should not, "
                          "or not where it should")
 
@@ -1005,7 +1078,7 @@ def phase_int8(counted, bf16_round_s: float) -> None:
     work = os.path.join(ROOT, "exp", "chip_smoke_int8")
     shutil.rmtree(work, ignore_errors=True)
     cfg.obs.exp_dir = os.path.join(work, "out")
-    drops = os.path.join(ROOT, "exp", "chip_smoke")  # the round's drops
+    drops = round_dir("bfloat16")  # the round's drops
     paths = [os.path.join(drops, f"client_{i + 1}_model", "ViT_epoch_9.npz") for i in range(3)]
 
     for fn in counted:
@@ -1807,8 +1880,7 @@ def phase_variants(counted) -> None:
         bf_launches = {fn.__name__: fn.launches for fn in counted}
         want = dict(zip(names, (1, spec.depth, spec.depth, 0)))  # patch, packed attention, MLP
         kernel_rows = variant_kernel_rows(spec, images.shape[0])
-        routes_ok = all(r["route"] == ("wgmma" if r["dtype"] == "bfloat16" else "fma")
-                        for r in kernel_rows)
+        routes_ok = all(r["route"] == expected_route(r["name"], r["dtype"]) for r in kernel_rows)
         v_ok = (bool(torch.isfinite(gpu).all()) and err <= 1e-3 and f32_launches == want
                 and bool(torch.isfinite(bf).all()) and bf_launches == want
                 and all(r["ok"] for r in kernel_rows) and routes_ok)
@@ -1873,8 +1945,13 @@ def main() -> int:
 
     summary = phase_kernels(card)
     phase_model()
-    launches, bf16_round_s = phase_round((patch_embed, fused_attention_packed, fused_mlp_block))
-    phase_profile(os.path.join(ROOT, "exp", "chip_smoke"))
+    round_kernels = (patch_embed, fused_attention_packed, fused_mlp_block)
+    launches, bf16_round_s = phase_round(round_kernels, mlp_route="wgmma")
+    phase_profile(round_dir("bfloat16"))
+    # the float32 round, the reference's numerics: the same kernels, float32
+    # on the FMA units and the fused MLP on 3xTF32
+    f32_launches, _ = phase_round(round_kernels, dtype="float32", mlp_route="tf32x3")
+    phase_profile(round_dir("float32"), dtype="float32", mlp_kernel="mlp_block_tf32x3_kernel")
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
     launches["fused_attention"] = phase_train(counted)["fused_attention"]
     phase_variants(counted)
@@ -1885,13 +1962,19 @@ def main() -> int:
     phase_rounds(counted)
     phase_robust(counted)
 
+    # each kernel of the bf16 paths (launches: the bf16 round's, the train
+    # phase's for fused_attention), then each of the float32 round's
+    # (launches: that round's)
+    paths = [(name, "bfloat16", launches[name]) for name in KERNELS]
+    paths += [(fn.__name__, "float32", f32_launches[fn.__name__]) for fn in round_kernels]
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        s = summary[name]
+    for name, dname, n in paths:
+        source, replaces = KERNELS[name]
+        s = summary[name, dname]
         rows.append({
-            "name": name, "route": "cuda", "kernel_route": s["route"], "source": source,
+            "name": name, "dtype": dname, "route": "cuda", "kernel_route": s["route"], "source": source,
             "replaces": replaces,
-            "launches": launches[name], "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "launches": n, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
             "library_ms": s["library_ms"], "library": s["library"], "bound_share": s["bound_share"],
             "vs_library": s["vs_library"],

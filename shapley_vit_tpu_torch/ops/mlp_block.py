@@ -18,7 +18,13 @@ alignment before the launch:
   come from PyTorch's caching allocator; y and h are rounded to bf16 where
   the Pallas kernel casts them to the weights' dtype, so the numerics are
   the fused kernel's.
-* ``"fma"`` (float32, and bf16 shapes the first route does not take; D a
+* ``"tf32x3"`` (float32, D and the hidden width multiples of 4, W1 and W2
+  16-byte aligned): the same LN and two GEMMs on the tensor cores in
+  3xTF32, each float32 operand split into a TF32 pair hi + lo and each
+  product taken as hi·hi + hi·lo + lo·hi, which keeps float32's accuracy.
+  Workspaces ``y [M, D]`` and ``h [M, Hd]`` in float32, and ``wt`` for
+  W1's and W2's transposed TF32 pairs (``4·D·Hd`` floats).
+* ``"fma"`` (float32 and bf16 that the routes above do not take; D a
   multiple of 32 up to 1024): one kernel on the FMA units that keeps the
   hidden on chip.
 
@@ -38,10 +44,15 @@ from shapley_vit_tpu_torch.ops import _build
 _ARGS = [ctypes.c_void_p] * 8
 _TAIL = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _FNS = {
-    "svt_mlp_block_f32": _ARGS + _TAIL,
+    "svt_mlp_block_fma_f32": _ARGS + _TAIL,
     "svt_mlp_block_fma_bf16": _ARGS + _TAIL,
     "svt_mlp_block_bf16": _ARGS + [ctypes.c_void_p] * 2 + _TAIL,  # + the y and h workspaces
+    "svt_mlp_block_tf32x3": _ARGS + [ctypes.c_void_p] * 3 + _TAIL,  # + y, h and wt
 }
+# the element multiple of D and the hidden width each tensor-core route needs
+# (16-byte rows for TMA)
+_TMA_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
+_TMA_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 FMA_MAX_WIDTH = 1024  # the FMA kernel's widest D (a multiple of 32)
 
 
@@ -63,18 +74,20 @@ def fused_mlp_block_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torc
 
 
 def mlp_route(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
-    """The kernel a call with these tensors takes on the card: ``"wgmma"``
-    or ``"fma"`` (module docstring). Raises ``ValueError`` for a shape that
-    neither takes."""
+    """The kernel a call with these tensors takes on the card: ``"wgmma"``,
+    ``"tf32x3"`` or ``"fma"`` (module docstring). Raises ``ValueError`` for
+    a shape that none takes."""
     D, Hd = w1.shape
-    if (x.dtype == torch.bfloat16 and D % 8 == 0 and Hd % 8 == 0
+    mult = _TMA_MULTIPLE.get(x.dtype)
+    if (mult and D % mult == 0 and Hd % mult == 0
             and w1.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0):
-        return "wgmma"
+        return _TMA_ROUTE[x.dtype]
     if D % 32 == 0 and 0 < D <= FMA_MAX_WIDTH:
         return "fma"
-    raise ValueError(f"width {D} (hidden {Hd}, {x.dtype}) is taken by no kernel: bf16 needs D and "
-                     f"the hidden width multiples of 8 and 16-byte aligned weights, else D must be "
-                     f"a multiple of 32 up to {FMA_MAX_WIDTH}")
+    raise ValueError(f"width {D} (hidden {Hd}, {x.dtype}) is taken by no kernel: the tensor cores "
+                     f"need D and the hidden width multiples of 8 (bf16) or 4 (float32) and "
+                     f"16-byte aligned weights, else D must be a multiple of 32 up to "
+                     f"{FMA_MAX_WIDTH}")
 
 
 def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -102,15 +115,20 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     tail = (M, D, Hd, float(eps), int(approximate_gelu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "wgmma":
+        if route == "fma":
+            fn = lib.svt_mlp_block_fma_f32 if x.dtype == torch.float32 else lib.svt_mlp_block_fma_bf16
+            err = fn(*args, *tail, stream)
+        else:
             # freed on return: the caching allocator hands their blocks only
             # to work queued after these kernels on this stream
             y = torch.empty((M, D), dtype=x.dtype, device=x.device)
             h = torch.empty((M, Hd), dtype=x.dtype, device=x.device)
-            err = lib.svt_mlp_block_bf16(*args, y.data_ptr(), h.data_ptr(), *tail, stream)
-        else:
-            fn = lib.svt_mlp_block_f32 if x.dtype == torch.float32 else lib.svt_mlp_block_fma_bf16
-            err = fn(*args, *tail, stream)
+            if route == "wgmma":
+                err = lib.svt_mlp_block_bf16(*args, y.data_ptr(), h.data_ptr(), *tail, stream)
+            else:
+                wt = torch.empty((4, D, Hd), dtype=x.dtype, device=x.device)
+                err = lib.svt_mlp_block_tf32x3(*args, y.data_ptr(), h.data_ptr(), wt.data_ptr(),
+                                               *tail, stream)
     _build.check(err, "fused_mlp_block")
     fused_mlp_block.route = route
     fused_mlp_block.launches += 1

@@ -168,9 +168,10 @@ def test_attention_kernel_matches_plain(dtype, B, N, H):
 # 128-column tile or the 64-wide k stage
 MLP_SHAPES = [(591, 768, 3072), (100, 384, 1536), (33, 1024, 4096), (70, 768, 3000),
               (985, 192, 768), (33, 32, 64), (1, 768, 3072), (129, 768, 3000)]
-# each dtype on each kernel that takes it: bf16 takes the FMA kernel where the
+# each dtype on each kernel that takes it: both take the FMA kernel where the
 # weights are not 16-byte aligned
-MLP_ROUTES = [(torch.float32, "fma"), (torch.bfloat16, "wgmma"), (torch.bfloat16, "fma")]
+MLP_ROUTES = [(torch.float32, "tf32x3"), (torch.float32, "fma"), (torch.bfloat16, "wgmma"),
+              (torch.bfloat16, "fma")]
 
 
 def _unaligned(t):
@@ -198,7 +199,7 @@ def _mlp_inputs(rng, M, D, Hd, dtype):
 def test_mlp_kernel_matches_plain(dtype, route, approximate, M, D, Hd):
     rng = np.random.default_rng(2)
     args = _mlp_inputs(rng, M, D, Hd, dtype)
-    if route == "fma" and dtype == torch.bfloat16:
+    if route == "fma":
         args[3], args[5] = _unaligned(args[3]), _unaligned(args[5])
     assert mlp.mlp_route(args[0], args[3], args[5]) == route
     before = mlp.fused_mlp_block.launches
@@ -211,29 +212,56 @@ def test_mlp_kernel_matches_plain(dtype, route, approximate, M, D, Hd):
     _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("M,D,Hd", [(33, 32, 64), (129, 768, 3000), (70, 200, 808)])
-def test_mlp_reads_nothing_past_its_inputs(M, D, Hd):
+@pytest.mark.parametrize("M,D,Hd,dtype,route", [
+    *((M, D, Hd, dt, r) for M, D, Hd in ((33, 32, 64), (129, 768, 3000), (70, 200, 808))
+      for dt, r in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3"))),
+    (70, 36, 100, torch.float32, "tf32x3"),
+])
+def test_mlp_reads_nothing_past_its_inputs(M, D, Hd, dtype, route):
     """x, W1 and W2 end where NaN rows begin (x past row M, W1 past row D,
     W2 past row Hd), and the workspaces are carved from memory that held
-    NaN: a bf16 kernel whose TMA boxes read a row past M, a k past K or a
-    workspace row past its tensor would put NaN into its outputs. D = 32
-    and 200 leave part of the last 64-wide k stage of fc1 past K, hidden
-    3000 and 808 that of fc2."""
+    NaN: a kernel whose TMA boxes read a row past M, a k past K or a
+    workspace row past its tensor would put NaN into its outputs. D = 32,
+    200 and 36 leave part of the last k stage of fc1 past K (64 wide in
+    bf16, 32 in float32), hidden 3000, 808 and 100 that of fc2; D = 36 and
+    hidden 100 are float32 only (multiples of 4, not of 8)."""
     rng = np.random.default_rng(11)
-    args = _mlp_inputs(rng, M, D, Hd, torch.bfloat16)
+    args = _mlp_inputs(rng, M, D, Hd, dtype)
     for i, rows in ((0, 129), (3, 64), (5, 64)):  # x, W1, W2
         t = args[i]
         buf = torch.full((t.shape[0] + rows, t.shape[1]), float("nan"), dtype=t.dtype, device="cuda")
         buf[:t.shape[0]] = t
         args[i] = buf[:t.shape[0]]
-    assert mlp.mlp_route(args[0], args[3], args[5]) == "wgmma"
-    poison = torch.full((4 * (M + 128) * (D + Hd),), float("nan"), dtype=torch.bfloat16,
+    assert mlp.mlp_route(args[0], args[3], args[5]) == route
+    poison = torch.full((4 * (M + 128) * (D + Hd) + 4 * D * Hd,), float("nan"), dtype=dtype,
                         device="cuda")
     del poison  # its blocks go back to the caching allocator, NaN inside
     got = mlp.fused_mlp_block(*args, eps=1e-12)
     torch.cuda.synchronize()
+    assert mlp.fused_mlp_block.route == route
     assert torch.isfinite(got.float()).all()
-    _close(got, mlp.fused_mlp_block_plain(*args, eps=1e-12), torch.bfloat16)
+    _close(got, mlp.fused_mlp_block_plain(*args, eps=1e-12), dtype)
+
+
+def test_mlp_float32_at_the_round_shape():
+    """The tf32x3 route at the round's float32 shape (7 coalitions x 128
+    images x 197 tokens, ViT-B widths) within the float32 tolerance of the
+    plain version (full float32 products: TF32 off)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    M, D, Hd = 7 * 128 * 197, 768, 3072
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    args = [randn((M, D)), 1 + randn((D,), 0.1), randn((D,), 0.1),
+            randn((D, Hd), 0.03), randn((Hd,), 0.1), randn((Hd, D), 0.03), randn((D,), 0.1)]
+    assert mlp.mlp_route(args[0], args[3], args[5]) == "tf32x3"
+    got = mlp.fused_mlp_block(*args, eps=1e-12)
+    want = mlp.fused_mlp_block_plain(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    print(f"max_abs_err {(got - want).abs().max().item()}")
+    _close(got, want, torch.float32)
 
 
 def test_mlp_bf16_at_the_round_shape():
@@ -472,7 +500,7 @@ def test_kernels_reject_what_they_do_not_take():
     long = _randn(rng, (1, 1, 300, 64))
     with pytest.raises(ValueError, match="sequence length"):
         att.fused_attention(long, long, long)
-    for dtype, D in ((torch.float32, 200), (torch.float32, 1056), (torch.bfloat16, 36)):
+    for dtype, D in ((torch.float32, 202), (torch.float32, 1030), (torch.bfloat16, 36)):
         x = _randn(rng, (4, D), dtype=dtype)
         w = _randn(rng, (D, 128), dtype=dtype)
         with pytest.raises(ValueError, match="taken by no kernel"):

@@ -136,12 +136,15 @@ def _offset(t, elements):
     (768, 3000, torch.bfloat16, 0, "wgmma"),
     (192, 768, torch.bfloat16, 1, "fma"),      # weights not 16-byte aligned
     (64, 100, torch.bfloat16, 0, "fma"),       # hidden width not a multiple of 8
-    (32, 64, torch.float32, 0, "fma"),
-    (192, 768, torch.float32, 0, "fma"),
-    (1024, 4096, torch.float32, 0, "fma"),
-    (200, 808, torch.float32, 0, None),        # float32 needs D a multiple of 32
-    (1056, 64, torch.float32, 0, None),        # ... up to 1024
-    (36, 64, torch.bfloat16, 0, None),         # neither route
+    (32, 64, torch.float32, 0, "tf32x3"),      # micro
+    (192, 768, torch.float32, 0, "tf32x3"),    # tiny
+    (768, 3072, torch.float32, 0, "tf32x3"),   # base
+    (1024, 4096, torch.float32, 0, "tf32x3"),
+    (200, 808, torch.float32, 0, "tf32x3"),    # any multiple of 4
+    (1056, 64, torch.float32, 0, "tf32x3"),    # the GEMMs have no cap on D
+    (192, 768, torch.float32, 1, "fma"),       # weights not 16-byte aligned
+    (200, 808, torch.float32, 1, None),        # ... and D not a multiple of 32
+    (36, 64, torch.bfloat16, 0, None),         # no route
 ])
 def test_mlp_route(D, Hd, dtype, offset, route):
     x = torch.zeros((3, D), dtype=dtype)

@@ -276,7 +276,15 @@ def test_supervised_port_service_drains_end_to_end(tmp_path):
     """The supervised service (the port's ``serve.main`` in a child process,
     on the CPU) idles waiting for epoch 1 when SIGTERM reaches the
     supervisor: the forwarded signal drains the child — cursor persisted,
-    exit 0, no restart."""
+    exit 0, no restart.
+
+    The signal goes out only once the cursor shows the service idle (its
+    drain handlers are installed by then), however long a loaded machine
+    takes to import torch and run round 0 in the child. If the service
+    never gets there within the deadline, the supervisor is still stopped
+    (else the test would hang) and the test fails saying so. A SIGTERM can
+    never reach this process after ``supervise`` has put its own handler
+    back: the test's handler sits under it."""
     cfg = service_cfg(tmp_path)
     spec, _, init = port_model(cfg)
     write_epoch(cfg, spec, init, 0)  # epoch 1 never arrives
@@ -293,22 +301,35 @@ def test_supervised_port_service_drains_end_to_end(tmp_path):
     env.pop("SVT_START_EPOCH", None)
     out_dir = str(tmp_path / "exp" / "svc")
 
+    idle_after_s = []    # seconds from the start to the idle cursor
+    supervised = threading.Event()  # supervise() has returned
+
     def fire_when_idle():
-        deadline = time.time() + 120
-        while time.time() < deadline:
+        t0 = time.time()
+        while time.time() < t0 + 600 and not supervised.is_set():
             s = protocol.read_service_state(out_dir)
             if s and s.get("next_epoch") == 1:
+                idle_after_s.append(time.time() - t0)
                 break
             time.sleep(0.1)
-        os.kill(os.getpid(), signal.SIGTERM)
+        if not supervised.is_set():
+            os.kill(os.getpid(), signal.SIGTERM)
 
+    late = []
+    previous = signal.signal(signal.SIGTERM, lambda signum, frame: late.append(signum))
     t = threading.Thread(target=fire_when_idle)
     t.start()
     logs = []
-    rc = supervise([sys.executable, str(child), "--model-type", "ViT-micro",
-                    "--exp-dir", str(tmp_path / "exp"), "--exp-id", "svc"],
-                   env=env, restart_delay_s=0.0, log_fn=logs.append)
-    t.join()
+    try:
+        rc = supervise([sys.executable, str(child), "--model-type", "ViT-micro",
+                        "--exp-dir", str(tmp_path / "exp"), "--exp-id", "svc"],
+                       env=env, restart_delay_s=0.0, log_fn=logs.append)
+    finally:
+        supervised.set()
+        t.join()
+        signal.signal(signal.SIGTERM, previous)
+    assert idle_after_s, ("the service never idled waiting for epoch 1 "
+                          f"(stopped at the deadline or exited first): {logs}")
     assert rc == 0, logs
     state = protocol.read_service_state(out_dir)
     assert state["next_epoch"] == 1 and state["stop_reason"] == "drain"

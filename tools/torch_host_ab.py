@@ -3,7 +3,7 @@
 against each other on one NVIDIA GPU, in alternating runs.
 
     mkdir -p exp/ab/other && git archive <rev> | tar -x -C exp/ab/other
-    python3 tools/torch_host_ab.py exp/ab/other . [--pairs 2] [--out DIR]
+    python3 tools/torch_host_ab.py exp/ab/other . [--pairs 2] [--out DIR] [--float32-round]
 
 Each run is a fresh process with the checkout's ``shapley_vit_tpu_torch``
 first on the path, measured by THIS tree's ``chip_smoke.py`` (the same
@@ -11,7 +11,11 @@ measurement code for both): ``phase_round`` (the bf16 round's
 ``round_s``), ``profile_train_step`` three times (a batch-64 training
 step's host clock and device-busy ms), ``phase_serve`` (each round's
 ``arrival_to_sv_s``) and ``phase_rounds`` (``run_federated_rounds``'
-wall). The runs go A B B A, ``--pairs`` times. One JSON line per run, then
+wall). With ``--float32-round`` a run is the float32 round instead
+(``phase_round`` at float32, then ``phase_profile``'s pass at float32: its
+device time by group), with no check of the fused MLP's route, so that a
+checkout whose float32 MLP is another kernel runs it all the same. The
+runs go A B B A, ``--pairs`` times. One JSON line per run, then
 one with each number's values per checkout; each run's whole output goes
 to ``--out`` (default ``exp/host_ab``).
 """
@@ -28,7 +32,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def child(checkout: str) -> None:
+def child(checkout: str, float32_round: bool = False) -> None:
     """One run: this tree's chip_smoke measurements on ``checkout``'s package."""
     sys.path.insert(0, os.path.abspath(checkout))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
@@ -45,6 +49,10 @@ def child(checkout: str) -> None:
     print(json.dumps({"package": os.path.dirname(shapley_vit_tpu_torch.__file__)}), flush=True)
     _build.build()
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
+    if float32_round:
+        cs.phase_round(counted[:3], dtype="float32")
+        cs.phase_profile(cs.round_dir("float32"), dtype="float32", mlp_kernel=None)
+        return
     cs.phase_round(counted[:3])
     steps = [cs.profile_train_step(Config(), 64) for _ in range(3)]
     print(json.dumps({"phase": "train_steps", "step_ms": [s["step_ms"] for s in steps],
@@ -66,6 +74,12 @@ def numbers(lines) -> dict:
         phase = o.get("phase")
         if phase == "round":
             got["round_s"] = [o["round_s"]]
+            got["fused_mlp_block_launches"] = [o["launches"]["fused_mlp_block"]]
+        elif phase == "profile":
+            got["pass_ms"] = [o["pass_ms"]]
+            got["device_busy_ms"] = [o["device_busy_ms"]]
+            for group, ms in o["device_ms_by_group"].items():
+                got[f"{group}_device_ms"] = [ms]
         elif phase == "train_steps":
             got["train_step_host_ms"] = o["step_ms"]
             got["train_step_busy_ms"] = o["device_busy_ms"]
@@ -84,9 +98,10 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=2)
     ap.add_argument("--out", default=os.path.join(ROOT, "exp", "host_ab"))
     ap.add_argument("--child", action="store_true")
+    ap.add_argument("--float32-round", action="store_true")
     args = ap.parse_args()
     if args.child:
-        child(args.a)
+        child(args.a, args.float32_round)
         return 0
 
     os.makedirs(args.out, exist_ok=True)
@@ -94,7 +109,8 @@ def main() -> int:
     per = {args.a: {}, args.b: {}}
     for i, checkout in enumerate(order):
         run = subprocess.run([sys.executable, os.path.abspath(__file__), checkout, checkout,
-                              "--child"], cwd=ROOT, capture_output=True, text=True)
+                              "--child", *(["--float32-round"] if args.float32_round else [])],
+                             cwd=ROOT, capture_output=True, text=True)
         with open(os.path.join(args.out, f"run{i}.log"), "w") as f:
             f.write(run.stdout + "\n--- stderr ---\n" + run.stderr)
         if run.returncode:
