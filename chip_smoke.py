@@ -29,31 +29,42 @@ Phases, each printing one JSON line:
    is the kernel that ran, as the wrapper recorded it at the launch (its
    ``route`` attribute), and must be the one ``expected_route`` names:
    ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 fused
-   MLP on the tensor cores) or ``fma`` (the FMA units). The float32 fused
-   MLP is also held on its ``fma`` route, with its weights one element past
-   an aligned allocation. ``fused_attention``'s and ``patch_embed``'s
+   MLP and attention on the tensor cores) or ``fma`` (the FMA units). The
+   float32 fused MLP is also held on its ``fma`` route, with its weights
+   one element past an aligned allocation. Both attention entries are also
+   held past the main paths' shapes, at the training batch: N = 257 (256
+   px) and 577 (384 px), and head dim 128 (6 heads of 128), bf16 on
+   ``fma`` and float32 on ``tf32x3``. ``fused_attention``'s and ``patch_embed``'s
    gradients (each an ``autograd.Function``) are held against autograd
    through the plain version on the same inputs, with the same tolerances
    (``grad_check``: every input's gradient, in its dtype, one launch on the
    dtype's route; forward + backward and backward-alone times beside the
-   plain version's and the library call's).
+   plain version's and the library call's). Each row names the kernel
+   that its wrapper counted the launch under (``kernel``, a key of the
+   wrapper's ``launches_by``: route, dtype and, for attention, the padded
+   head dim and N).
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
-   merged coalitions) on the card through the kernels (the MLP on
-   ``tf32x3``), against the port on the CPU through the plain versions,
+   merged coalitions) on the card through the kernels (the MLP and
+   attention on ``tf32x3``), against the port on the CPU through the plain versions,
    from the same weights (atol 1e-3).
 4. ``round``   — one Shapley round through ``driver.start.start`` with the
    default ``Config`` (ViT-B/16, bf16, merged LoRA, comp-contrib m = 50·n) on
    the synthetic OCT validation set and three client drops written by
    ``save_lora_checkpoint``; the launch counters are zeroed just before and
-   read just after, and every kernel of the round must have run, the MLP on
-   ``wgmma``. ``shapley_exact`` over the round's persisted utility table
+   read just after, and every kernel of the round must have run, every
+   launch of the MLP and of the packed attention on ``wgmma`` (the counts
+   by kernel). ``shapley_exact`` over the round's persisted utility table
    checks the efficiency axiom. Then the same round at
    ``compute_dtype="float32"`` (the reference's numerics; its own drops
-   and outputs), the MLP on ``tf32x3``, reported as ``round_s_float32``.
+   and outputs), every launch of the MLP and of the packed attention on
+   ``tf32x3`` (the counts by kernel), reported as ``round_s_float32``.
 5. ``profile`` — device time by kernel, and the device's idle share, over
    one more coalition pass of each round (7 coalitions, 400 images; bf16,
    then float32) under ``torch.profiler``, after the round so it touches
-   neither its counts nor its time.
+   neither its counts nor its time; by group: each of the port's kernels,
+   the matrix products outside them (cuBLAS) and everything else. Every
+   kernel of the attention group must be the dtype's route's
+   (``attention_hopper_kernel``, ``attention_tf32x3_kernel``).
 6. ``train``   — LoRA client training, in three parts:
    ``run_client`` with the default ``Config`` (ViT-B/16, bf16, synthetic OCT
    at scale 1.0, batch 64, Adam) for 4 steps on the card, counters zeroed
@@ -76,8 +87,8 @@ Phases, each printing one JSON line:
    advancing (zeroed just before); each of the four kernels at the
    variant's widths (4 images: patch P 16 or 4, attention heads of 64 or
    16, MLP D 192 / 768 or 32 / 64) against its plain version on the same
-   seeded inputs, bf16 on ``wgmma`` and float32 on ``fma`` (the MLP on
-   ``tf32x3``), with the
+   seeded inputs, bf16 on ``wgmma`` and float32 on ``tf32x3`` (the patch on
+   ``fma``), with the
    ``kernels`` phase's tolerances; then ``run_demo()`` at its defaults
    (micro, 16 px) and at tiny / 224 px, each through ``start()``, with the
    efficiency axiom checked as in ``train``.
@@ -166,16 +177,23 @@ Phases, each printing one JSON line:
    a ``Denoise(224, 224)`` front-end on 32 images (finite metrics). It
    prints seconds, metrics and peak memory of each run.
 
-Then the card's name and power limit, the kernels summary line (a row for
-each kernel of the bf16 paths, launches from the bf16 round and the train
-phase, and one for each kernel of the float32 round, launches from it),
-and as the
-last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-before that line; without a CUDA device the script exits non-zero at once.
+Then, for the rows of the ``kernels`` phase whose kernel (route, dtype,
+head dim and N) no main path launched, a ``kernels_off_path`` line (each
+with ``main_path_launches``, 0, from the counts by kernel); the card's name
+and power limit; the kernels summary line, a row for each row of the
+``kernels`` phase whose kernel a main path launched, ``case`` naming it,
+with ``launches`` that kernel's count by kernel over the bf16 and float32
+rounds (the patch embedding, packed attention and fused MLP) or over the
+train phase's ``run_client`` (``fused_attention``), the counters zeroed
+just before each; the script fails unless each wrapper's row at the main
+paths' shapes in each round's dtype (``fused_attention``: bf16) is among
+them; and as the last line ``{"ok": true, "device": {...}}``. Any failure
+exits non-zero before that line; without a CUDA device the script exits non-zero at once.
 """
 
 from __future__ import annotations
 
+import collections
 import csv
 import json
 import math
@@ -198,11 +216,12 @@ _PEAKS = {
 
 def expected_route(name: str, dtype: str) -> str:
     """The kernel each wrapper launches for a dtype on the paths chip_smoke
-    drives (ViT widths, aligned weights): the bf16 tensor-core kernels,
-    float32 on the FMA units except the fused MLP's 3xTF32 route."""
+    drives (ViT widths, aligned weights, N <= 224): the bf16 tensor-core
+    kernels; float32 on the tensor cores in 3xTF32, except the patch
+    embedding on the FMA units."""
     if dtype == "bfloat16":
         return "wgmma"
-    return "tf32x3" if name == "fused_mlp_block" else "fma"
+    return "fma" if name == "patch_embed" else "tf32x3"
 
 
 def peak_ops(pk: dict, dtype: str, route: str, flops: float) -> float:
@@ -227,6 +246,19 @@ KERNELS = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def zero_counts(fns) -> None:
+    """Set each wrapper's launch counts to 0: the total (``launches``) and
+    the counts by kernel (``launches_by``)."""
+    for fn in fns:
+        fn.launches = 0
+        fn.launches_by.clear()
+
+
+def counts_by_kernel(fns) -> dict:
+    """Each wrapper's launches by kernel since its counts were zeroed."""
+    return {fn.__name__: dict(fn.launches_by) for fn in fns}
 
 
 def peaks(name: str) -> dict:
@@ -310,8 +342,9 @@ def kernel_inputs(gen, dtype) -> dict:
 
 
 def phase_kernels(card: str) -> dict:
-    """Every kernel at the round's shapes, both dtypes. Returns each
-    kernel's row by (name, dtype), for the summary line."""
+    """Every kernel at the round's shapes, both dtypes, and the other
+    routes' rows. Returns each row by (case, dtype), for the summary line;
+    a main path's row has its wrapper's name as its case."""
     import torch
     import torch.nn.functional as F
 
@@ -398,18 +431,22 @@ def phase_kernels(card: str) -> dict:
             reps=10,
         )
         grads += kernel_grad_checks(dtype, tol, img, pw, pb, tqh, tkh, tvh)
+        cases.update(long_attention_cases(gen, dtype, isz))
 
         wrappers = {"patch_embed": pe.patch_embed, "fused_attention_packed": att.fused_attention_packed,
                     "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention}
         for key, c in cases.items():
             name = c.get("wrapper", key)
-            launched = wrappers[name].launches
+            shape = c.get("shape")
+            launched, by = wrappers[name].launches, dict(wrappers[name].launches_by)
             got = c["kernel"]()
             route = wrappers[name].route
+            counted_as = [k for k, n in wrappers[name].launches_by.items() if n != by.get(k, 0)]
+            one_launch = wrappers[name].launches == launched + 1 and len(counted_as) == 1
             want = c["plain"]()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            ok = (torch.allclose(got.float(), want.float(), **tol)
+            ok = (torch.allclose(got.float(), want.float(), **tol) and one_launch
                   and route == c.get("route", expected_route(name, dname)))
             differing = (got != want).float().mean().item()
             del got, want
@@ -423,7 +460,9 @@ def phase_kernels(card: str) -> dict:
                 library_b2b, library_host_us = back_to_back(c["library"], 5 * c["reps"])
             bound_ms = 1e3 * max(t_ops, t_bytes)
             row = {
-                "name": name, "dtype": dname, "route": route, "library": c["library_name"],
+                "name": name, "case": key, "dtype": dname, "route": route,
+                "kernel": counted_as[0] if one_launch else None, "library": c["library_name"],
+                **({"shape": shape} if shape else {}),
                 "max_abs_err": err, "share_differing": differing,
                 "ok": ok, "ms": ms, "plain_ms": cuda_ms(c["plain"], c["reps"]),
                 "library_ms": library_ms, "bound_ms": bound_ms,
@@ -435,8 +474,7 @@ def phase_kernels(card: str) -> dict:
                 "launches": wrappers[name].launches - launched,  # this phase's, not the round's
             }
             results.append(row)
-            if key == name:  # the main paths' route
-                summary[name, dname] = row
+            summary[key, dname] = row
             torch.cuda.empty_cache()
         del cases, mlp_case, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh, tkh, tvh
         torch.cuda.empty_cache()
@@ -451,6 +489,40 @@ def phase_kernels(card: str) -> dict:
             g["backward_ms"] for g in grads if g["name"] == "patch_embed.backward"
             and g["dtype"] == dname)
     return summary
+
+
+# Attention past the main paths' shapes, at the training batch: 256 px and
+# 384 px ViT-B (N = 257, 577) and 6 heads of 128 (case: (N, heads, head dim))
+LONG_ATTENTION = {"n257": (257, 12, 64), "n577": (577, 12, 64), "d128": (N, 6, 128)}
+
+
+def long_attention_cases(gen, dtype, isz: int) -> dict:
+    """``kernels`` cases of both attention entries at ``LONG_ATTENTION``'s
+    shapes, bf16 on the FMA route (past the bf16 tensor-core route's 224
+    keys and head dim 64) and float32 on ``tf32x3``."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapley_vit_tpu_torch.ops import attention as att
+
+    route = "fma" if dtype == torch.bfloat16 else "tf32x3"
+    cases = {}
+    for tag, (n, h, d) in LONG_ATTENTION.items():
+        q, k, v = ((torch.randn((TB, n, h * d), generator=gen, device="cuda")).to(dtype)
+                   for _ in range(3))
+        qh, kh, vh = (t.view(TB, n, h, d).transpose(1, 2) for t in (q, k, v))
+        common = dict(route=route, reps=3, flops=4.0 * TB * h * n * n * d, bytes=4 * q.numel() * isz,
+                      library=lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
+                      library_name="F.scaled_dot_product_attention", shape=[TB, h, n, d])
+        cases[f"fused_attention_packed_{tag}"] = dict(
+            common, wrapper="fused_attention_packed",
+            kernel=lambda q=q, k=k, v=v, h=h: att.fused_attention_packed(q, k, v, heads=h),
+            plain=lambda q=q, k=k, v=v, h=h: att.fused_attention_packed_plain(q, k, v, heads=h))
+        cases[f"fused_attention_{tag}"] = dict(
+            common, wrapper="fused_attention",
+            kernel=lambda qh=qh, kh=kh, vh=vh: att.fused_attention(qh, kh, vh),
+            plain=lambda qh=qh, kh=kh, vh=vh: att.fused_attention_plain(qh, kh, vh))
+    return cases
 
 
 def unaligned(t):
@@ -501,7 +573,7 @@ def grad_check(wrapper, kernel, plain, library, args, dtype, tol, seed: int) -> 
     ok = (all(torch.allclose(a.float(), b.float(), **tol) for a, b in zip(got, want))
           and all(g.dtype == t.dtype for g, t in zip(got, args))
           and wrapper.launches == launched + 1
-          and route == ("wgmma" if dtype == torch.bfloat16 else "fma"))
+          and route == expected_route(wrapper.__name__, str(dtype).replace("torch.", "")))
     del out, leaves, got, want
     return {"name": f"{wrapper.__name__}.backward", "dtype": str(dtype).replace("torch.", ""),
             "shape": list(args[0].shape), "route": route, "max_abs_err": errs,
@@ -553,6 +625,7 @@ def phase_model() -> None:
 
     from shapley_vit_tpu_torch.models import vit as tvit
     from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.ops.attention import fused_attention_packed
     from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 
     spec = tvit.make_spec("base", dtype="float32")
@@ -579,11 +652,13 @@ def phase_model() -> None:
     gpu = logits("cuda")
     err = (gpu - cpu).abs().max().item()
     route = fused_mlp_block.route
-    ok = bool(torch.isfinite(gpu).all()) and err <= 1e-3 and route == expected_route(
-        "fused_mlp_block", "float32")
+    att_route = fused_attention_packed.route
+    ok = (bool(torch.isfinite(gpu).all()) and err <= 1e-3
+          and route == expected_route("fused_mlp_block", "float32")
+          and att_route == expected_route("fused_attention_packed", "float32"))
     emit({"phase": "model", "variant": "base", "dtype": "float32", "images": 8,
           "logits_shape": list(gpu.shape), "max_abs_err_vs_cpu": err, "atol": 1e-3,
-          "mlp_route": route, "ok": ok})
+          "mlp_route": route, "attention_route": att_route, "ok": ok})
     if not ok:
         raise SystemExit("ViT-B logits on the card disagree with the CPU")
 
@@ -613,12 +688,14 @@ def exact_efficiency(output_dir: str, n: int, table_name: str = "utility_table.n
     return exact, max(abs(sum(exact[d].values()) - grand[d]) for d in range(2))
 
 
-def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None) -> tuple:
+def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None,
+                attention_route: str | None = None) -> tuple:
     """One Shapley round through the port's entry point at ``dtype`` (the
     default ``Config``'s bf16, or float32, the reference's numerics); returns
-    the launch count of each kernel during the round, and the round's
-    seconds. ``mlp_route``: the fused MLP's route the round must take (None:
-    any). The float32 round's drops and outputs go to their own
+    each kernel's launches by kernel during the round (``counts_by_kernel``),
+    and the round's seconds. ``mlp_route``, ``attention_route``: the route
+    every launch of the fused MLP and of the packed attention must take
+    (None: any). The float32 round's drops and outputs go to their own
     directory."""
     import numpy as np
     import torch
@@ -628,6 +705,7 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None) 
     from shapley_vit_tpu_torch.fl import ingestion
     from shapley_vit_tpu_torch.models.convert import tree_to_numpy
     from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.ops.attention import fused_attention_packed
     from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 
     cfg = Config()  # ViT-B/16, bf16, exact_f32 GELU, merged, comp-contrib
@@ -649,13 +727,17 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None) 
         ingestion.save_lora_checkpoint(p, drop, spec, num_local_data_train=n_train)
         paths.append(p)
 
-    for fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     t0 = time.perf_counter()
     all_rounds, _ = drv.start(cfg, checkpoint_paths=paths, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
+    by_kernel = counts_by_kernel(counted)
+    # every launch on the route asked for: a key of launches_by starts with its route
+    routes_ok = all(want is None or all(key.split()[0] == want for key in by_kernel[fn.__name__])
+                    for fn, want in ((fused_mlp_block, mlp_route),
+                                     (fused_attention_packed, attention_route)))
 
     metrics = os.path.join(cfg.output_dir, f"party0_{cfg.obs.exp_id}_{cfg.data.mode}_metrics.csv")
     round_s = _metric(metrics, "time/shapley_round")
@@ -670,11 +752,12 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None) 
         all(math.isfinite(x) for row in sv for x in row)
         and eff_err <= 1e-4
         and all(n > 0 for n in launches.values())
-        and mlp_route in (None, fused_mlp_block.route)
+        and routes_ok
     )
     emit({
         "phase": "round", "variant": "base", "dtype": cfg.model.compute_dtype,
-        f"round_s_{dtype}": round_s, "mlp_route": fused_mlp_block.route,
+        f"round_s_{dtype}": round_s, "mlp_route": mlp_route, "attention_route": attention_route,
+        "routes_ok": routes_ok,
         "eval_mode": cfg.model.eval_mode, "clients": 3, "validation_images": valid_n,
         "batches": math.ceil(valid_n / cfg.data.eval_batch_size),
         "shapley_value": {"accuracy": sv[0], "loss": sv[1]},
@@ -682,11 +765,11 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None) 
                                 "loss": [exact[1][c] for c in range(3)]},
         "efficiency_err": eff_err, "round_s": round_s, "wall_s": wall,
         "coalition_evals": evals, "coalition_evals_per_s": evals / round_s,
-        "launches": launches, "ok": ok,
+        "launches": launches, "launches_by_kernel": by_kernel, "ok": ok,
     })
     if not ok:
         raise SystemExit("the Shapley round failed its checks")
-    return launches, round_s
+    return by_kernel, round_s
 
 
 def round_dir(dtype: str) -> str:
@@ -695,8 +778,8 @@ def round_dir(dtype: str) -> str:
 
 
 def phase_train(counted) -> dict:
-    """LoRA client training on the card; returns the launch count of each
-    kernel during ``run_client``."""
+    """LoRA client training on the card; returns each kernel's launches by
+    kernel during ``run_client`` (``counts_by_kernel``)."""
     import logging
     import re
 
@@ -734,8 +817,7 @@ def phase_train(counted) -> dict:
         logging.getLogger("shapley_vit_tpu_torch").addHandler(handler)
         timer = StepTimer()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counted:
-            fn.launches = 0
+        zero_counts(counted)
         try:
             t0 = time.perf_counter()
             paths = client.run_client(cfg, client_id=0, epochs=1, steps_per_epoch=4,
@@ -745,6 +827,7 @@ def phase_train(counted) -> dict:
         finally:
             logging.getLogger("shapley_vit_tpu_torch").removeHandler(handler)
         launches = {fn.__name__: fn.launches for fn in counted}
+        by_kernel = counts_by_kernel(counted)
         step_s = timer.times("train_step")
         spec = drv.build_model(cfg, device="cpu")[0]
         drop = ingestion.load_client_lora(paths[0], spec)
@@ -761,13 +844,13 @@ def phase_train(counted) -> dict:
                 "step_ms": [1e3 * t for t in step_s], "ms_per_step": 1e3 * steady,
                 "images_per_s": batch / steady,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": wall,
-                "lora_b_max_abs": b_max, "launches": launches, "expected_launches": want,
-                "ok": ok, "cfg": cfg, "spec": spec}
+                "lora_b_max_abs": b_max, "launches": launches, "launches_by_kernel": by_kernel,
+                "expected_launches": want, "ok": ok, "cfg": cfg, "spec": spec}
 
     # 1. the client driver, then the same run with per-block remat
     runs = [client_run(remat) for remat in (False, True)]
     cfg, spec, batch = runs[0]["cfg"], runs[0]["spec"], runs[0]["batch"]
-    launches = runs[0]["launches"]
+    by_kernel = runs[0]["launches_by_kernel"]
     client_ok = all(r["ok"] for r in runs)
 
     step_profile = profile_train_step(cfg, batch)
@@ -795,8 +878,7 @@ def phase_train(counted) -> dict:
     step_ok = abs(loss_gpu - loss_cpu) <= 1e-4 and max(rel) <= 1e-3 and math.isfinite(loss_gpu)
 
     # 3. the demo: three clients trained and scored on the card
-    for fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     t0 = time.perf_counter()
     all_rounds, _, out_dir = run_demo.run_demo(out_dir=os.path.join(work, "demo"), variant="base",
                                                image_size=224, device="cuda")
@@ -823,7 +905,7 @@ def phase_train(counted) -> dict:
     })
     if not (client_ok and step_ok and demo_ok):
         raise SystemExit("LoRA training on the card failed its checks")
-    return launches
+    return by_kernel
 
 
 def profile_train_step(cfg, batch: int) -> dict:
@@ -861,9 +943,10 @@ def profile_train_step(cfg, batch: int) -> dict:
         one()
     rows = device_rows(prof)
     busy = sum(ms for _, ms, _ in rows)
-    families = (("fused_attention kernel", ("attention_hopper_kernel", "attention_kernel")),
+    families = (("fused_attention kernel", ("attention_hopper_kernel", "attention_tf32x3_kernel",
+                                            "attention_kernel")),
                 ("patch_embed kernel", ("patch_embed_kernel", "patch_embed_hopper_kernel")),
-                ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
+                ("matrix products", PRODUCT_KERNELS),
                 ("softmax", ("softmax",)),
                 ("reductions", ("reduce_kernel",)))
     groups = {name: 0.0 for name, _ in families}
@@ -890,8 +973,14 @@ def device_rows(prof) -> list:
                    if e.device_type == DeviceType.CUDA and dev_us(e) > 0), key=lambda r: -r[1])
 
 
+# kernel names of the matrix products outside the port's kernels (cuBLAS,
+# cuBLASLt, CUTLASS); a profiled pass's "matrix_products" group
+PRODUCT_KERNELS = ("gemm", "nvjet", "cutlass", "sm90", "xmma")
+
+
 def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
-                  mlp_kernel: str | None = "mlp_block_gemm_kernel") -> None:
+                  mlp_kernel: str | None = "mlp_block_gemm_kernel",
+                  attention_kernel: str | None = None) -> None:
     """Device time by kernel over one coalition pass of the round (all 7
     coalitions x the 400 validation images, at ``dtype``), from
     ``torch.profiler``; the device's idle share is taken against the
@@ -899,7 +988,11 @@ def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
     slows the host. The inputs are rebuilt from the same seed, data and
     drops as the round; ``int8`` profiles the ``int8`` phase's spec
     instead. ``mlp_kernel``: the fused MLP's GEMM kernel that must run in
-    the pass (never under ``int8``, which bypasses it; None: no check)."""
+    the pass (never under ``int8``, which bypasses it; None: no check);
+    ``attention_kernel``: the attention kernel that must run in it, and be
+    the only one of the attention group (None: no check). Groups: the port's kernels by family, the matrix products
+    outside them (``PRODUCT_KERNELS``: q/k/v/out, the classifier, int8's
+    ``_int_mm``) and everything else (elementwise, copies, reductions)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -938,10 +1031,13 @@ def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
 
     rows = device_rows(prof)
     busy_ms = sum(ms for _, ms, _ in rows)
-    groups = {"patch_embed": 0.0, "attention": 0.0, "mlp_block": 0.0, "other": 0.0}
+    groups = {"patch_embed": 0.0, "attention": 0.0, "mlp_block": 0.0, "matrix_products": 0.0,
+              "other": 0.0}
     members = {g: [] for g in groups}
     for key, ms, n in rows:
-        name = next((g for g in ("patch_embed", "attention", "mlp_block") if g + "_" in key), "other")
+        name = next((g for g in ("patch_embed", "attention", "mlp_block") if g + "_" in key), None)
+        if name is None:
+            name = "matrix_products" if any(k in key.lower() for k in PRODUCT_KERNELS) else "other"
         groups[name] += ms
         if name != "other":
             members[name].append({"name": key[:120], "device_ms": ms, "calls": n})
@@ -950,13 +1046,17 @@ def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
           "pass_ms": pass_ms, "device_busy_ms": busy_ms,
           "device_idle_share": max(0.0, 1.0 - busy_ms / pass_ms),
           "device_ms_by_group": groups,
-          "kernels_by_group": {g: members[g] for g in ("patch_embed", "attention", "mlp_block")},
+          "kernels_by_group": {g: members[g] for g in ("patch_embed", "attention", "mlp_block",
+                                                       "matrix_products")},
           "top_kernels": [{"name": k[:120], "device_ms": ms, "calls": n} for k, ms, n in rows[:12]]})
     if busy_ms <= 0:
         raise SystemExit("the profiler recorded no device time")
     if mlp_kernel and int8 == any(mlp_kernel in k["name"] for k in members["mlp_block"]):
         raise SystemExit("the profiled pass ran the fused MLP kernel where it should not, "
                          "or not where it should")
+    if attention_kernel and not (members["attention"] and all(
+            attention_kernel in k["name"] for k in members["attention"])):
+        raise SystemExit(f"the profiled pass's attention did not run on {attention_kernel} alone")
 
 
 INT8_SHAPES = {  # the round's int8 products: (rows, K, N, kernel dtype)
@@ -1081,8 +1181,7 @@ def phase_int8(counted, bf16_round_s: float) -> None:
     drops = round_dir("bfloat16")  # the round's drops
     paths = [os.path.join(drops, f"client_{i + 1}_model", "ViT_epoch_9.npz") for i in range(3)]
 
-    for fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     quant.int8_matmul.calls = 0
     t0 = time.perf_counter()
     all_rounds, _ = drv.start(cfg, checkpoint_paths=paths, device="cuda")
@@ -1175,8 +1274,7 @@ def phase_serve(counted) -> None:
                              f"ViT_epoch_{epoch}.npz"),
                 drop, spec, num_local_data_train=n_train)
 
-    for fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     t0 = time.perf_counter()
     records = svc.serve(cfg, max_rounds=2, timeout=120.0, policy="fail", device="cuda")
     torch.cuda.synchronize()
@@ -1281,8 +1379,7 @@ def phase_rounds(counted, cfg=None, device="cuda") -> None:
     timer = StepTimer()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    for fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     t0 = time.perf_counter()
     records = rounds.run_federated_rounds(
         num_rounds=n_rounds, clients_data=clients, init_overlay=init_lora,
@@ -1351,8 +1448,7 @@ def phase_rounds(counted, cfg=None, device="cuda") -> None:
     rng = np.random.default_rng(seed + 3000)
     sh.shapley_exact(game)
     evals = game.num_evaluations
-    for fn in counted:
-        fn.launches = 0
+    zero_counts(counted)
     host_s = {}
 
     def timed(name, fn):
@@ -1565,10 +1661,6 @@ def phase_robust(counted, cfg=None, device="cuda") -> None:
     def forward(p, x):
         return tvit.vit_forward(base, p, x, tspec)
 
-    def zero():
-        for fn in counted:
-            fn.launches = 0
-
     def launches():
         return {fn.__name__: fn.launches for fn in counted}
 
@@ -1589,7 +1681,7 @@ def phase_robust(counted, cfg=None, device="cuda") -> None:
 
     # FGSM with clean evaluation: three forwards a batch (clean, attack, adversarial)
     reset_peak()
-    zero()
+    zero_counts(counted)
     fgsm, fgsm_s = timed(lambda: adv.adversarial_evaluation(forward, overlay, batches, ROBUST_EPS))
     fgsm_launches = launches()
     checks["fgsm_adv_loss_above_clean"] = fgsm["adv_loss"] > fgsm["clean_loss"]
@@ -1613,7 +1705,7 @@ def phase_robust(counted, cfg=None, device="cuda") -> None:
         return forward(p, x)
 
     reset_peak()
-    zero()
+    zero_counts(counted)
     pgd, pgd_s = timed(lambda: adv.adversarial_evaluation(
         watched, overlay, tracked(), ROBUST_EPS, attack="pgd", pgd_steps=10, key=cfg.shapley.seed))
     pgd_launches = launches()
@@ -1629,7 +1721,7 @@ def phase_robust(counted, cfg=None, device="cuda") -> None:
                   "iterate_min": lo, "iterate_max": hi, "peak_memory_gb": peak_gb()}
 
     # the multi-epsilon sweep: two forwards a batch at each epsilon
-    zero()
+    zero_counts(counted)
     eps = [0.0, 2 / 255, ROBUST_EPS]
     sweep, sweep_s = timed(lambda: adv.multi_epsilon_evaluation(forward, overlay, batches, eps))
     at0 = sweep[0.0]
@@ -1868,14 +1960,12 @@ def phase_variants(counted) -> None:
                 return tvit.vit_forward(b, lo, images.to(dev), sp).cpu()
 
         cpu = logits("cpu", spec)
-        for fn in counted:
-            fn.launches = 0
+        zero_counts(counted)
         gpu = logits("cuda", spec)
         f32_launches = {fn.__name__: fn.launches for fn in counted}
         err = (gpu - cpu).abs().max().item()
         spec16 = spec.replace(dtype="bfloat16")
-        for fn in counted:
-            fn.launches = 0
+        zero_counts(counted)
         bf = logits("cuda", spec16)
         bf_launches = {fn.__name__: fn.launches for fn in counted}
         want = dict(zip(names, (1, spec.depth, spec.depth, 0)))  # patch, packed attention, MLP
@@ -1896,8 +1986,7 @@ def phase_variants(counted) -> None:
     shutil.rmtree(work, ignore_errors=True)
     demos = {}
     for name, kw in (("defaults", {}), ("tiny_224", dict(variant="tiny", image_size=224))):
-        for fn in counted:
-            fn.launches = 0
+        zero_counts(counted)
         t0 = time.perf_counter()
         all_rounds, _, out_dir = run_demo.run_demo(out_dir=os.path.join(work, name), device="cuda",
                                                    **kw)
@@ -1946,14 +2035,16 @@ def main() -> int:
     summary = phase_kernels(card)
     phase_model()
     round_kernels = (patch_embed, fused_attention_packed, fused_mlp_block)
-    launches, bf16_round_s = phase_round(round_kernels, mlp_route="wgmma")
-    phase_profile(round_dir("bfloat16"))
-    # the float32 round, the reference's numerics: the same kernels, float32
-    # on the FMA units and the fused MLP on 3xTF32
-    f32_launches, _ = phase_round(round_kernels, dtype="float32", mlp_route="tf32x3")
-    phase_profile(round_dir("float32"), dtype="float32", mlp_kernel="mlp_block_tf32x3_kernel")
+    bf16_by, bf16_round_s = phase_round(round_kernels, mlp_route="wgmma", attention_route="wgmma")
+    phase_profile(round_dir("bfloat16"), attention_kernel="attention_hopper_kernel")
+    # the float32 round, the reference's numerics: the same kernels, the
+    # patch embedding on the FMA units, attention and the fused MLP on 3xTF32
+    f32_by, _ = phase_round(round_kernels, dtype="float32", mlp_route="tf32x3",
+                            attention_route="tf32x3")
+    phase_profile(round_dir("float32"), dtype="float32", mlp_kernel="mlp_block_tf32x3_kernel",
+                  attention_kernel="attention_tf32x3_kernel")
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
-    launches["fused_attention"] = phase_train(counted)["fused_attention"]
+    train_by = phase_train(counted)
     phase_variants(counted)
     # last, so that nothing they leave on the card moves the train phase's
     # peak memory
@@ -1962,26 +2053,38 @@ def main() -> int:
     phase_rounds(counted)
     phase_robust(counted)
 
-    # each kernel of the bf16 paths (launches: the bf16 round's, the train
-    # phase's for fused_attention), then each of the float32 round's
-    # (launches: that round's)
-    paths = [(name, "bfloat16", launches[name]) for name in KERNELS]
-    paths += [(fn.__name__, "float32", f32_launches[fn.__name__]) for fn in round_kernels]
-    rows = []
-    for name, dname, n in paths:
+    # the main paths' launches of each wrapper by kernel: the two rounds'
+    # (patch embedding, packed attention, fused MLP), the train phase's
+    # run_client's (fused_attention)
+    on_path = {fn.__name__: collections.Counter() for fn in counted}
+    for by in (bf16_by, f32_by, {"fused_attention": train_by["fused_attention"]}):
+        for name, counts in by.items():
+            on_path[name].update(counts)
+    rows, off_path = [], []
+    for (case, dname), s in summary.items():
+        name = s["name"]
         source, replaces = KERNELS[name]
-        s = summary[name, dname]
-        rows.append({
-            "name": name, "dtype": dname, "route": "cuda", "kernel_route": s["route"], "source": source,
-            "replaces": replaces,
-            "launches": n, "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"], "bound_by": s["bound_by"],
-            "library_ms": s["library_ms"], "library": s["library"], "bound_share": s["bound_share"],
-            "vs_library": s["vs_library"],
-            **{key: s[key] for key in ("ms_back_to_back", "library_ms_back_to_back",
+        row = {
+            "name": name, "case": case, "dtype": dname, "route": "cuda", "kernel_route": s["route"],
+            "kernel": s["kernel"], "source": source, "replaces": replaces,
+            "max_abs_err": s["max_abs_err"],
+            "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"], "library": s["library"],
+            "bound_share": s["bound_share"], "vs_library": s["vs_library"],
+            **{key: s[key] for key in ("shape", "ms_back_to_back", "library_ms_back_to_back",
                                        "vs_library_back_to_back", "host_us", "library_host_us",
                                        "backward_ms") if key in s},
-        })
+        }
+        n = on_path[name][s["kernel"]]
+        if n:
+            rows.append({**row, "launches": n})
+        else:
+            off_path.append({**row, "main_path_launches": n})
+    main_rows = {(name, "bfloat16") for name in KERNELS} | {(fn.__name__, "float32") for fn in round_kernels}
+    missing = main_rows - {(r["case"], r["dtype"]) for r in rows}
+    if missing:
+        raise SystemExit(f"no main path launched the kernel of these kernels-phase rows: {sorted(missing)}")
+    emit({"kernels_off_path": off_path})
     print(smi, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

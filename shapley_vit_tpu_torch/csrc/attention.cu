@@ -1,9 +1,12 @@
 // Multi-head attention for Hopper (sm_90a), forward only: one entry point
 // per route, svt_attention_bhnd_*, each of which takes q, k, v, o as
-// [B, H, N, d] through their batch, head and row strides: _bf16 the
-// tensor-core kernel (16-byte aligned bf16; it refuses other inputs),
-// _fma_bf16 and _f32 the FMA kernel. The caller picks the route
-// (ops/attention.attention_route).
+// [B, H, N, d] through their batch, head and row strides: _bf16 the bf16
+// tensor-core kernel (16-byte aligned, head dim 64, N <= 224), _tf32x3 the
+// float32 tensor-core kernel (16-byte aligned, head dim 64 or 128, any N),
+// _fma_bf16 the bf16 FMA kernel (head dim 64 or 128, any N). The
+// tensor-core entries refuse other inputs. The caller picks the route
+// (ops/attention.attention_route), pads head dims to 64 or 128 and copies
+// float32 tensors that the TMA cannot read.
 //
 // Replaces (shapley_vit_tpu/ops/attention.py):
 //  * _attn_v2_kernel (Pallas, entry fused_attention_packed): q, k, v, o are
@@ -25,8 +28,11 @@
 // TFLOP over 989 TFLOP/s = 0.108 ms against q, k, v read and o written
 // once, 1.08 GB over 3.35 TB/s = 0.324 ms; at the training step's
 // [64, 12, 197, 64], 7.6 GFLOP (0.008 ms) against 77 MB (0.023 ms). Both
-// are bound by memory in bf16 (in float32 by the 67 TFLOP/s FMA rate). The
-// scores never leave the chip.
+// are bound by memory in bf16. In float32 3xTF32 does three TF32 products
+// for each: 0.32 TFLOP over 495 TFLOP/s = 0.647 ms at the round's shape,
+// and 2.17 GB of q, k, v and o over 3.35 TB/s = 0.647 ms (on the FMA units
+// the 67 TFLOP/s would bound it at 1.59 ms). The scores never leave the
+// chip.
 //
 // Design. bf16 with 16-byte aligned pointers and strides (the main paths):
 // one unit of work is one (image, head) — all of its query rows, with K and
@@ -71,17 +77,22 @@
 //    mbarrier per tile tells the producer, which issues one TMA store per
 //    64-row tile (it drops the rows at or past N), so no consumer waits on
 //    the store's issue.
-// float32 (the parity path, and bf16 tensors that are not 16-byte aligned):
-// one block per (batch, head, 64 query rows), all on the FMA units: K and V
-// of the (batch, head) in shared memory read through the strides; each of
-// the 8 warps takes 4 query rows at a time, lane l owning keys l, l+32, ...,
-// so one float4 of K feeds the 4 rows; K rows are padded to 68 floats so the
-// lanes' float4 reads hit distinct banks.
+// float32 (the float32 round and checks; the caller copies tensors that the
+// TMA cannot read to aligned ones): attention_tf32x3_kernel, flash-style on the tensor cores in
+// 3xTF32 (each float32 operand a as hi = tf32(a), lo = tf32(a - hi), each
+// product as A_lo B_hi + A_hi B_lo + A_hi B_hi), one block per (image, head,
+// 128 query rows) walking the keys in blocks of 64 (32 at head dim 128)
+// with an online softmax; see the kernel for the design.
+// bf16 that the TMA cannot read, past 224 keys or at head dim 128:
+// attention_kernel, on the FMA units, one block per
+// (batch, head, 64 query rows), the keys in chunks staged in shared memory
+// through the strides with an online softmax; each of the 8 warps takes 4
+// query rows at a time, lane l owning keys l, l+32, ... of a chunk, so one
+// float4 of K feeds the 4 rows.
 #include <cuda.h>
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 #include <utility>
 
 #include "common.cuh"
@@ -91,147 +102,191 @@ namespace {
 
 using namespace svt;  // the Hopper primitives (hopper.cuh)
 
-constexpr int HD = 64;          // head dim
-constexpr int KSTR = HD + 4;    // K row stride in shared memory (floats)
-constexpr int NJ = 7;           // keys per lane: N <= 32 * NJ = 224
+using bf16 = __nv_bfloat16;
+
+constexpr int HD = 64;  // head dim of the bf16 tensor-core kernel
+
+// ---------------------------------------------------------------------------
+// FMA units: bf16 past the tensor-core route (unaligned, N > 224 or head dim
+// 128); any N, head dim 64 or 128
+// ---------------------------------------------------------------------------
+
 constexpr int R = 4;            // query rows a warp handles at once
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int QT = 64;          // query rows per block
-constexpr float MASK = -1e30f;  // the Pallas kernel's mask value
+constexpr int GROUPS = QT / (WARPS * R);  // the row groups of R that each warp takes
 
-size_t smem_bytes(int N) {
-  return sizeof(float) * ((size_t)N * KSTR + (size_t)N * HD + WARPS * R * HD + (size_t)WARPS * N * R);
+// keys staged in shared memory per pass: 128 at head dim 64, 64 at 128
+template <int D>
+__host__ __device__ constexpr int fma_chunk() { return D == 64 ? 128 : 64; }
+
+// Q [QT][D], K [KC][D + 4] (rows padded so the lanes' float4 reads hit
+// distinct banks), V [KC][D], and each warp's p [KC][R]: 99 KB at D = 64,
+// 106 KB at 128, so two blocks share an SM
+template <int D>
+constexpr size_t fma_smem_bytes() {
+  return sizeof(float) * ((size_t)QT * D + (size_t)fma_chunk<D>() * (2 * D + 4) +
+                          (size_t)WARPS * fma_chunk<D>() * R);
 }
 
-template <typename T>
+// One block per (batch, head, 64 query rows). The keys come in chunks of
+// KC; for each query row the block keeps the running max m of the scaled
+// scores and each lane its share of the running sum l, and when a chunk
+// moves the max it rescales l and the float32 outputs by exp(m_old - m_new).
+// The outputs are divided by l once, at the end. Lane l owns keys l, l + 32,
+// ... of a chunk (one float4 of K feeds R rows) and output columns
+// D/32 l ... D/32 l + D/32 - 1.
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int N, long long sb,
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, int N, long long sb,
                  long long sh, long long row_stride, float scale) {
+  constexpr int KC = fma_chunk<D>(), KSTR = D + 4, NJ = KC / 32, CW = D / 32;
   extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;                    // [N][KSTR]
-  float* Vs = Ks + (size_t)N * KSTR;   // [N][HD]
-  float* Qs = Vs + (size_t)N * HD;     // [WARPS][R][HD]
-  float* Ps = Qs + WARPS * R * HD;     // [WARPS][N][R]
+  float* Qs = smem;                 // [QT][D]
+  float* Ks = Qs + QT * D;          // [KC][KSTR]
+  float* Vs = Ks + KC * KSTR;       // [KC][D]
+  float* Ps = Vs + KC * D;          // [WARPS][KC][R]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
   const size_t base = (size_t)b * sb + (size_t)h * sh;
-
-  for (int i = threadIdx.x; i < N * HD; i += THREADS) {
-    const int j = i / HD, d = i % HD;
-    const size_t g = base + (size_t)j * row_stride + d;
-    Ks[j * KSTR + d] = svt::to_f32(k[g]);
-    Vs[j * HD + d] = svt::to_f32(v[g]);
-  }
-  __syncthreads();
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* Qw = Qs + warp * R * HD;
-  float* Pw = Ps + (size_t)warp * N * R;
-  const int q_end = min(q0 + QT, N);
+  float* Pw = Ps + warp * KC * R;
 
-  for (int r0 = q0 + warp * R; r0 < q_end; r0 += WARPS * R) {
-    for (int i = lane; i < R * HD; i += 32) {
-      const int r = i / HD, d = i % HD;
-      const int row = r0 + r;
-      Qw[i] = row < N ? svt::to_f32(q[base + (size_t)row * row_stride + d]) : 0.f;
+  for (int i = threadIdx.x; i < QT * D; i += THREADS) {
+    const int r = i / D, d = i % D, row = q0 + r;
+    Qs[i] = row < N ? svt::to_f32(q[base + (size_t)row * row_stride + d]) : 0.f;
+  }
+
+  float acc[GROUPS][R][CW], m[GROUPS][R], l[GROUPS][R];
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[g][r] = -INFINITY;
+      l[g][r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[g][r][c] = 0.f;
     }
-    __syncwarp();
 
-    float s[R][NJ];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int t = 0; t < NJ; ++t) s[r][t] = 0.f;
+  for (int c0 = 0; c0 < N; c0 += KC) {
+    const int kn = min(KC, N - c0);  // keys of this chunk below N: at least one
+    __syncthreads();  // the last chunk's K and V are read (the first pass: Q is written)
+    for (int i = threadIdx.x; i < KC * D; i += THREADS) {
+      const int j = i / D, d = i % D;
+      float kx = 0.f, vx = 0.f;
+      if (j < kn) {
+        const size_t g = base + (size_t)(c0 + j) * row_stride + d;
+        kx = svt::to_f32(k[g]);
+        vx = svt::to_f32(v[g]);
+      }
+      Ks[j * KSTR + d] = kx;
+      Vs[j * D + d] = vx;
+    }
+    __syncthreads();
 
 #pragma unroll
-    for (int t = 0; t < NJ; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) {
-        const float* kr = Ks + j * KSTR;
+    for (int g = 0; g < GROUPS; ++g) {
+      const int r0 = (g * WARPS + warp) * R;  // the group's first row in the block
+      if (q0 + r0 >= N) continue;
+      const float* Qw = Qs + r0 * D;
+      float s[R][NJ];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) s[r][t] = 0.f;
+#pragma unroll
+      for (int t = 0; t < NJ; ++t) {
+        const float* kr = Ks + (lane + 32 * t) * KSTR;
 #pragma unroll 4
-        for (int d = 0; d < HD; d += 4) {
+        for (int d = 0; d < D; d += 4) {
           const float4 kv = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
-            const float4 qv = *reinterpret_cast<const float4*>(Qw + r * HD + d);
-            float acc = s[r][t];
-            acc = fmaf(qv.x, kv.x, acc);
-            acc = fmaf(qv.y, kv.y, acc);
-            acc = fmaf(qv.z, kv.z, acc);
-            acc = fmaf(qv.w, kv.w, acc);
-            s[r][t] = acc;
+            const float4 qv = *reinterpret_cast<const float4*>(Qw + r * D + d);
+            float a = s[r][t];
+            a = fmaf(qv.x, kv.x, a);
+            a = fmaf(qv.y, kv.y, a);
+            a = fmaf(qv.z, kv.z, a);
+            a = fmaf(qv.w, kv.w, a);
+            s[r][t] = a;
           }
         }
       }
-    }
 
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float m = MASK;
+      for (int r = 0; r < R; ++r) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int t = 0; t < NJ; ++t) {
-        const int j = lane + 32 * t;
-        s[r][t] = j < N ? s[r][t] * scale : MASK;
-        m = fmaxf(m, s[r][t]);
-      }
-      m = svt::warp_max(m);
-      float sum = 0.f;
+        for (int t = 0; t < NJ; ++t) {
+          // keys at or past N weigh exactly 0: exp(-inf - m) == 0
+          s[r][t] = lane + 32 * t < kn ? s[r][t] * scale : -INFINITY;
+          mx = fmaxf(mx, s[r][t]);
+        }
+        const float mn = fmaxf(m[g][r], svt::warp_max(mx));  // finite
+        const float alpha = expf(m[g][r] - mn);              // 0 for the first chunk
+        m[g][r] = mn;
+        float sum = 0.f;
 #pragma unroll
-      for (int t = 0; t < NJ; ++t) {
-        const float e = expf(s[r][t] - m);  // masked keys: exp(-1e30 - m) == 0
-        s[r][t] = e;
-        sum += e;
-      }
-      sum = svt::warp_sum(sum);
+        for (int t = 0; t < NJ; ++t) {
+          const float e = expf(s[r][t] - mn);
+          Pw[(lane + 32 * t) * R + r] = e;
+          sum += e;
+        }
+        l[g][r] = l[g][r] * alpha + sum;
 #pragma unroll
-      for (int t = 0; t < NJ; ++t) {
-        const int j = lane + 32 * t;
-        if (j < N) Pw[j * R + r] = s[r][t] / sum;
+        for (int c = 0; c < CW; ++c) acc[g][r][c] *= alpha;
       }
-    }
-    __syncwarp();
+      __syncwarp();
 
-    float acc[R][2];
+      for (int j = 0; j < kn; ++j) {
+        const float4 p = *reinterpret_cast<const float4*>(Pw + j * R);
+        const float pr[R] = {p.x, p.y, p.z, p.w};
+        float vv[CW];
+        if constexpr (CW == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(Vs + j * D + 2 * lane);
+          vv[0] = x.x;
+          vv[1] = x.y;
+        } else {
+          const float4 x = *reinterpret_cast<const float4*>(Vs + j * D + 4 * lane);
+          vv[0] = x.x;
+          vv[1] = x.y;
+          vv[2] = x.z;
+          vv[3] = x.w;
+        }
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(Pw + j * R);
-      const float2 vv = *reinterpret_cast<const float2*>(Vs + j * HD + 2 * lane);
-      acc[0][0] = fmaf(p.x, vv.x, acc[0][0]);
-      acc[0][1] = fmaf(p.x, vv.y, acc[0][1]);
-      acc[1][0] = fmaf(p.y, vv.x, acc[1][0]);
-      acc[1][1] = fmaf(p.y, vv.y, acc[1][1]);
-      acc[2][0] = fmaf(p.z, vv.x, acc[2][0]);
-      acc[2][1] = fmaf(p.z, vv.y, acc[2][1]);
-      acc[3][0] = fmaf(p.w, vv.x, acc[3][0]);
-      acc[3][1] = fmaf(p.w, vv.y, acc[3][1]);
-    }
+        for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = r0 + r;
-      if (row < N) {
-        T* orow = o + base + (size_t)row * row_stride + 2 * lane;
-        orow[0] = svt::from_f32<T>(acc[r][0]);
-        orow[1] = svt::from_f32<T>(acc[r][1]);
+          for (int c = 0; c < CW; ++c) acc[g][r][c] = fmaf(pr[r], vv[c], acc[g][r][c]);
       }
+      __syncwarp();  // Pw is rewritten by the next group
     }
-    __syncwarp();  // Qw and Pw are rewritten by the next pass
   }
+
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = q0 + (g * WARPS + warp) * R + r;
+      const float inv = 1.f / svt::warp_sum(l[g][r]);
+      if (row < N) {
+        bf16* orow = o + base + (size_t)row * row_stride + CW * lane;
+#pragma unroll
+        for (int c = 0; c < CW; ++c) orow[c] = svt::from_f32<bf16>(acc[g][r][c] * inv);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
 // bf16: TMA loads, wgmma products, one persistent block per SM
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int WG_CONSUMERS = 2;                        // consumer warpgroups
 constexpr int HP_THREADS = 128 * (WG_CONSUMERS + 1);  // + the producer warpgroup
 constexpr int STAGES = 2;
 constexpr int KC = 16;                 // keys per wgmma chunk (the k16 of p v)
-constexpr int MAX_KC = 32 * NJ / KC;   // 14 chunks: N <= 224
+constexpr int MAX_KC = 14;             // 14 chunks: N <= 224 (ops/attention.WGMMA_MAX_SEQ)
 constexpr int ROW = HD * 2;            // bytes of one bf16 row = one 128-byte swizzle row
 constexpr int QTILE = 64;              // query rows of one wgmma tile
 constexpr int MAX_TILES = 4;           // query tiles of a unit: N <= 256
@@ -260,12 +315,13 @@ __device__ __forceinline__ Coords unit_coords(int pos, int b, int h, int row) {
   return {at(1), at(2), at(3)};
 }
 
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         Coords c) {
+// a box of the 4-D map at d offset c0 (elements)
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, Coords c,
+                                         int c0 = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(c.c1), "r"(c.c2), "r"(c.c3)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c.c1), "r"(c.c2), "r"(c.c3)
       : "memory");
 }
 
@@ -540,16 +596,380 @@ attention_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
   if (wg == 0) turn_wait(0);  // takes up warpgroup 1's last pass
 }
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on wgmma, a loop over key blocks with an online softmax
+// ---------------------------------------------------------------------------
+
+// The shapes of attention_tf32x3_kernel<D> (head dim D = 64 or 128).
+template <int D>
+struct Tf32 {
+  static constexpr int BK = D == 64 ? 64 : 32;    // keys per block
+  static constexpr int QROWS = 128;               // query rows of a unit: 64 per warpgroup
+  static constexpr int PANELS = D / 32;           // 128-byte swizzle rows (32 float32) per row of d
+  static constexpr int Q_BYTES = QROWS * D * 4;
+  static constexpr int KV_BYTES = BK * D * 4;     // one of K, V, K_hi, K_lo, Vt_hi, Vt_lo
+  static constexpr int RAW = D == 64 ? 2 : 1;     // raw K and V blocks in flight
+  static constexpr int PAIRS = 4 * KV_BYTES;      // K_hi, K_lo, Vt_hi, Vt_lo of one block
+  static constexpr int CONSUMERS = 256;           // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  // Q | RAW x (K, V) | 2 x PAIRS | mbarriers: Q, raw[RAW], ready[2], free[2]
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + (size_t)RAW * 2 * KV_BYTES + 2 * (size_t)PAIRS + 8 * (1 + RAW + 4);
+};
+static_assert(Tf32<64>::SMEM <= 232448 && Tf32<128>::SMEM <= 232448,
+              "a unit must fit a block's 227 KB of shared memory");
+
+// d[64 x W] (+)= A[64 x 8] B[8 x W] in TF32, A in registers (hopper.cuh)
+template <int W>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[W / 2], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  static_assert(W == 8 || W == 16 || W == 32 || W == 64 || W == 128, "n of 8, 16, 32, 64 or 128");
+  if constexpr (W == 8) wgmma_m64n8k8_tf32_rs(d, a, b, accumulate);
+  if constexpr (W == 16) wgmma_m64n16k8_tf32_rs(d, a, b, accumulate);
+  if constexpr (W == 32) wgmma_m64n32k8_tf32_rs(d, a, b, accumulate);
+  if constexpr (W == 64) wgmma_m64n64k8_tf32_rs(d, a, b, accumulate);
+  if constexpr (W == 128) wgmma_m64n128k8_tf32_rs(d, a, b, accumulate);
+}
+
+// the producer warpgroup's threads meet (the consumers do not take part)
+__device__ __forceinline__ void producers_sync() { asm volatile("bar.sync 1, 128;" ::: "memory"); }
+
+// to_tf32 (cvt.rna) in two integer operations: half of the 13 dropped bits
+// added to the magnitude's bits, then the 13 bits cleared. The same value
+// for every finite float32; a NaN may turn into an infinity, which gives a
+// NaN all the same wherever it enters a score or an output.
+__device__ __forceinline__ float tf32_rna(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 tf32_hi(float4 x) {
+  return make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+}
+
+__device__ __forceinline__ float4 minus(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// The block's raw K and V (TMA's 128-byte swizzled panels of [BK keys][32
+// d]) into the TF32 pairs the products read, hi = tf32(x), lo = tf32(x - hi),
+// by the producer warpgroup's 128 threads: K_hi and K_lo in the same layout
+// (the K-major B of S = Q K^T), and V transposed, Vt [D][BK] in panels of
+// [D][32 keys] (the K-major B of P V: TF32 wgmma has no transpose bit).
+// Within each 8 keys Vt stores keys (0, 2, 4, 6, 1, 3, 5, 7): the S
+// accumulator gives a thread keys 2q and 2q + 1 of each 8, which are then
+// the k = q and q + 4 of the A fragment, so p goes from S's registers to
+// P V's A operand without a shuffle. Every access is free of bank
+// conflicts: a warp's V reads are 8 rows' distinct 16-byte chunks, and its
+// Vt writes 32 keys of one row of d.
+template <int D>
+__device__ __forceinline__ void split_block(unsigned char* sm, uint32_t k, uint32_t v, uint32_t pairs,
+                                            int tid) {
+  using S = Tf32<D>;
+  constexpr int BK = S::BK;
+  const uint32_t khi = pairs, klo = khi + S::KV_BYTES, vhi = klo + S::KV_BYTES, vlo = vhi + S::KV_BYTES;
+  static_assert(S::KV_BYTES % (16 * 128) == 0 && BK % 32 == 0, "whole passes of the warpgroup");
+#pragma unroll 2
+  for (int it = 0; it < S::KV_BYTES / (16 * 128); ++it) {
+    const int i = tid + it * 128;
+    const float4 x = *reinterpret_cast<const float4*>(sm + k + 16 * i);
+    const float4 hi = tf32_hi(x);
+    *reinterpret_cast<float4*>(sm + khi + 16 * i) = hi;
+    *reinterpret_cast<float4*>(sm + klo + 16 * i) = tf32_hi(minus(x, hi));
+  }
+#pragma unroll 2
+  for (int it = 0; it < BK * D / (4 * 128); ++it) {
+    const int i = tid + it * 128;
+    const int j = i % BK, d0 = 4 * (i / BK);  // key j, d0 .. d0 + 3
+    const float4 x =
+        *reinterpret_cast<const float4*>(sm + v + (d0 / 32) * BK * 128 + sw128_offset(j, (d0 % 32) / 4));
+    const int kx = (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);  // key j's column in Vt
+    const uint32_t col = (kx / 32) * D * 128 + 4 * (kx % 4);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t off = col + sw128_offset(d0 + e, (kx % 32) / 4);
+      const float hi = tf32_rna(xs[e]);
+      *reinterpret_cast<float*>(sm + vhi + off) = hi;
+      *reinterpret_cast<float*>(sm + vlo + off) = tf32_rna(xs[e] - hi);
+    }
+  }
+}
+
+// One key block of a consumer warpgroup: S = Q K^T over the block's first W
+// keys (a multiple of 8), the online softmax, and O += P V. W is a template
+// parameter so that every wgmma chain is straight-line code.
+template <int D>
+struct KeyBlock {
+  unsigned char* sm;  // generic address of the block's shared memory base
+  uint32_t pairs;     // shared address of the block's TF32 pairs (K_hi, K_lo, Vt_hi, Vt_lo)
+  uint32_t a_row;     // this thread's first A element of Q, from the base
+  int g, qd;          // lane / 4, lane % 4
+  int rem;            // keys of the block below N
+  float l2;           // scale log2 e
+
+  template <int W>
+  __device__ __forceinline__ void run(float (&oc)[D / 2], float (&m)[2], float (&l)[2]) const {
+    using S = Tf32<D>;
+    constexpr int BK = S::BK;
+    const uint32_t khi = pairs, klo = khi + S::KV_BYTES, vhi = klo + S::KV_BYTES, vlo = vhi + S::KV_BYTES;
+
+    // S [64, W] = Q K^T; a chain covers two panels (64 d), its Q fragments
+    // in registers until it completes. Element e is row 16 warp + g + 8
+    // ((e % 4) / 2), key 8 (e / 4) + 2 qd + e % 2.
+    float sc[W / 2];
+#pragma unroll
+    for (int p0 = 0; p0 < S::PANELS; p0 += 2) {
+      uint32_t a_hi[8][4], a_lo[8][4];
+#pragma unroll
+      for (int kd = 0; kd < 8; ++kd)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t off = (p0 + kd / 4) * S::QROWS * 128 + a_row + (j % 2) * 8 * 128 +
+                               (((2 * (kd % 4) + j / 2) ^ g) << 4);
+          const float x = *reinterpret_cast<const float*>(sm + off);
+          const float hi = tf32_rna(x);
+          a_hi[kd][j] = __float_as_uint(hi);
+          a_lo[kd][j] = __float_as_uint(tf32_rna(x - hi));
+        }
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 8; ++kd) {
+        const uint32_t kp = (p0 + kd / 4) * BK * 128 + 32 * (kd % 4);
+        const uint64_t bhd = sw128_desc(khi + kp), bld = sw128_desc(klo + kp);
+        // the small terms first; the chain's first product overwrites sc
+        wgmma_tf32<W>(sc, a_lo[kd], bhd, p0 > 0 || kd > 0);
+        wgmma_tf32<W>(sc, a_hi[kd], bld, 1);
+        wgmma_tf32<W>(sc, a_hi[kd], bhd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+    }
+
+    // the online softmax; keys at or past N get -inf (their zero rows would
+    // score 0)
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e)
+      if (8 * (e / 4) + 2 * qd + e % 2 >= rem) sc[e] = -INFINITY;
+    float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sc[e]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r] * l2);  // finite: the block has a key below N
+      alpha[r] = ex2(m[r] - mn);                 // 0 for the first block
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+    // p of 8 keys as P V's A fragment: registers (4c, 4c + 2, 4c + 1, 4c + 3)
+    uint32_t phi[W / 8][4], plo[W / 8][4];
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * c + (e == 1 ? 2 : e == 2 ? 1 : e), r = (x % 4) / 2;
+        const float p = ex2(fmaf(sc[x], l2, -m[r]));  // masked keys: 2^-inf == 0
+        l[r] += p;
+        const float hi = tf32_rna(p);
+        phi[c][e] = __float_as_uint(hi);
+        plo[c][e] = __float_as_uint(tf32_rna(p - hi));
+      }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) oc[e] *= alpha[(e % 4) / 2];
+
+    // P V [64, D] over 8-key steps into a fresh accumulator
+    float pv[D / 2];
+    fence_regs(pv);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < W / 8; ++c) {
+      const uint32_t vp = (c / 4) * D * 128 + 32 * (c % 4);
+      const uint64_t vhd = sw128_desc(vhi + vp), vld = sw128_desc(vlo + vp);
+      wgmma_tf32<D>(pv, plo[c], vhd, c > 0);
+      wgmma_tf32<D>(pv, phi[c], vld, 1);
+      wgmma_tf32<D>(pv, phi[c], vhd, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pv);
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) oc[e] += pv[e];
+  }
+};
+
+// One unit per block: (image b, head h, query rows q0 .. q0 + 127). Warps
+// 0-7 are two consumer warpgroups of 64 rows each (setmaxnreg gives them 232
+// registers a thread), warps 8-11 the producer warpgroup. One producer
+// thread TMA-loads the unit's Q once and keeps RAW raw K and V blocks (BK
+// keys) in flight; the producer warpgroup splits each block into its TF32
+// pairs (split_block), two blocks' pairs in shared memory at a time, handed
+// over by mbarriers (ready, free), so the split runs beside the consumers'
+// products and the two consumer warpgroups never wait for each other. Per
+// key block each consumer warpgroup runs (KeyBlock; the last block's
+// products only span its keys below N, rounded up to 8, 16, 32 or BK)
+//   S = Q K^T: Q's fragments loaded from shared memory and split in
+//     registers, 64 d at a time; per 8 d the products
+//     Q_lo K_hi + Q_hi K_lo + Q_hi K_hi into one float32 accumulator;
+//   the online softmax: keys at or past N (zero rows from the tensor map)
+//     to -inf, the row max m over the 4 lanes of a row, p = 2^(s scale
+//     log2 e - m), the thread's share of the row sum l and O rescaled by
+//     2^(m_old - m_new);
+//   P V into a fresh accumulator, P split hi/lo in registers (A), Vt's
+//     pair in shared memory (B), then added to O in float32 round-to-nearest
+//     adds: the tensor cores add into their accumulator with truncation,
+//     and one block's 3 BK / 8 products keep that error small.
+// O / l goes from registers to global memory, rows at or past N dropped.
+// Every wgmma chain is straight-line code.
+template <int D>
+__global__ void __launch_bounds__(Tf32<D>::THREADS, 1)
+attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int N, int H,
+                        int qtiles, long long sb, long long sh, long long sn, int pos, float scale) {
+  using S = Tf32<D>;
+  constexpr int BK = S::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 bytes
+  unsigned char* const sm = smem_raw + (base - raw);
+  // offsets from base: raw block r's K at RING + 2 r KV_BYTES, V after it;
+  // the pairs of block kb at PAIRS0 + (kb % 2) PAIRS
+  constexpr uint32_t RING = S::Q_BYTES, PAIRS0 = RING + 2 * S::RAW * S::KV_BYTES;
+  const uint32_t q_bar = base + PAIRS0 + 2 * S::PAIRS;
+  const uint32_t raw_bar = q_bar + 8, ready_bar = raw_bar + 8 * S::RAW, free_bar = ready_bar + 16;
+
+  const int tid = threadIdx.x;
+  const int qt = blockIdx.x % qtiles, bh = blockIdx.x / qtiles, h = bh % H, b = bh / H;
+  const int q0 = qt * S::QROWS, blocks = (N + BK - 1) / BK;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int r = 0; r < S::RAW; ++r) mbar_init(raw_bar + 8 * r, 1);  // the expect_tx
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(ready_bar + 8 * i, 128);            // each producer thread, its split written
+      mbar_init(free_bar + 8 * i, S::CONSUMERS);    // each consumer thread, its products done
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= S::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int pt = tid - S::CONSUMERS;
+    auto load = [&](int kb) {  // raw block kb, by thread 0 of the warpgroup
+      const uint32_t bar = raw_bar + 8 * (kb % S::RAW), ks = base + RING + 2 * (kb % S::RAW) * S::KV_BYTES;
+      mbar_expect_tx(bar, 2 * S::KV_BYTES);  // rows at or past N arrive zero-filled and count
+      const Coords c = unit_coords(pos, b, h, kb * BK);
+#pragma unroll
+      for (int p = 0; p < S::PANELS; ++p) {
+        tma_load(ks + p * BK * 128, &kmap, bar, c, 32 * p);
+        tma_load(ks + S::KV_BYTES + p * BK * 128, &vmap, bar, c, 32 * p);
+      }
+    };
+    if (pt == 0) {
+      mbar_expect_tx(q_bar, S::Q_BYTES);
+      const Coords cq = unit_coords(pos, b, h, q0);
+#pragma unroll
+      for (int p = 0; p < S::PANELS; ++p) tma_load(base + p * S::QROWS * 128, &qmap, q_bar, cq, 32 * p);
+      for (int kb = 0; kb < min(blocks, S::RAW); ++kb) load(kb);
+    }
+    for (int kb = 0; kb < blocks; ++kb) {
+      const int r = kb % S::RAW, i = kb % 2;
+      mbar_wait(raw_bar + 8 * r, (kb / S::RAW) & 1);
+      if (kb >= 2) mbar_wait(free_bar + 8 * i, (kb / 2 - 1) & 1);  // block kb - 2's products are done
+      const uint32_t ks = RING + 2 * r * S::KV_BYTES;
+      split_block<D>(sm, ks, ks + S::KV_BYTES, PAIRS0 + i * S::PAIRS, pt);
+      fence_proxy_async();  // the generic-proxy writes, before wgmma reads them
+      mbar_arrive(ready_bar + 8 * i);
+      producers_sync();  // every producer thread has read the raw block
+      if (pt == 0 && kb + S::RAW < blocks) load(kb + S::RAW);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  // this thread's A elements of Q: rows 16 warp + g (+ 8) of its
+  // warpgroup's 64, k = 8 kd + qd (+ 4) of a panel: 16-byte chunk 2 kd (+ 1)
+  // of the row, which the swizzle stores at chunk ^ (row % 8) = chunk ^ g
+  const uint32_t a_row = (wg * 64 + 16 * warp + g) * 128 + 4 * qd;
+  const float l2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x scale log2 e)
+  float oc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) oc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+
+  mbar_wait(q_bar, 0);
+  for (int kb = 0; kb < blocks; ++kb) {
+    const int i = kb % 2;
+    const uint32_t pairs = base + PAIRS0 + i * S::PAIRS;
+    mbar_wait(ready_bar + 8 * i, (kb / 2) & 1);
+    // the products span the block's keys below N, rounded up to 8, 16, 32
+    // or BK: the last block of a ViT's N (197, 257, 577) has 1 to 5
+    const int rem = N - kb * BK;
+    const KeyBlock<D> kbk{sm, pairs, a_row, g, qd, rem, l2};
+    if (rem > BK / 2) kbk.template run<BK>(oc, m, l);
+    else if (BK == 64 && rem > 16) kbk.template run<32>(oc, m, l);
+    else if (rem > 8) kbk.template run<16>(oc, m, l);
+    else kbk.template run<8>(oc, m, l);
+    mbar_arrive(free_bar + 8 * i);  // this thread's products of the block are done
+  }
+
+  // O / l, float2 stores of columns 8 c + 2 qd, + 1
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / l[r];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + wg * 64 + 16 * warp + g + 8 * r;
+    if (row >= N) continue;
+    float* orow = o + (size_t)b * sb + (size_t)h * sh + (size_t)row * sn + 2 * qd;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(oc[4 * c + 2 * r] * l[r], oc[4 * c + 2 * r + 1] * l[r]);
+  }
+}
+
 // Kernel slots of prepare_launch (hopper.cuh), each allowed the dynamic
-// shared memory of its largest N: attention_hopper_kernel<nch> is nch - 1,
-// attention_kernel<T> MAX_KC (float) and MAX_KC + 1 (bf16).
-constexpr int SLOTS = MAX_KC + 2;
+// shared memory of its largest instance: attention_hopper_kernel<nch> is
+// nch - 1; then attention_kernel<64 | 128> and attention_tf32x3_kernel<64 |
+// 128>.
+constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 2;
+constexpr int SLOTS = MAX_KC + 4;
 
 // The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
 // head and image axes in order of stride. An axis of extent 1 other than
 // the row (its stride may be anything) goes outermost with a stride that
 // extends the layout. Rows at or past N read as zeros.
 struct Axis { long long stride; long long extent; int role; };  // role 0 row, 1 head, 2 image
+
+// dims and byte strides of the map of elements of `esize` bytes with head
+// dim d; pos[role] is the map axis (1-3) of each role
+void bhnd_axes(int B, int N, int H, long long sb, long long sh, long long sn, int d, int esize,
+               cuuint64_t (&dims)[4], cuuint64_t (&strides)[3], int (&pos)[3]) {
+  Axis ax[3] = {{sn, N, 0}, {sh, H, 1}, {sb, B, 2}};
+  auto filler = [](const Axis& a) { return a.extent == 1 && a.role != 0; };
+  std::sort(ax, ax + 3, [&](const Axis& a, const Axis& b) {
+    if (filler(a) != filler(b)) return filler(b);
+    return a.stride < b.stride;
+  });
+  dims[0] = static_cast<cuuint64_t>(d);
+  for (int i = 0; i < 3; ++i) {
+    long long bytes = esize * ax[i].stride;
+    if (filler(ax[i]))
+      bytes = i == 0 ? (long long)d * esize : static_cast<long long>(strides[i - 1]) * dims[i];
+    dims[i + 1] = static_cast<cuuint64_t>(ax[i].extent);
+    strides[i] = static_cast<cuuint64_t>(bytes);
+    pos[ax[i].role] = i + 1;
+  }
+}
 
 using HopperKernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                               const CUtensorMap, int, int, int, int, int, int, float);
@@ -565,21 +985,9 @@ int launch_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, i
                   long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  Axis ax[3] = {{sn, N, 0}, {sh, H, 1}, {sb, B, 2}};
-  auto filler = [](const Axis& a) { return a.extent == 1 && a.role != 0; };
-  std::sort(ax, ax + 3, [&](const Axis& a, const Axis& b) {
-    if (filler(a) != filler(b)) return filler(b);
-    return a.stride < b.stride;
-  });
-  cuuint64_t dims[4] = {HD, 0, 0, 0}, strides[3];
+  cuuint64_t dims[4], strides[3];
   int pos[3] = {0, 0, 0};
-  for (int i = 0; i < 3; ++i) {
-    long long bytes = 2 * ax[i].stride;
-    if (filler(ax[i])) bytes = i == 0 ? ROW : static_cast<long long>(strides[i - 1]) * dims[i];
-    dims[i + 1] = static_cast<cuuint64_t>(ax[i].extent);
-    strides[i] = static_cast<cuuint64_t>(bytes);
-    pos[ax[i].role] = i + 1;
-  }
+  bhnd_axes(B, N, H, sb, sh, sn, HD, 2, dims, strides, pos);
   const int tiles = (N + QTILE - 1) / QTILE, qr = tiles * QTILE, nk = round_up(N, KC);
   // q: whole units of qr rows; k, v: nk rows; o: one query tile at a time
   CUtensorMap maps[4];
@@ -606,56 +1014,115 @@ int launch_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v and o share the strides (in elements) sb of the batch, sh of the
-// head and sn of the row; the head dim is contiguous.
-template <typename T>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int N, int H,
-               long long sb, long long sh, long long sn, float scale, void* stream) {
+template <int D>
+int launch_tf32x3(const float* q, const float* k, const float* v, float* o, int B, int N, int H,
+                  long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
+  using S = Tf32<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  cuuint64_t dims[4], strides[3];
+  int pos[3] = {0, 0, 0};
+  bhnd_axes(B, N, H, sb, sh, sn, D, 4, dims, strides, pos);
+  // boxes of one 128-byte row of d (32 float32) by QROWS query rows or BK keys
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {S::QROWS, S::BK, S::BK};
+  for (int m = 0; m < 3; ++m) {
+    cuuint32_t box[4] = {32, 1, 1, 1}, unit[4] = {1, 1, 1, 1};
+    box[pos[0]] = rows[m];
+    const CUresult r = encode(&maps[m], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptrs[m]),
+                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = attention_tf32x3_kernel<D>;
   int sms = 0;
-  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(attention_kernel<T>),
-                                         MAX_KC + (std::is_same_v<T, bf16> ? 1 : 0),
-                                         smem_bytes(32 * NJ), &sms);
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel),
+                                                SLOT_TF32 + (D == 128 ? 1 : 0), S::SMEM, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((N + QT - 1) / QT, H, B);
-  attention_kernel<T><<<grid, THREADS, smem_bytes(N), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), N, sb, sh, sn, scale);
+  const int qtiles = (N + S::QROWS - 1) / S::QROWS;
+  const long long units = (long long)B * H * qtiles;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(units), S::THREADS, S::SMEM, st>>>(
+      maps[0], maps[1], maps[2], o, N, H, qtiles, sb, sh, sn, pos[1] | (pos[2] << 2), scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v and o share the strides (in elements) sb of the batch, sh of the
+// head and sn of the row; the head dim D is contiguous.
+template <int D>
+int launch_fma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H,
+               long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
+  const auto kernel = attention_kernel<D>;
+  const int slot = SLOT_FMA + (D == 128 ? 1 : 0);
+  int sms = 0;
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), slot,
+                                                fma_smem_bytes<D>(), &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 grid((N + QT - 1) / QT, H, B);
+  kernel<<<grid, THREADS, fma_smem_bytes<D>(), st>>>(q, k, v, o, N, sb, sh, sn, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* q, const void* k, const void* v, const void* o) {
+  return ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
+           reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) % 16) == 0;
+}
+
+// strides (elements) that are multiples of `m` where their extent is over 1
+bool strides_of(int B, int H, long long sb, long long sh, long long sn, int m) {
+  return sn > 0 && sn % m == 0 && (H == 1 || (sh > 0 && sh % m == 0)) && (B == 1 || (sb > 0 && sb % m == 0));
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest sequence length the kernels take (keys per lane x 32).
-int svt_attention_max_seq(void) { return 32 * NJ; }
-
 // [B, H, N, d] views with the given strides (elements); the packed
-// [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d
-int svt_attention_bhnd_f32(const void* q, const void* k, const void* v, void* o, int B,
-                           int H, int N, long long sb, long long sh, long long sn,
-                           float scale, void* stream) {
-  return launch_fma<float>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
+// [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d.
+// The FMA entry takes bf16 at head dim d = 64 or 128 and any N.
+int svt_attention_bhnd_fma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                                int N, int d, long long sb, long long sh, long long sn, float scale,
+                                void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* kb = static_cast<const bf16*>(k);
+  const auto* vb = static_cast<const bf16*>(v);
+  auto* ob = static_cast<bf16*>(o);
+  return d == 64 ? launch_fma<64>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st)
+                 : launch_fma<128>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st);
 }
 
-int svt_attention_bhnd_fma_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                                int H, int N, long long sb, long long sh, long long sn,
-                                float scale, void* stream) {
-  return launch_fma<__nv_bfloat16>(q, k, v, o, B, N, H, sb, sh, sn, scale, stream);
+// The float32 tensor-core route: head dim d = 64 or 128, any N. The TMA
+// needs 16-byte aligned addresses and strides that are multiples of 4
+// elements (those of axes of extent 1 are never used); other inputs are
+// refused, not sent to another kernel.
+int svt_attention_bhnd_tf32x3(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                              int d, long long sb, long long sh, long long sn, float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || !strides_of(B, H, sb, sh, sn, 4) || B <= 0 || H <= 0 || N <= 0 ||
+      (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  return d == 64 ? launch_tf32x3<64>(qf, kf, vf, of, B, N, H, sb, sh, sn, scale, st)
+                 : launch_tf32x3<128>(qf, kf, vf, of, B, N, H, sb, sh, sn, scale, st);
 }
 
-// The tensor-core route. The TMA needs 16-byte aligned addresses and
-// strides (the strides of axes of extent 1 are never used); other inputs
-// are refused, not sent to another kernel.
+// The bf16 tensor-core route: head dim 64, N <= 224. The TMA needs 16-byte
+// aligned addresses and strides (the strides of axes of extent 1 are never
+// used); other inputs are refused, not sent to another kernel.
 int svt_attention_bhnd_bf16(const void* q, const void* k, const void* v, void* o, int B,
                             int H, int N, long long sb, long long sh, long long sn,
                             float scale, void* stream) {
-  const bool aligned =
-      ((reinterpret_cast<std::uintptr_t>(q) | reinterpret_cast<std::uintptr_t>(k) |
-        reinterpret_cast<std::uintptr_t>(v) | reinterpret_cast<std::uintptr_t>(o)) % 16) == 0 &&
-      sn > 0 && sn % 8 == 0 && (H == 1 || (sh > 0 && sh % 8 == 0)) &&
-      (B == 1 || (sb > 0 && sb % 8 == 0));
-  if (!aligned || B <= 0 || H <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned16(q, k, v, o) || !strides_of(B, H, sb, sh, sn, 8) || B <= 0 || H <= 0 || N <= 0 ||
+      N > MAX_KC * KC)
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_hopper(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, H, sb, sh, sn,
                        scale, static_cast<cudaStream_t>(stream));

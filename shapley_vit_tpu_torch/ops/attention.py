@@ -16,20 +16,29 @@ plain version (:func:`fused_attention_packed_plain`,
 gradient: called where autograd would need one, it raises rather than cut
 the graph.
 
-The kernel is built for head dim 64 (``HEAD_DIM``). On the card a head dim
-of 8 to 56 in steps of 8 is zero-padded to 64 before the launch and the
-output cut back (:func:`resize_heads`), with the true head dim's scale, as
-the JAX wrappers pad d to 128: zero columns change neither q·kᵀ nor the
-kept columns of p·v. Head dim 64 is launched as it is, without a copy.
+The kernels are built for head dims 64 and 128 (``HEAD_DIMS``). On the card
+a head dim under 64 is zero-padded to 64, and one of 65 to 127 to 128,
+before the launch and the output cut back (:func:`resize_heads`), with the
+true head dim's scale, as the JAX wrappers pad d to 128: zero columns change
+neither q·kᵀ nor the kept columns of p·v. Head dims of 64 and 128 are
+launched as they are, without a copy. Any sequence length N runs: every
+route walks the keys in blocks with an online softmax, as the JAX kernels
+pad N with no cap.
 
 :func:`attention_route` picks the kernel before the launch: ``"wgmma"``
-(bf16 with 16-byte aligned pointers and strides, as the TMA needs; the main
-paths) or ``"fma"`` (float32, and other bf16 layouts). Each wrapper keeps the
-route of its last launch in its ``route`` attribute.
+(bf16 with 16-byte aligned pointers and strides, as the TMA needs, head dim
+64 and N <= 224; the main paths), ``"fma"`` (any other bf16) or
+``"tf32x3"`` (float32 on the tensor cores, any N; the wrappers first copy
+float32 tensors that the TMA cannot read, 16-byte aligned pointers and
+strides a multiple of 4 elements, to fresh contiguous ones). Each wrapper
+keeps the route of its last launch in its ``route`` attribute, counts its
+launches in ``launches`` and, by kernel and shape, in ``launches_by``
+(``"<route> <dtype> d<padded head dim> n<N>"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import Optional
@@ -40,13 +49,14 @@ from shapley_vit_tpu_torch.ops import _build
 
 MASK = -1e30  # the Pallas kernel's value for masked (padded) keys
 
-_FNS = {
-    f"svt_attention_bhnd_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-    + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    for t in ("f32", "fma_bf16", "bf16")
-}
-_FNS["svt_attention_max_seq"] = []
-HEAD_DIM = 64  # the head dim the kernels are built for (HD in csrc/attention.cu)
+_SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+_SIG_END = [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
+# entry -> argtypes: (q, k, v, o, B, H, N, [d,] sb, sh, sn, scale, stream)
+_FNS = {f"svt_attention_bhnd_{t}": _SIG + [ctypes.c_int] + _SIG_END
+        for t in ("fma_bf16", "tf32x3")}
+_FNS["svt_attention_bhnd_bf16"] = _SIG + _SIG_END  # head dim 64 only
+HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
+WGMMA_MAX_SEQ = 224    # the bf16 tensor-core kernel's longest N (MAX_KC * KC in csrc/attention.cu)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -54,12 +64,14 @@ def _round_up(x: int, m: int) -> int:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernel runs a head dim ``d`` at: 64 for d of 8 to 64
-    in steps of 8 (d < 64 is zero-padded); ``ValueError`` for any other d."""
-    if d % 8 or not 8 <= d <= HEAD_DIM:
-        raise ValueError(f"head dim {d} not supported (the kernel takes 8 to {HEAD_DIM} in "
-                         f"steps of 8, padded to {HEAD_DIM})")
-    return HEAD_DIM
+    """The head dim the kernels run a head dim ``d`` at: 64 for 1 <= d <= 64,
+    128 for 64 < d <= 128 (narrower heads are zero-padded); ``ValueError``
+    for any other d."""
+    for dk in HEAD_DIMS:
+        if 1 <= d <= dk:
+            return dk
+    raise ValueError(f"head dim {d} not supported (the kernels take 1 to {HEAD_DIMS[-1]}, "
+                     f"padded to one of {HEAD_DIMS})")
 
 
 def resize_heads(t: torch.Tensor, heads: int, width: int) -> torch.Tensor:
@@ -73,36 +85,57 @@ def resize_heads(t: torch.Tensor, heads: int, width: int) -> torch.Tensor:
     return t.reshape(*lead, heads * width)
 
 
-def attention_route(tensors, B: int, H: int, N: int, strides) -> str:
-    """The kernel that q, k, v and out (``tensors``) with these [B, H, N]
-    extents and shared strides (batch, head, row; elements) take:
-    ``"wgmma"`` for bf16 whose pointers are 16-byte aligned and whose
-    strides are multiples of 8 (those of axes of extent 1 are never used),
-    else ``"fma"``. ``svt_attention_bhnd_bf16`` refuses what this does not
-    send it."""
+def tma_readable(tensors, B: int, H: int, N: int, strides, m: int) -> bool:
+    """Whether the TMA can read ``tensors`` with these [B, H, N] extents and
+    shared strides (batch, head, row; elements): 16-byte aligned pointers
+    and strides that are multiples of ``m`` elements (16 bytes), where the
+    axis's extent is over 1 (the others are never used)."""
     sb, sh, sn = strides
-    aligned = (all(t.data_ptr() % 16 == 0 for t in tensors) and sn > 0 and sn % 8 == 0
-               and (H == 1 or (sh > 0 and sh % 8 == 0)) and (B == 1 or (sb > 0 and sb % 8 == 0)))
-    wgmma = tensors[0].dtype == torch.bfloat16 and aligned and min(B, H, N) > 0
-    return "wgmma" if wgmma else "fma"
+    return (all(t.data_ptr() % 16 == 0 for t in tensors) and sn > 0 and sn % m == 0
+            and (H == 1 or (sh > 0 and sh % m == 0)) and (B == 1 or (sb > 0 and sb % m == 0)))
 
 
-def _launch(what: str, q, k, v, out, B: int, H: int, N: int, strides, scale: float) -> str:
-    """Launch the kernel of :func:`attention_route` after checking N against
-    what the kernels take; returns the route. q, k, v and out share
-    ``strides`` (batch, head, row; in elements), and the head dim
-    (``HEAD_DIM``) is contiguous. ``scale`` is 1/√d of the caller's head
-    dim, which may be narrower than the padded one."""
+def attention_route(tensors, B: int, H: int, N: int, strides, head_dim: int = 64) -> str:
+    """The kernel that q, k, v and out (``tensors``) with these [B, H, N]
+    extents, shared strides (batch, head, row; elements) and padded
+    ``head_dim`` take: ``"wgmma"`` for bf16 that the TMA can read
+    (:func:`tma_readable`, strides multiples of 8) at head dim 64 and
+    N <= 224, ``"fma"`` for any other bf16, ``"tf32x3"`` for float32. The
+    tensor-core entries refuse what the TMA cannot read: the wrappers copy
+    such float32 tensors first."""
+    if tensors[0].dtype == torch.float32:
+        return "tf32x3"
+    if min(B, H, N) > 0 and tma_readable(tensors, B, H, N, strides, 8) and head_dim == 64 \
+            and N <= WGMMA_MAX_SEQ:
+        return "wgmma"
+    return "fma"
+
+
+_ENTRY = {"wgmma": "bf16", "tf32x3": "tf32x3", "fma": "fma_bf16"}
+
+
+def _count(wrapper, route: str, q: torch.Tensor, d: int, N: int) -> None:
+    """One launch of ``wrapper``'s kernel on ``route`` at padded head dim
+    ``d`` and sequence length ``N``."""
+    wrapper.route = route
+    wrapper.launches += 1
+    wrapper.launches_by[f"{route} {str(q.dtype).replace('torch.', '')} d{d} n{N}"] += 1
+
+
+def _launch(what: str, q, k, v, out, B: int, H: int, N: int, d: int, strides,
+            scale: float) -> str:
+    """Launch the kernel of :func:`attention_route`; returns the route. q, k,
+    v and out share ``strides`` (batch, head, row; in elements), and the
+    padded head dim ``d`` (64 or 128) is contiguous. ``scale`` is 1/√d of
+    the caller's head dim, which may be narrower than the padded one."""
     lib = _build.load("attention", _FNS)
-    if N > lib.svt_attention_max_seq():
-        raise ValueError(f"sequence length {N} > {lib.svt_attention_max_seq()}")
-    route = attention_route((q, k, v, out), B, H, N, strides)
-    suffix = "fma_bf16" if route == "fma" and q.dtype == torch.bfloat16 else _build.SUFFIX[q.dtype]
-    fn = getattr(lib, f"svt_attention_bhnd_{suffix}")
+    route = attention_route((q, k, v, out), B, H, N, strides, d)
+    fn = getattr(lib, f"svt_attention_bhnd_{_ENTRY[route]}")
+    dims = (B, H, N) if route == "wgmma" else (B, H, N, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N,
-                 *strides, scale, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims, *strides, scale,
+                 stream)
     _build.check(err, what)
     return route
 
@@ -136,8 +169,8 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int) -> torch.Tensor:
     """Packed-layout fused MHA: q/k/v ``[B, N, H·d]`` -> ``[B, N, H·d]`` in q's
     dtype. CPU tensors run :func:`fused_attention_packed_plain`; CUDA
-    tensors launch the kernel (float32 or bfloat16, contiguous, head dim 8
-    to 64 in steps of 8, N <= 224)."""
+    tensors launch the kernel (float32 or bfloat16, contiguous, head dim 1
+    to 128, any N)."""
     _build.refuse_grad("fused_attention_packed", q, k, v, instead='attention_impl="pallas"')
     if not q.is_cuda:
         return fused_attention_packed_plain(q, k, v, heads)
@@ -151,15 +184,18 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = kernel_head_dim(d)
     if dk != d:
         q, k, v = (resize_heads(t, heads, dk) for t in (q, k, v))
+    if q.dtype == torch.float32:  # the tf32x3 route reads 16-byte aligned tensors only
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     # the packed layout as [B, H, N, d] strides: batch N·H·d, head d, row H·d
-    fused_attention_packed.route = _launch("fused_attention_packed", q, k, v, out, B, heads, N,
-                                           (N * heads * dk, dk, heads * dk), 1.0 / math.sqrt(d))
-    fused_attention_packed.launches += 1
+    route = _launch("fused_attention_packed", q, k, v, out, B, heads, N, dk,
+                    (N * heads * dk, dk, heads * dk), 1.0 / math.sqrt(d))
+    _count(fused_attention_packed, route, q, dk, N)
     return out if dk == d else resize_heads(out, heads, d)
 
 
 fused_attention_packed.launches = 0
+fused_attention_packed.launches_by = collections.Counter()
 fused_attention_packed.route = None
 
 
@@ -204,9 +240,10 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     """The kernel on CUDA tensors ``[B, H, N, d]``. q/k/v are read in
     place when they share their strides with a contiguous head dim (the
     views a head split makes of packed [B, N, H·d] projections); other
-    layouts are copied to contiguous first. The output keeps q's strides.
-    A head dim under 64 is zero-padded to 64 first (contiguous copies) and
-    the output cut back."""
+    layouts, and float32 ones that the TMA cannot read, are copied to
+    contiguous first. The output keeps q's strides.
+    A head dim other than 64 or 128 is zero-padded to the next of them first
+    (contiguous copies) and the output cut back."""
     B, H, N, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
@@ -214,13 +251,13 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     if dk != d:
         q, k, v = (resize_heads(t, 1, dk) for t in (q, k, v))
     out = torch.empty_like(q)
-    if not (q.stride() == k.stride() == v.stride() == out.stride() and q.stride(-1) == 1):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not (q.stride() == k.stride() == v.stride() == out.stride() and q.stride(-1) == 1
+            and (q.dtype != torch.float32 or tma_readable((q, k, v), B, H, N, q.stride()[:3], 4))):
+        q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
         out = torch.empty_like(q)
     _build.check_tensors("fused_attention", q, k, v, contiguous=False)
-    fused_attention.route = _launch("fused_attention", q, k, v, out, B, H, N, q.stride()[:3],
-                                    1.0 / math.sqrt(d))
-    fused_attention.launches += 1
+    route = _launch("fused_attention", q, k, v, out, B, H, N, dk, q.stride()[:3], 1.0 / math.sqrt(d))
+    _count(fused_attention, route, q, dk, N)
     return out if dk == d else resize_heads(out, 1, d)
 
 
@@ -247,10 +284,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Fused MHA with a gradient: q/k/v ``[B, H, N, d]`` -> context
     ``[B, H, N, d]`` in q's dtype. CPU tensors run
     :func:`fused_attention_plain`; CUDA tensors launch the kernel (float32 or
-    bfloat16, head dim 8 to 64 in steps of 8, N <= 224). The backward recomputes with
+    bfloat16, head dim 1 to 128, any N). The backward recomputes with
     :func:`xla_attention` on either device."""
     return _FusedAttention.apply(q, k, v)
 
 
 fused_attention.launches = 0
+fused_attention.launches_by = collections.Counter()
 fused_attention.route = None

@@ -29,11 +29,14 @@ alignment before the launch:
   hidden on chip.
 
 Any other shape raises a ``ValueError`` before any launch. The wrapper
-keeps the route of its last launch in its ``route`` attribute.
+keeps the route of its last launch in its ``route`` attribute, counts its
+launches in ``launches`` and, by kernel, in ``launches_by``
+(``"<route> <dtype>"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -132,8 +135,10 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     _build.check(err, "fused_mlp_block")
     fused_mlp_block.route = route
     fused_mlp_block.launches += 1
+    fused_mlp_block.launches_by[f"{route} {str(x.dtype).replace('torch.', '')}"] += 1
     return out
 
 
 fused_mlp_block.launches = 0
+fused_mlp_block.launches_by = collections.Counter()
 fused_mlp_block.route = None

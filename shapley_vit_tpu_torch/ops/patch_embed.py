@@ -14,11 +14,13 @@ Grad-CAM need the image gradient; LoRA training needs none.
 The route is the dtype's (``ROUTE``): bf16 runs the tensor-core kernel,
 whose copy widths and W loads adapt to alignment inside it, and float32 the
 FMA kernel. The wrapper keeps the route of its last launch in its ``route``
-attribute.
+attribute, counts its launches in ``launches`` and, by kernel, in
+``launches_by`` (``"<route> <dtype>"``).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -82,6 +84,7 @@ def _patch_embed_kernel(images: torch.Tensor, kernel: torch.Tensor, bias: torch.
     _build.check(err, "patch_embed")
     patch_embed.route = ROUTE[images.dtype]
     patch_embed.launches += 1
+    patch_embed.launches_by[f"{patch_embed.route} {str(images.dtype).replace('torch.', '')}"] += 1
     return out
 
 
@@ -127,4 +130,5 @@ def patch_embed(images: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
 
 
 patch_embed.launches = 0
+patch_embed.launches_by = collections.Counter()
 patch_embed.route = None

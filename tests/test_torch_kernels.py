@@ -142,11 +142,24 @@ def test_patch_embed_gradient_on_the_card(dtype, B, H, P, C, D):
 
 # N of 1 to 4 query tiles of 64, key counts that are not multiples of 8 or
 # 16, a unit count (B * H = 133) that does not divide the persistent grid,
-# and the round's [896, 197, 12 heads]
+# the round's [896, 197, 12 heads], and N past the bf16 tensor-core route's
+# 224 keys (225; 257 at 256 px; 577 at 384 px), which the FMA route takes
+# in bf16 and the float32 tensor-core route takes as any other N
 PACKED_SHAPES = [(3, 197, 12), (2, 100, 4), (2, 64, 2), (1, 224, 1), (1, 1, 2), (2, 8, 3),
-                 (3, 63, 4), (2, 65, 3), (133, 100, 1), (896, 197, 12)]
+                 (3, 63, 4), (2, 65, 3), (133, 100, 1), (896, 197, 12), (2, 225, 12),
+                 (2, 257, 12), (2, 577, 4)]
 BHND_SHAPES = [(64, 12, 197), (3, 4, 100), (2, 2, 17), (1, 1, 224), (1, 2, 1), (2, 3, 8),
-               (2, 2, 63), (3, 2, 64), (2, 3, 65), (133, 1, 100), (896, 12, 197)]
+               (2, 2, 63), (3, 2, 64), (2, 3, 65), (133, 1, 100), (896, 12, 197), (2, 12, 225),
+               (2, 12, 257), (2, 4, 577)]
+
+
+def _attention_route(dtype, N, d=64):
+    """The route of aligned tensors: bf16 on the tensor cores up to 224 keys
+    at head dim 64 (padded), else on the FMA units; float32 always on the
+    tensor cores (3xTF32)."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "wgmma" if N <= 224 and d <= 64 else "fma"
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -158,7 +171,7 @@ def test_attention_kernel_matches_plain(dtype, B, N, H):
     got = att.fused_attention_packed(q, k, v, heads=H)
     torch.cuda.synchronize()
     assert att.fused_attention_packed.launches == before + 1
-    assert att.fused_attention_packed.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    assert att.fused_attention_packed.route == _attention_route(dtype, N)
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), dtype)
 
@@ -303,7 +316,7 @@ def test_bhnd_attention_kernel_matches_plain(dtype, B, H, N, layout):
     got = att.fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert att.fused_attention.launches == before + 1
-    assert att.fused_attention.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    assert att.fused_attention.route == _attention_route(dtype, N)
     assert got.dtype == dtype and got.shape == (B, H, N, 64) and got.stride() == q.stride()
     _close(got, att.fused_attention_plain(q, k, v), dtype)
 
@@ -330,17 +343,19 @@ def test_bhnd_attention_gradient_on_the_card(dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("d", [16, 32, 80, 96, 128])
 @pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (896, 17, 2)])
 def test_attention_narrow_head_dims(dtype, d, B, N, H):
     """Head dims under 64 (micro's 16) are zero-padded to 64 by both
-    wrappers, with the true head dim's scale, and cut back."""
+    wrappers, and those of 65 to 127 (80, ViT-H/14's; 96) to 128, with the
+    true head dim's scale, and cut back; 128 runs as it is."""
     rng = np.random.default_rng(12)
     q, k, v = (_randn(rng, (B, N, H * d), dtype=dtype) for _ in range(3))
     before = att.fused_attention_packed.launches
     got = att.fused_attention_packed(q, k, v, heads=H)
     torch.cuda.synchronize()
     assert att.fused_attention_packed.launches == before + 1
+    assert att.fused_attention_packed.route == _attention_route(dtype, N, d)
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), dtype)
     qh, kh, vh = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
@@ -348,6 +363,7 @@ def test_attention_narrow_head_dims(dtype, d, B, N, H):
     got = att.fused_attention(qh, kh, vh)
     torch.cuda.synchronize()
     assert att.fused_attention.launches == before + 1
+    assert att.fused_attention.route == _attention_route(dtype, N, d)
     assert got.dtype == dtype and got.shape == (B, H, N, d)
     _close(got, att.fused_attention_plain(qh, kh, vh), dtype)
 
@@ -404,6 +420,67 @@ def test_attention_bf16_unaligned_tensors_take_the_fma_path():
     got = att.fused_attention_packed(q, k, v, heads=H)
     assert att.fused_attention_packed.route == "fma"
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), torch.bfloat16)
+
+
+def test_attention_float32_unaligned_tensors_are_copied_to_the_tf32x3_path():
+    """float32 tensors that are not 16-byte aligned, which the TMA cannot
+    read, are copied to aligned ones and take the 3xTF32 path, the only
+    float32 one; both entries match the plain version."""
+    rng = np.random.default_rng(14)
+    B, N, H = 2, 257, 12
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    q, k, v = (unaligned(_randn(rng, (B, N, H * 64))) for _ in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = att.fused_attention_packed(q, k, v, heads=H)
+    assert att.fused_attention_packed.route == "tf32x3"
+    _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), torch.float32)
+    qh, kh, vh = (t.view(B, N, H, 64).transpose(1, 2) for t in (q, k, v))
+    got = att.fused_attention(qh, kh, vh)
+    assert att.fused_attention.route == "tf32x3"
+    _close(got, att.fused_attention_plain(qh, kh, vh), torch.float32)
+
+
+def test_attention_float32_at_the_round_shape():
+    """The tf32x3 route at the float32 round's shape ([896, 197, 768], 12
+    heads, chip_smoke's inputs' distribution) within 1e-4 of the plain
+    version: each product in 3xTF32, the tensor cores' truncating sums cut
+    to one key block's products."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((896, 197, 768), generator=gen, device="cuda") for _ in range(3))
+    got = att.fused_attention_packed(q, k, v, heads=12)
+    assert att.fused_attention_packed.route == "tf32x3"
+    want = att.fused_attention_packed_plain(q, k, v, heads=12)
+    err = (got - want).abs().max().item()
+    print(f"max_abs_err {err}")
+    _close(got, want, torch.float32)
+
+
+def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
+    """The float32 tensor-core entry refuses unaligned tensors and head dims
+    other than 64 and 128, the bf16 one N past 224, each with an error and
+    no launch, rather than running another kernel."""
+    from shapley_vit_tpu_torch.ops import _build
+
+    lib = _build.load("attention", att._FNS)
+    stream = torch.cuda.current_stream().cuda_stream
+    B, N, H = 2, 17, 2
+    for dtype, entry, d, n, offset in ((torch.float32, "tf32x3", 64, N, 1),
+                                       (torch.float32, "tf32x3", 80, N, 0),
+                                       (torch.bfloat16, "bf16", 64, 225, 0)):
+        buf = torch.zeros(4 * B * n * H * d + 8, dtype=dtype, device="cuda")
+        q, k, v, o = (buf[offset + i * B * n * H * d:].data_ptr() for i in range(4))
+        dims = (B, H, n) if entry == "bf16" else (B, H, n, d)
+        err = getattr(lib, f"svt_attention_bhnd_{entry}")(q, k, v, o, *dims, n * H * d, d, H * d,
+                                                           0.125, stream)
+        torch.cuda.synchronize()
+        assert err != 0, (entry, d, n, offset)
+        assert torch.count_nonzero(buf) == 0
 
 
 def test_attention_bf16_entry_refuses_what_tma_cannot_read():
@@ -490,16 +567,13 @@ def test_attention_bf16_error_at_the_round_shape():
 
 def test_kernels_reject_what_they_do_not_take():
     rng = np.random.default_rng(3)
-    for d in (12, 80):  # not a multiple of 8; wider than 64
-        q = _randn(rng, (2, 10, 4 * d))
-        with pytest.raises(ValueError, match="head dim"):
-            att.fused_attention_packed(q, q, q, heads=4)
-        qh = q.view(2, 10, 4, d).transpose(1, 2)
-        with pytest.raises(ValueError, match="head dim"):
-            att.fused_attention(qh, qh, qh)
-    long = _randn(rng, (1, 1, 300, 64))
-    with pytest.raises(ValueError, match="sequence length"):
-        att.fused_attention(long, long, long)
+    d = 136  # wider than 128
+    q = _randn(rng, (2, 10, 4 * d))
+    with pytest.raises(ValueError, match="head dim"):
+        att.fused_attention_packed(q, q, q, heads=4)
+    qh = q.view(2, 10, 4, d).transpose(1, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        att.fused_attention(qh, qh, qh)
     for dtype, D in ((torch.float32, 202), (torch.float32, 1030), (torch.bfloat16, 36)):
         x = _randn(rng, (4, D), dtype=dtype)
         w = _randn(rng, (D, 128), dtype=dtype)

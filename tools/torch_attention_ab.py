@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Compare this tree's bf16 attention kernel with other versions of
+"""Compare this tree's attention kernels with other versions of
 ``shapley_vit_tpu_torch/csrc/attention.cu`` on one NVIDIA GPU.
 
     git show <rev>:shapley_vit_tpu_torch/csrc/attention.cu > exp/other_attention.cu
-    python3 tools/torch_attention_ab.py exp/other_attention.cu [more.cu ...]
+    python3 tools/torch_attention_ab.py [--dtype float32] exp/other_attention.cu [more.cu ...]
 
-Each other source is built and run by ``tools/torch_kernel_ab.py``, through
-its ``svt_attention_bhnd_bf16`` entry (the C signature is the same in all)
-with the packed layout's strides, as ``fused_attention_packed`` calls it.
-Inputs: the bf16 inputs of ``chip_smoke.py``'s ``kernels`` phase
+Each other source is built and run by ``tools/torch_kernel_ab.py`` with the
+packed layout's strides, as ``fused_attention_packed`` calls it. In bf16
+(the default) through its ``svt_attention_bhnd_bf16`` entry (the C
+signature is the same in all). In float32 through
+``svt_attention_bhnd_tf32x3`` where the source has it, else through the FMA
+kernel's ``svt_attention_bhnd_f32`` (in sources without the tensor-core
+route that entry takes no head dim). Inputs: the inputs of
+``chip_smoke.py``'s ``kernels`` phase in the dtype
 (``chip_smoke.kernel_inputs``: ``smoke_packed`` [896, 197, 768] and
-``smoke_bhnd``, the [64, 12, 197, 64] split-head views), and those of
-``tests/test_torch_kernels.py::test_attention_bf16_error_at_the_round_shape``
+``smoke_bhnd``, the [64, 12, 197, 64] split-head views), and in bf16 those
+of ``tests/test_torch_kernels.py::test_attention_bf16_error_at_the_round_shape``
 (``round_shape_inputs``; ``test_packed``). For each kernel and input, one
 JSON line (``torch_kernel_ab.measure``: error and share differing from the
-plain version's bf16 output, ms per call, ms among 20 back to back, host
-µs) and the same two errors against the float64 result (``exact_*``: bf16
-rounding of the exact value).
+plain version's output, ms per call, ms among 20 back to back, host µs) and
+the same two errors against the float64 result (``exact_*``: the exact
+value rounded to the dtype), and whether its output is bit-identical to
+this tree's kernel's. ``F.scaled_dot_product_attention`` on the same
+inputs runs first and last (float32 products in full float32).
 """
 
 from __future__ import annotations
@@ -29,66 +35,99 @@ import sys
 import torch_kernel_ab as ab
 
 
-def inputs():
-    """(name, q, k, v) packed [B, N, 768] bf16: chip_smoke.py's and the card
-    test's."""
+YARDSTICK = "sdpa"
+
+
+def inputs(dtype):
+    """(name, q, k, v) packed [B, N, 768] in ``dtype``: chip_smoke.py's, and
+    in bf16 the card test's."""
     import torch
 
     path = os.path.join(ab.ROOT, "tests", "test_torch_kernels.py")
     spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
     tests = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tests)
-    t = ab.chip_smoke.kernel_inputs(torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+    t = ab.chip_smoke.kernel_inputs(torch.Generator(device="cuda").manual_seed(0), dtype)
     smoke = [("smoke_packed", t["q"], t["k"], t["v"]), ("smoke_bhnd", t["tq"], t["tk"], t["tv"])]
     del t
+    if dtype != torch.bfloat16:
+        return smoke
     return smoke + [("test_packed", *tests.round_shape_inputs())]
 
 
 def main() -> int:
     import torch
+    import torch.nn.functional as F
 
     from shapley_vit_tpu_torch.ops import attention as att
 
-    if len(sys.argv) < 2 or not torch.cuda.is_available():
+    argv = sys.argv[1:]
+    dname = "bfloat16"
+    if argv[:1] == ["--dtype"]:
+        dname, argv = argv[1], argv[2:]
+    if not argv or dname not in ("bfloat16", "float32") or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
+    dtype = getattr(torch, dname)
+    assert not torch.backends.cuda.matmul.allow_tf32  # the yardstick in full float32
     ab.print_card()
-    libs = ab.libraries("attention", att._FNS, sys.argv[1:])
-    fns = {name: ab.entry(lib, "svt_attention_bhnd_bf16", att._FNS["svt_attention_bhnd_bf16"])
-           for name, lib in libs.items()}
-    H, N = 12, 197
+    libs = ab.libraries("attention", att._FNS, argv)
+    H, N, d = 12, 197, 64
     stream = torch.cuda.current_stream().cuda_stream
 
-    for name, q, k, v in inputs():
+    def entry(lib):
+        """(C entry, whether it takes the head dim)"""
+        if dtype == torch.bfloat16:
+            return ab.entry(lib, "svt_attention_bhnd_bf16", att._FNS["svt_attention_bhnd_bf16"]), False
+        if hasattr(lib, "svt_attention_bhnd_tf32x3"):
+            return ab.entry(lib, "svt_attention_bhnd_tf32x3", att._FNS["svt_attention_bhnd_tf32x3"]), True
+        return ab.entry(lib, "svt_attention_bhnd_f32", att._FNS["svt_attention_bhnd_bf16"]), False
+
+    fns = {name: entry(lib) for name, lib in libs.items()}
+
+    for name, q, k, v in inputs(dtype):
         B = q.shape[0]
-        views = [t.view(B, N, H, 64).transpose(1, 2) for t in (q, k, v)]
+        views = [t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v)]
         want = att.fused_attention_packed_plain(q, k, v, heads=H)
         qd, kd, vd = (t.double() for t in views)
         exact = (torch.softmax(qd @ kd.transpose(-1, -2) * 0.125, -1) @ vd)
-        exact = exact.transpose(1, 2).reshape(B, N, H * 64)
+        exact = exact.transpose(1, 2).reshape(B, N, H * d)
         del qd, kd, vd
-        exact_bf16 = exact.to(torch.bfloat16)
+        exact_rounded = exact.to(dtype)
 
         def runner(which):
+            fn, takes_d = fns[which]
+            dims = (B, H, N, d) if takes_d else (B, H, N)
+
             def run():
                 out = torch.empty_like(q)
-                err = fns[which](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, N,
-                                 N * H * 64, 64, H * 64, 0.125, stream)
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
+                         N * H * d, d, H * d, 0.125, stream)
                 if err:
                     raise RuntimeError(f"{which} kernel: cudaError {err}")
                 return out
             return run
 
-        for which in ab.order(fns):
-            run = runner(which)
-            got = run()
+        runs = {name_: runner(name_) for name_ in fns}
+        runs[YARDSTICK] = lambda: F.scaled_dot_product_attention(*views)
+
+        def packed(o):
+            return o.transpose(1, 2).reshape(B, N, H * d)
+
+        first = runs["this"]()
+        for which in ab.order(fns, YARDSTICK):
+            layout = packed if which == YARDSTICK else None
+            got = runs[which]()
+            got = got if layout is None else layout(got)
             torch.cuda.synchronize()
             exact_row = {"exact_max_abs_err": (got.double() - exact).abs().max().item(),
-                         "exact_share_differing": (got != exact_bf16).float().mean().item()}
+                         "exact_share_differing": (got != exact_rounded).float().mean().item(),
+                         "bit_identical_to_this": bool(torch.equal(got, first))}
             del got
-            print(json.dumps({"inputs": name, "kernel": which, "shape": list(q.shape),
-                              **ab.measure(run, want, 20, 10), **exact_row}), flush=True)
-        del exact, exact_bf16, want
+            print(json.dumps({"inputs": name, "kernel": which, "dtype": dname, "shape": list(q.shape),
+                              **ab.measure(runs[which], want, 20, 10, layout), **exact_row}),
+                  flush=True)
+        del exact, exact_rounded, want, runs, first
         torch.cuda.empty_cache()
     return 0
 

@@ -23,6 +23,7 @@ to ``--out`` (default ``exp/host_ab``).
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.util
 import json
 import os
@@ -49,6 +50,9 @@ def child(checkout: str, float32_round: bool = False) -> None:
     print(json.dumps({"package": os.path.dirname(shapley_vit_tpu_torch.__file__)}), flush=True)
     _build.build()
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
+    for fn in counted:  # a checkout whose wrappers count no launches by kernel
+        if not hasattr(fn, "launches_by"):
+            fn.launches_by = collections.Counter()
     if float32_round:
         cs.phase_round(counted[:3], dtype="float32")
         cs.phase_profile(cs.round_dir("float32"), dtype="float32", mlp_kernel=None)
