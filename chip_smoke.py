@@ -6,7 +6,7 @@
 Phases, each printing one JSON line:
 
 1. ``build``   — compiles the three kernel sources of ``shapley_vit_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once; ``attention.cu`` holds two kernels).
+   (one ``nvcc`` per source, all at once; ``attention.cu`` holds four kernels).
 2. ``kernels`` — each of the four kernels at its main path's shapes, in
    bfloat16 and float32, against its plain PyTorch version on the same inputs
    (float32: atol/rtol 1e-4, sums over up to 3072 terms in another order;
@@ -25,7 +25,10 @@ Phases, each printing one JSON line:
    (``*_back_to_back``: the device's time per call among calls launched
    without waiting, as on the main paths) with the host's time to launch
    one call (``host_us``, ``library_host_us``); ``share_differing`` is the
-   share of outputs whose value differs from the plain version's; ``route``
+   share of outputs whose value differs from the plain version's, and a
+   bf16 attention row holds it within ``share_bound`` (an error that
+   2e-2 passes, such as a few keys of softmax mass too many or too few,
+   moves most outputs off their bf16 value); ``route``
    is the kernel that ran, as the wrapper recorded it at the launch (its
    ``route`` attribute), and must be the one ``expected_route`` names:
    ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 fused
@@ -34,7 +37,9 @@ Phases, each printing one JSON line:
    one element past an aligned allocation. Both attention entries are also
    held past the main paths' shapes, at the training batch: N = 257 (256
    px) and 577 (384 px), and head dim 128 (6 heads of 128), bf16 on
-   ``fma`` and float32 on ``tf32x3``. ``fused_attention``'s and ``patch_embed``'s
+   ``wgmma_kl`` (the key-loop tensor-core kernel) and float32 on
+   ``tf32x3``, and head dim 256 (3 heads of 256) on ``fma`` in both
+   dtypes. ``fused_attention``'s and ``patch_embed``'s
    gradients (each an ``autograd.Function``) are held against autograd
    through the plain version on the same inputs, with the same tolerances
    (``grad_check``: every input's gradient, in its dtype, one launch on the
@@ -222,6 +227,14 @@ def expected_route(name: str, dtype: str) -> str:
     if dtype == "bfloat16":
         return "wgmma"
     return "fma" if name == "patch_embed" else "tf32x3"
+
+
+def share_bound(n: int) -> float:
+    """The share of n bf16 attention outputs that may differ from the plain
+    version's: the main paths' tensor-core kernel's at the round's shape
+    (0.22 %) rounded up to 0.25 %, plus four standard deviations of a share
+    drawn from n outputs."""
+    return 0.0025 + 4 * math.sqrt(0.0025 / n)
 
 
 def peak_ops(pk: dict, dtype: str, route: str, flops: float) -> float:
@@ -446,9 +459,11 @@ def phase_kernels(card: str) -> dict:
             want = c["plain"]()
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            ok = (torch.allclose(got.float(), want.float(), **tol) and one_launch
-                  and route == c.get("route", expected_route(name, dname)))
             differing = (got != want).float().mean().item()
+            ok = (torch.allclose(got.float(), want.float(), **tol) and one_launch
+                  and route == c.get("route", expected_route(name, dname))
+                  and (dtype != torch.bfloat16 or "attention" not in name
+                       or differing <= share_bound(got.numel())))
             del got, want
             t_ops = peak_ops(pk, dname, route, c["flops"])
             t_bytes = c["bytes"] / pk["bytes"]
@@ -492,22 +507,25 @@ def phase_kernels(card: str) -> dict:
 
 
 # Attention past the main paths' shapes, at the training batch: 256 px and
-# 384 px ViT-B (N = 257, 577) and 6 heads of 128 (case: (N, heads, head dim))
-LONG_ATTENTION = {"n257": (257, 12, 64), "n577": (577, 12, 64), "d128": (N, 6, 128)}
+# 384 px ViT-B (N = 257, 577), 6 heads of 128 and 3 heads of 256 (case:
+# (N, heads, head dim))
+LONG_ATTENTION = {"n257": (257, 12, 64), "n577": (577, 12, 64), "d128": (N, 6, 128),
+                  "d256": (N, 3, 256)}
 
 
 def long_attention_cases(gen, dtype, isz: int) -> dict:
     """``kernels`` cases of both attention entries at ``LONG_ATTENTION``'s
-    shapes, bf16 on the FMA route (past the bf16 tensor-core route's 224
-    keys and head dim 64) and float32 on ``tf32x3``."""
+    shapes: up to head dim 128 bf16 on the key-loop tensor-core route (past
+    the main paths' 224 keys and head dim 64) and float32 on ``tf32x3``;
+    past it both on the FMA route."""
     import torch
     import torch.nn.functional as F
 
     from shapley_vit_tpu_torch.ops import attention as att
 
-    route = "fma" if dtype == torch.bfloat16 else "tf32x3"
     cases = {}
     for tag, (n, h, d) in LONG_ATTENTION.items():
+        route = "fma" if d > 128 else "wgmma_kl" if dtype == torch.bfloat16 else "tf32x3"
         q, k, v = ((torch.randn((TB, n, h * d), generator=gen, device="cuda")).to(dtype)
                    for _ in range(3))
         qh, kh, vh = (t.view(TB, n, h, d).transpose(1, 2) for t in (q, k, v))

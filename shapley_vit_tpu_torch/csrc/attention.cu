@@ -1,12 +1,14 @@
 // Multi-head attention for Hopper (sm_90a), forward only: one entry point
 // per route, svt_attention_bhnd_*, each of which takes q, k, v, o as
 // [B, H, N, d] through their batch, head and row strides: _bf16 the bf16
-// tensor-core kernel (16-byte aligned, head dim 64, N <= 224), _tf32x3 the
-// float32 tensor-core kernel (16-byte aligned, head dim 64 or 128, any N),
-// _fma_bf16 the bf16 FMA kernel (head dim 64 or 128, any N). The
-// tensor-core entries refuse other inputs. The caller picks the route
-// (ops/attention.attention_route), pads head dims to 64 or 128 and copies
-// float32 tensors that the TMA cannot read.
+// tensor-core kernel of the main paths (16-byte aligned, head dim 64, N <=
+// 224), _bf16_kl the bf16 tensor-core kernel with a key loop (16-byte
+// aligned, head dim 64 or 128, any N), _tf32x3 the float32 tensor-core
+// kernel (16-byte aligned, head dim 64 or 128, any N), _fma_bf16 and
+// _fma_f32 the FMA kernel (any head dim that is a multiple of 64, any N).
+// The tensor-core entries refuse other inputs. The caller picks the route
+// (ops/attention.attention_route), pads head dims to 64, to 128 or past 128
+// to a multiple of 64, and copies tensors that the TMA cannot read.
 //
 // Replaces (shapley_vit_tpu/ops/attention.py):
 //  * _attn_v2_kernel (Pallas, entry fused_attention_packed): q, k, v, o are
@@ -77,18 +79,27 @@
 //    mbarrier per tile tells the producer, which issues one TMA store per
 //    64-row tile (it drops the rows at or past N), so no consumer waits on
 //    the store's issue.
+// bf16 past 224 keys or at head dim 128 (the caller copies tensors that
+// the TMA cannot read): attention_wgmma_kl_kernel, a persistent grid over
+// units of (image, head, 128 query rows), each walking the keys in blocks
+// of 64 with an online softmax, S and P V on wgmma with the p_hi + p_lo
+// split above; see the kernel for the design. At 64 images of N = 577 and
+// 12 heads of 64 (a 384 px ViT-B/16) 4*B*H*N^2*d = 65 GFLOP, 0.066 ms at
+// 989 TFLOP/s (the split's tensor-core work, 98 GFLOP, 0.099 ms), against
+// 0.23 GB of q, k, v and o, 0.068 ms over 3.35 TB/s.
 // float32 (the float32 round and checks; the caller copies tensors that the
 // TMA cannot read to aligned ones): attention_tf32x3_kernel, flash-style on the tensor cores in
 // 3xTF32 (each float32 operand a as hi = tf32(a), lo = tf32(a - hi), each
 // product as A_lo B_hi + A_hi B_lo + A_hi B_hi), one block per (image, head,
 // 128 query rows) walking the keys in blocks of 64 (32 at head dim 128)
 // with an online softmax; see the kernel for the design.
-// bf16 that the TMA cannot read, past 224 keys or at head dim 128:
-// attention_kernel, on the FMA units, one block per
-// (batch, head, 64 query rows), the keys in chunks staged in shared memory
-// through the strides with an online softmax; each of the 8 warps takes 4
-// query rows at a time, lane l owning keys l, l+32, ... of a chunk, so one
-// float4 of K feeds the 4 rows.
+// Head dims past 128, in either dtype: attention_fma_kernel, on the FMA
+// units, one block per (batch, head, 64 query rows, 128 output columns),
+// the keys in chunks and q k^T in slices of 64 columns of d staged in
+// shared memory, with an online softmax; each of the 8 warps takes 4 query
+// rows at a time, lane l owning keys l, l+32 of a chunk, so one float4 of K
+// feeds the 4 rows. No model the repo names has such a head: the kernel is
+// simple, not fast.
 #include <cuda.h>
 
 #include <algorithm>
@@ -107,8 +118,8 @@ using bf16 = __nv_bfloat16;
 constexpr int HD = 64;  // head dim of the bf16 tensor-core kernel
 
 // ---------------------------------------------------------------------------
-// FMA units: bf16 past the tensor-core route (unaligned, N > 224 or head dim
-// 128); any N, head dim 64 or 128
+// FMA units: head dims past 128, float32 and bf16; any N, any head dim that
+// is a multiple of 64
 // ---------------------------------------------------------------------------
 
 constexpr int R = 4;            // query rows a warp handles at once
@@ -116,48 +127,44 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int QT = 64;          // query rows per block
 constexpr int GROUPS = QT / (WARPS * R);  // the row groups of R that each warp takes
+constexpr int FKC = 64;         // keys staged in shared memory per pass
+constexpr int SL = 64;          // columns of d staged per pass of q k^T
+constexpr int KSTR = SL + 4;    // K rows padded so the lanes' float4 reads hit distinct banks
+constexpr int CP = 128;         // output columns of a block (a panel)
 
-// keys staged in shared memory per pass: 128 at head dim 64, 64 at 128
-template <int D>
-__host__ __device__ constexpr int fma_chunk() { return D == 64 ? 128 : 64; }
+// Q [QT][SL], K [FKC][KSTR], V [FKC][CP] and each warp's p [GROUPS][FKC][R]:
+// 81 KB whatever the head dim, so two blocks share an SM
+constexpr size_t FMA_SMEM =
+    sizeof(float) * ((size_t)QT * SL + (size_t)FKC * KSTR + (size_t)FKC * CP + (size_t)WARPS * GROUPS * FKC * R);
 
-// Q [QT][D], K [KC][D + 4] (rows padded so the lanes' float4 reads hit
-// distinct banks), V [KC][D], and each warp's p [KC][R]: 99 KB at D = 64,
-// 106 KB at 128, so two blocks share an SM
-template <int D>
-constexpr size_t fma_smem_bytes() {
-  return sizeof(float) * ((size_t)QT * D + (size_t)fma_chunk<D>() * (2 * D + 4) +
-                          (size_t)WARPS * fma_chunk<D>() * R);
-}
-
-// One block per (batch, head, 64 query rows). The keys come in chunks of
-// KC; for each query row the block keeps the running max m of the scaled
-// scores and each lane its share of the running sum l, and when a chunk
-// moves the max it rescales l and the float32 outputs by exp(m_old - m_new).
-// The outputs are divided by l once, at the end. Lane l owns keys l, l + 32,
-// ... of a chunk (one float4 of K feeds R rows) and output columns
-// D/32 l ... D/32 l + D/32 - 1.
-template <int D>
+// One block per (batch, head, 64 query rows, 128 output columns c0 ..
+// c0 + 127). The keys come in chunks of FKC. The scores of a chunk sum over
+// the whole head dim, 64 columns of Q and K staged at a time, so shared
+// memory does not grow with D; each block of a row's panels computes the
+// same scores, and only its own panel of p v. For each query row the block
+// keeps the running max m of the scaled scores and each lane its share of
+// the running sum l, and when a chunk moves the max it rescales l and the
+// float32 outputs by exp(m_old - m_new). The outputs are divided by l once,
+// at the end. Lane l owns keys l and l + 32 of a chunk (one float4 of K
+// feeds R rows) and output columns c0 + 4 l ... c0 + 4 l + 3 (V's columns
+// at or past D are staged as zeros and never stored).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int N, long long sb,
-                 long long sh, long long row_stride, float scale) {
-  constexpr int KC = fma_chunk<D>(), KSTR = D + 4, NJ = KC / 32, CW = D / 32;
+attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ o, int N, int D, int panels, long long sb, long long sh,
+                     long long row_stride, float scale) {
+  constexpr int NJ = FKC / 32, CW = CP / 32;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                 // [QT][D]
-  float* Ks = Qs + QT * D;          // [KC][KSTR]
-  float* Vs = Ks + KC * KSTR;       // [KC][D]
-  float* Ps = Vs + KC * D;          // [WARPS][KC][R]
+  float* Qs = smem;                 // [QT][SL]
+  float* Ks = Qs + QT * SL;         // [FKC][KSTR]
+  float* Vs = Ks + FKC * KSTR;      // [FKC][CP]
+  float* Ps = Vs + FKC * CP;        // [WARPS][GROUPS][FKC][R]
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * QT;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int q0 = (blockIdx.x / panels) * QT, c0 = (blockIdx.x % panels) * CP;
   const size_t base = (size_t)b * sb + (size_t)h * sh;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* Pw = Ps + warp * KC * R;
-
-  for (int i = threadIdx.x; i < QT * D; i += THREADS) {
-    const int r = i / D, d = i % D, row = q0 + r;
-    Qs[i] = row < N ? svt::to_f32(q[base + (size_t)row * row_stride + d]) : 0.f;
-  }
+  float* Pw = Ps + warp * GROUPS * FKC * R;
 
   float acc[GROUPS][R][CW], m[GROUPS][R], l[GROUPS][R];
 #pragma unroll
@@ -170,59 +177,64 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int c = 0; c < CW; ++c) acc[g][r][c] = 0.f;
     }
 
-  for (int c0 = 0; c0 < N; c0 += KC) {
-    const int kn = min(KC, N - c0);  // keys of this chunk below N: at least one
-    __syncthreads();  // the last chunk's K and V are read (the first pass: Q is written)
-    for (int i = threadIdx.x; i < KC * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;
-      if (j < kn) {
-        const size_t g = base + (size_t)(c0 + j) * row_stride + d;
-        kx = svt::to_f32(k[g]);
-        vx = svt::to_f32(v[g]);
-      }
-      Ks[j * KSTR + d] = kx;
-      Vs[j * D + d] = vx;
-    }
-    __syncthreads();
-
+  for (int k0 = 0; k0 < N; k0 += FKC) {
+    const int kn = min(FKC, N - k0);  // keys of this chunk below N: at least one
+    float s[GROUPS][R][NJ];
 #pragma unroll
-    for (int g = 0; g < GROUPS; ++g) {
-      const int r0 = (g * WARPS + warp) * R;  // the group's first row in the block
-      if (q0 + r0 >= N) continue;
-      const float* Qw = Qs + r0 * D;
-      float s[R][NJ];
+    for (int g = 0; g < GROUPS; ++g)
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int t = 0; t < NJ; ++t) s[r][t] = 0.f;
+        for (int t = 0; t < NJ; ++t) s[g][r][t] = 0.f;
+
+    for (int d0 = 0; d0 < D; d0 += SL) {
+      __syncthreads();  // the last pass's Q, K and V are read
+      for (int i = threadIdx.x; i < QT * SL; i += THREADS) {
+        const int r = i / SL, d = i % SL, row = q0 + r;
+        Qs[i] = row < N ? svt::to_f32(q[base + (size_t)row * row_stride + d0 + d]) : 0.f;
+      }
+      for (int i = threadIdx.x; i < FKC * SL; i += THREADS) {
+        const int j = i / SL, d = i % SL;
+        Ks[j * KSTR + d] = j < kn ? svt::to_f32(k[base + (size_t)(k0 + j) * row_stride + d0 + d]) : 0.f;
+      }
+      __syncthreads();
 #pragma unroll
-      for (int t = 0; t < NJ; ++t) {
-        const float* kr = Ks + (lane + 32 * t) * KSTR;
+      for (int g = 0; g < GROUPS; ++g) {
+        const int r0 = (g * WARPS + warp) * R;  // the group's first row in the block
+        if (q0 + r0 >= N) continue;
+        const float* Qw = Qs + r0 * SL;
+#pragma unroll
+        for (int t = 0; t < NJ; ++t) {
+          const float* kr = Ks + (lane + 32 * t) * KSTR;
 #pragma unroll 4
-        for (int d = 0; d < D; d += 4) {
-          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          for (int d = 0; d < SL; d += 4) {
+            const float4 kv = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float4 qv = *reinterpret_cast<const float4*>(Qw + r * D + d);
-            float a = s[r][t];
-            a = fmaf(qv.x, kv.x, a);
-            a = fmaf(qv.y, kv.y, a);
-            a = fmaf(qv.z, kv.z, a);
-            a = fmaf(qv.w, kv.w, a);
-            s[r][t] = a;
+            for (int r = 0; r < R; ++r) {
+              const float4 qv = *reinterpret_cast<const float4*>(Qw + r * SL + d);
+              float a = s[g][r][t];
+              a = fmaf(qv.x, kv.x, a);
+              a = fmaf(qv.y, kv.y, a);
+              a = fmaf(qv.z, kv.z, a);
+              a = fmaf(qv.w, kv.w, a);
+              s[g][r][t] = a;
+            }
           }
         }
       }
+    }
 
+    // the online softmax; p goes to the warp's rows of Ps
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g)
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float mx = -INFINITY;
 #pragma unroll
         for (int t = 0; t < NJ; ++t) {
           // keys at or past N weigh exactly 0: exp(-inf - m) == 0
-          s[r][t] = lane + 32 * t < kn ? s[r][t] * scale : -INFINITY;
-          mx = fmaxf(mx, s[r][t]);
+          s[g][r][t] = lane + 32 * t < kn ? s[g][r][t] * scale : -INFINITY;
+          mx = fmaxf(mx, s[g][r][t]);
         }
         const float mn = fmaxf(m[g][r], svt::warp_max(mx));  // finite
         const float alpha = expf(m[g][r] - mn);              // 0 for the first chunk
@@ -230,37 +242,36 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float sum = 0.f;
 #pragma unroll
         for (int t = 0; t < NJ; ++t) {
-          const float e = expf(s[r][t] - mn);
-          Pw[(lane + 32 * t) * R + r] = e;
+          const float e = expf(s[g][r][t] - mn);
+          Pw[(g * FKC + lane + 32 * t) * R + r] = e;
           sum += e;
         }
         l[g][r] = l[g][r] * alpha + sum;
 #pragma unroll
         for (int c = 0; c < CW; ++c) acc[g][r][c] *= alpha;
       }
-      __syncwarp();
 
+    // the chunk's V in the block's panel of columns (zeros past D); the
+    // syncs of the passes above ordered the last chunk's reads of Vs before
+    // these writes
+    for (int i = threadIdx.x; i < FKC * CP; i += THREADS) {
+      const int j = i / CP, c = i % CP;
+      Vs[i] = j < kn && c0 + c < D ? svt::to_f32(v[base + (size_t)(k0 + j) * row_stride + c0 + c]) : 0.f;
+    }
+    __syncthreads();  // Vs, and every warp's p, written
+
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+      if (q0 + (g * WARPS + warp) * R >= N) continue;
       for (int j = 0; j < kn; ++j) {
-        const float4 p = *reinterpret_cast<const float4*>(Pw + j * R);
-        const float pr[R] = {p.x, p.y, p.z, p.w};
-        float vv[CW];
-        if constexpr (CW == 2) {
-          const float2 x = *reinterpret_cast<const float2*>(Vs + j * D + 2 * lane);
-          vv[0] = x.x;
-          vv[1] = x.y;
-        } else {
-          const float4 x = *reinterpret_cast<const float4*>(Vs + j * D + 4 * lane);
-          vv[0] = x.x;
-          vv[1] = x.y;
-          vv[2] = x.z;
-          vv[3] = x.w;
-        }
+        const float4 p = *reinterpret_cast<const float4*>(Pw + (g * FKC + j) * R);
+        const float4 x = *reinterpret_cast<const float4*>(Vs + j * CP + CW * lane);
+        const float pr[R] = {p.x, p.y, p.z, p.w}, vv[CW] = {x.x, x.y, x.z, x.w};
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int c = 0; c < CW; ++c) acc[g][r][c] = fmaf(pr[r], vv[c], acc[g][r][c]);
       }
-      __syncwarp();  // Pw is rewritten by the next group
     }
   }
 
@@ -271,9 +282,10 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int row = q0 + (g * WARPS + warp) * R + r;
       const float inv = 1.f / svt::warp_sum(l[g][r]);
       if (row < N) {
-        bf16* orow = o + base + (size_t)row * row_stride + CW * lane;
+        T* orow = o + base + (size_t)row * row_stride + c0 + CW * lane;
 #pragma unroll
-        for (int c = 0; c < CW; ++c) orow[c] = svt::from_f32<bf16>(acc[g][r][c] * inv);
+        for (int c = 0; c < CW; ++c)
+          if (c0 + CW * lane + c < D) orow[c] = svt::from_f32<T>(acc[g][r][c] * inv);
       }
     }
 }
@@ -937,12 +949,259 @@ attention_tf32x3_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_c
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head dim 64 or 128 and any N: wgmma, a loop over key blocks with
+// an online softmax
+// ---------------------------------------------------------------------------
+
+// The shapes of attention_wgmma_kl_kernel<D> (head dim D = 64 or 128).
+template <int D>
+struct Kl {
+  static constexpr int BK = 64;                   // keys per block
+  static constexpr int QROWS = 128;               // query rows of a unit: 64 per warpgroup
+  static constexpr int PANELS = D / 64;           // 128-byte swizzle rows (64 bf16) per row of d
+  static constexpr int Q_BYTES = QROWS * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // one of K, V
+  static constexpr int PANEL_BYTES = BK * 128;    // one 64-column panel of K or V
+  static constexpr int STAGES = D == 64 ? 4 : 3;  // K and V blocks in flight
+  static constexpr int CONSUMERS = 256;           // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  // 2 x Q | STAGES x (K, V) | mbarriers: Q full[2], Q empty[2], full[STAGES], empty[STAGES]
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + (size_t)STAGES * 2 * KV_BYTES + 8 * (4 + 2 * STAGES);
+};
+static_assert(Kl<64>::SMEM <= 232448 && Kl<128>::SMEM <= 232448,
+              "a unit must fit a block's 227 KB of shared memory");
+
+// O[64 x D] (+)= P[64 x 16] V[16 x D], P (bf16 pairs) from registers, V in
+// shared memory MN-major (trans-b); at D = 128 its two 64-column panels lie
+// PANEL_BYTES apart
+template <int D>
+__device__ __forceinline__ void wgmma_pv_kl(float (&d)[D / 2], const uint32_t* a, uint32_t v) {
+  if constexpr (D == 64) wgmma_pv(d, a, sw128_desc(v), 1);
+  else wgmma_m64n128k16_rs(d, a, sw128_desc(v, Kl<D>::PANEL_BYTES), 1);
+}
+
+// One key block of a consumer warpgroup: S = Q K^T over the block's first W
+// keys (a multiple of 16), the online softmax, and O += P V. W is a template
+// parameter so that every wgmma chain is straight-line code.
+template <int D>
+struct KlBlock {
+  uint32_t q;    // shared address of this warpgroup's 64 rows of Q (panel 0)
+  uint32_t k;    // the block's K; V follows it
+  int qd;        // lane % 4
+  int rem;       // keys of the block below N
+  float l2;      // scale log2 e
+
+  template <int W>
+  __device__ __forceinline__ void run(float (&oc)[D / 2], float (&m)[2], float (&l)[2]) const {
+    using S = Kl<D>;
+    // S [64, W] = Q K^T, one chain of D / 16 steps. Element e is row
+    // 16 warp + lane / 4 + 8 ((e % 4) / 2), key 8 (e / 4) + 2 qd + e % 2.
+    float sc[W / 2];
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < S::PANELS; ++p)
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+        wgmma_qk<W>(sc, sw128_desc(q + p * S::QROWS * 128 + 32 * kd),
+                    sw128_desc(k + p * S::PANEL_BYTES + 32 * kd), p > 0 || kd > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // the online softmax; keys at or past N (only in the last block) get
+    // -inf, since their zero-filled rows would score 0
+    if (rem < W) {
+#pragma unroll
+      for (int e = 0; e < W / 2; ++e)
+        if (8 * (e / 4) + 2 * qd + e % 2 >= rem) sc[e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sc[e]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r] * l2);  // finite: the block has a key below N
+      alpha[r] = ex2(m[r] - mn);                 // 0 for the first block
+      m[r] = mn;
+      l[r] *= alpha[r];
+    }
+    // p v without rounding p to bf16: p = p_hi + p_lo, p_hi = bf16(p),
+    // p_lo = bf16(p - p_hi); S's registers, in pairs, are P V's A fragment
+    uint32_t phi[W / 4], plo[W / 4];
+#pragma unroll
+    for (int e = 0; e < W / 2; e += 2) {
+      const int r = (e % 4) / 2;
+      const float a = ex2(fmaf(sc[e], l2, -m[r]));  // masked keys: 2^-inf == 0
+      const float b = ex2(fmaf(sc[e + 1], l2, -m[r]));
+      l[r] += a + b;
+      phi[e / 2] = pack_bf16(a, b);
+      plo[e / 2] = pack_bf16(a - __uint_as_float(phi[e / 2] << 16),
+                             b - __uint_as_float(phi[e / 2] & 0xffff0000u));
+    }
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) oc[e] *= alpha[(e % 4) / 2];
+
+    // O += P V over 16-key steps, hi and lo
+    fence_regs(oc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < W / 16; ++c) {
+      const uint32_t vc = k + S::KV_BYTES + c * 16 * 128;
+      wgmma_pv_kl<D>(oc, phi + 4 * c, vc);
+      wgmma_pv_kl<D>(oc, plo + 4 * c, vc);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(oc);
+  }
+};
+
+// A unit is (image b, head h, query rows q0 .. q0 + 127); a persistent
+// grid of one block per SM walks the units u = blockIdx.x, blockIdx.x +
+// gridDim.x, ... (unit u: query tile u % qtiles of (image, head) u /
+// qtiles, so the blocks in flight at one time share K and V in L2). Warps
+// 0-7 are two consumer warpgroups of 64 query rows each (setmaxnreg gives
+// them 240 registers a thread), warps 8-11 the producer warpgroup, whose
+// one thread TMA-loads each unit's Q into one of two buffers and keeps
+// STAGES blocks of K and V (64 keys) in flight, handed over by mbarriers
+// (full: loaded, empty: both consumer warpgroups' products done). The ring
+// runs on from one unit to the next, so the next unit's Q and first blocks
+// load while the consumers finish the last one and store its outputs. The
+// tensor maps have N as an axis of its own, so rows at or past N arrive as
+// zeros and are never the next image's. Per key block each consumer
+// warpgroup runs (KlBlock; the last block's products span only its keys
+// below N, rounded up to 16)
+//   S = Q K^T: wgmma m64nWk16, Q and K K-major in shared memory, D / 16
+//     steps; bf16 products are exact in float32;
+//   the online softmax in registers, in float32: keys at or past N to
+//     -inf, the row max m over the 4 lanes of a row, p = 2^(s scale log2 e
+//     - m), the thread's share of the row sum l, O rescaled by 2^(m_old -
+//     m_new);
+//   O += P V: p = p_hi + p_lo in bf16, two products per 16 keys, A from
+//     registers, V MN-major (trans-b): attention_hopper_kernel's precision,
+//     whatever N is.
+// O / l goes from registers to global memory in bf16, rows at or past N
+// dropped. Every wgmma chain is straight-line code.
+template <int D>
+__global__ void __launch_bounds__(Kl<D>::THREADS, 1)
+attention_wgmma_kl_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int N, int H,
+                          int qtiles, int units, long long sb, long long sh, long long sn, int pos,
+                          float scale) {
+  using S = Kl<D>;
+  constexpr int BK = S::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024 bytes
+  const uint32_t ring = base + 2 * S::Q_BYTES;  // stage s: K at ring + 2 s KV_BYTES, V after it
+  // mbarriers: Q full[2], Q empty[2], full[STAGES], empty[STAGES]
+  const uint32_t qfull_bar = ring + 2 * S::STAGES * S::KV_BYTES, qempty_bar = qfull_bar + 16;
+  const uint32_t full_bar = qempty_bar + 16, empty_bar = full_bar + 8 * S::STAGES;
+  const int tid = threadIdx.x, blocks = (N + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qfull_bar + 8 * i, 1);               // the producer's expect_tx
+      mbar_init(qempty_bar + 8 * i, S::CONSUMERS);   // each consumer thread, its last S done
+    }
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, S::CONSUMERS);    // each consumer thread, its products done
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= S::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid != S::CONSUMERS) return;
+    int it = 0;  // K and V blocks loaded so far, over all of the block's units
+    for (int i = 0, u = blockIdx.x; u < units; ++i, u += gridDim.x) {
+      const int bh = u / qtiles, b = bh / H, h = bh % H;
+      const uint32_t qb = qfull_bar + 8 * (i % 2);
+      if (i >= 2) mbar_wait(qempty_bar + 8 * (i % 2), (i / 2 - 1) & 1);
+      mbar_expect_tx(qb, S::Q_BYTES);  // rows at or past N arrive zero-filled and count
+      const Coords cq = unit_coords(pos, b, h, (u % qtiles) * S::QROWS);
+#pragma unroll
+      for (int p = 0; p < S::PANELS; ++p)
+        tma_load(base + (i % 2) * S::Q_BYTES + p * S::QROWS * 128, &qmap, qb, cq, 64 * p);
+      for (int kb = 0; kb < blocks; ++kb, ++it) {
+        const int s = it % S::STAGES;
+        if (it >= S::STAGES) mbar_wait(empty_bar + 8 * s, (it / S::STAGES - 1) & 1);
+        const uint32_t bar = full_bar + 8 * s, ks = ring + 2 * s * S::KV_BYTES;
+        mbar_expect_tx(bar, 2 * S::KV_BYTES);
+        const Coords c = unit_coords(pos, b, h, kb * BK);
+#pragma unroll
+        for (int p = 0; p < S::PANELS; ++p) {
+          tma_load(ks + p * S::PANEL_BYTES, &kmap, bar, c, 64 * p);
+          tma_load(ks + S::KV_BYTES + p * S::PANEL_BYTES, &vmap, bar, c, 64 * p);
+        }
+      }
+    }
+    // stay until the consumers are done with the last blocks: every load
+    // has landed before the thread that issued it exits
+    for (int j = max(it - S::STAGES, 0); j < it; ++j)
+      mbar_wait(empty_bar + 8 * (j % S::STAGES), (j / S::STAGES) & 1);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const float l2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x scale log2 e)
+  int it = 0;
+  for (int i = 0, u = blockIdx.x; u < units; ++i, u += gridDim.x) {
+    const int bh = u / qtiles, b = bh / H, h = bh % H, q0 = (u % qtiles) * S::QROWS;
+    float oc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) oc[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+    mbar_wait(qfull_bar + 8 * (i % 2), (i / 2) & 1);
+    const uint32_t qw = base + (i % 2) * S::Q_BYTES + wg * 64 * 128;  // this warpgroup's rows
+    for (int kb = 0; kb < blocks; ++kb, ++it) {
+      const int s = it % S::STAGES;
+      mbar_wait(full_bar + 8 * s, (it / S::STAGES) & 1);
+      // the products span the block's keys below N, rounded up to 16: the
+      // last block of a ViT's N (197, 257, 577) has 1 to 5
+      const int rem = N - kb * BK;
+      const KlBlock<D> blk{qw, ring + 2 * s * S::KV_BYTES, qd, rem, l2};
+      if (rem > 48) blk.template run<64>(oc, m, l);
+      else if (rem > 32) blk.template run<48>(oc, m, l);
+      else if (rem > 16) blk.template run<32>(oc, m, l);
+      else blk.template run<16>(oc, m, l);
+      mbar_arrive(empty_bar + 8 * s);  // this thread's products of the block are done
+    }
+    mbar_arrive(qempty_bar + 8 * (i % 2));  // and its reads of Q
+
+    // O / l in bf16, pairs of columns 8 c + 2 qd, + 1
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = 1.f / l[r];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + wg * 64 + 16 * warp + g + 8 * r;
+      if (row >= N) continue;
+      bf16* orow = o + (size_t)b * sb + (size_t)h * sh + (size_t)row * sn + 2 * qd;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<uint32_t*>(orow + 8 * c) =
+            pack_bf16(oc[4 * c + 2 * r] * l[r], oc[4 * c + 2 * r + 1] * l[r]);
+    }
+  }
+}
+
 // Kernel slots of prepare_launch (hopper.cuh), each allowed the dynamic
 // shared memory of its largest instance: attention_hopper_kernel<nch> is
-// nch - 1; then attention_kernel<64 | 128> and attention_tf32x3_kernel<64 |
-// 128>.
-constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 2;
-constexpr int SLOTS = MAX_KC + 4;
+// nch - 1; then attention_fma_kernel<bf16 | float>,
+// attention_tf32x3_kernel<64 | 128> and attention_wgmma_kl_kernel<64 | 128>.
+constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 2, SLOT_KL = MAX_KC + 4;
+constexpr int SLOTS = MAX_KC + 6;
 
 // The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
 // head and image axes in order of stride. An axis of extent 1 other than
@@ -971,6 +1230,28 @@ void bhnd_axes(int B, int N, int H, long long sb, long long sh, long long sn, in
   }
 }
 
+// maps[m]: ptrs[m] laid out as bhnd_axes lays it out, in boxes of one
+// 128-byte row of d (128 / esize elements) by rows[m] rows, 128-byte
+// swizzle. Returns a cudaError_t code.
+template <int M>
+int encode_bhnd_maps(const void* const (&ptrs)[M], const int (&rows)[M], CUtensorMapDataType type,
+                     int esize, int B, int N, int H, long long sb, long long sh, long long sn, int d,
+                     CUtensorMap (&maps)[M], int (&pos)[3]) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  cuuint64_t dims[4], strides[3];
+  bhnd_axes(B, N, H, sb, sh, sn, d, esize, dims, strides, pos);
+  for (int m = 0; m < M; ++m) {
+    cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esize), 1, 1, 1}, unit[4] = {1, 1, 1, 1};
+    box[pos[0]] = rows[m];
+    const CUresult r = encode(&maps[m], type, 4, const_cast<void*>(ptrs[m]), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaSuccess);
+}
+
 using HopperKernel = void (*)(const CUtensorMap, const CUtensorMap, const CUtensorMap,
                               const CUtensorMap, int, int, int, int, int, int, float);
 
@@ -983,25 +1264,15 @@ HopperKernel hopper_kernel(int nch, std::integer_sequence<int, I...>) {
 
 int launch_hopper(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H,
                   long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  cuuint64_t dims[4], strides[3];
-  int pos[3] = {0, 0, 0};
-  bhnd_axes(B, N, H, sb, sh, sn, HD, 2, dims, strides, pos);
   const int tiles = (N + QTILE - 1) / QTILE, qr = tiles * QTILE, nk = round_up(N, KC);
   // q: whole units of qr rows; k, v: nk rows; o: one query tile at a time
   CUtensorMap maps[4];
-  const void* ptrs[4] = {q, k, v, o};
+  int pos[3] = {0, 0, 0};
+  const void* const ptrs[4] = {q, k, v, o};
   const int rows[4] = {qr, nk, nk, QTILE};
-  for (int m = 0; m < 4; ++m) {
-    cuuint32_t box[4] = {HD, 1, 1, 1}, unit[4] = {1, 1, 1, 1};
-    box[pos[0]] = rows[m];
-    const CUresult r = encode(&maps[m], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptrs[m]),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int enc = encode_bhnd_maps(ptrs, rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, N, H, sb, sh,
+                                   sn, HD, maps, pos);
+  if (enc != cudaSuccess) return enc;
   const int nch = nk / KC;
   const HopperKernel kernel = hopper_kernel(nch, std::make_integer_sequence<int, MAX_KC>{});
   int sms = 0;
@@ -1018,24 +1289,14 @@ template <int D>
 int launch_tf32x3(const float* q, const float* k, const float* v, float* o, int B, int N, int H,
                   long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
   using S = Tf32<D>;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  cuuint64_t dims[4], strides[3];
-  int pos[3] = {0, 0, 0};
-  bhnd_axes(B, N, H, sb, sh, sn, D, 4, dims, strides, pos);
   // boxes of one 128-byte row of d (32 float32) by QROWS query rows or BK keys
   CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
+  int pos[3] = {0, 0, 0};
+  const void* const ptrs[3] = {q, k, v};
   const int rows[3] = {S::QROWS, S::BK, S::BK};
-  for (int m = 0; m < 3; ++m) {
-    cuuint32_t box[4] = {32, 1, 1, 1}, unit[4] = {1, 1, 1, 1};
-    box[pos[0]] = rows[m];
-    const CUresult r = encode(&maps[m], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(ptrs[m]),
-                              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int enc = encode_bhnd_maps(ptrs, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, N, H, sb, sh,
+                                   sn, D, maps, pos);
+  if (enc != cudaSuccess) return enc;
   const auto kernel = attention_tf32x3_kernel<D>;
   int sms = 0;
   const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel),
@@ -1049,20 +1310,50 @@ int launch_tf32x3(const float* q, const float* k, const float* v, float* o, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v and o share the strides (in elements) sb of the batch, sh of the
-// head and sn of the row; the head dim D is contiguous.
 template <int D>
-int launch_fma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H,
-               long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
-  const auto kernel = attention_kernel<D>;
-  const int slot = SLOT_FMA + (D == 128 ? 1 : 0);
+int launch_kl(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H, long long sb,
+              long long sh, long long sn, float scale, cudaStream_t st) {
+  using S = Kl<D>;
+  // boxes of one 128-byte row of d (64 bf16) by QROWS query rows or BK keys
+  CUtensorMap maps[3];
+  int pos[3] = {0, 0, 0};
+  const void* const ptrs[3] = {q, k, v};
+  const int rows[3] = {S::QROWS, S::BK, S::BK};
+  const int enc = encode_bhnd_maps(ptrs, rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, N, H, sb, sh,
+                                   sn, D, maps, pos);
+  if (enc != cudaSuccess) return enc;
+  const auto kernel = attention_wgmma_kl_kernel<D>;
   int sms = 0;
-  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), slot,
-                                                fma_smem_bytes<D>(), &sms);
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel),
+                                                SLOT_KL + (D == 128 ? 1 : 0), S::SMEM, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (H > 65535 || B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid((N + QT - 1) / QT, H, B);
-  kernel<<<grid, THREADS, fma_smem_bytes<D>(), st>>>(q, k, v, o, N, sb, sh, sn, scale);
+  const int qtiles = (N + S::QROWS - 1) / S::QROWS;
+  const long long units = (long long)B * H * qtiles;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(std::min<long long>(units, sms)), S::THREADS, S::SMEM, st>>>(
+      maps[0], maps[1], maps[2], o, N, H, qtiles, static_cast<int>(units), sb, sh, sn,
+      pos[1] | (pos[2] << 2), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v and o share the strides (in elements) sb of the batch, sh of the
+// head and sn of the row; the head dim D (a multiple of 64) is contiguous.
+template <typename T>
+int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int N, int H, int D,
+               long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
+  if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D % SL != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = attention_fma_kernel<T>;
+  int sms = 0;
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel),
+                                                SLOT_FMA + (sizeof(T) == 4 ? 1 : 0), FMA_SMEM, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int panels = (D + CP - 1) / CP;
+  const long long blocks = (long long)((N + QT - 1) / QT) * panels;
+  if (H > 65535 || B > 65535 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  dim3 grid(static_cast<unsigned>(blocks), H, B);
+  kernel<<<grid, THREADS, FMA_SMEM, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                          static_cast<const T*>(v), static_cast<T*>(o), N, D, panels, sb, sh,
+                                          sn, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1082,18 +1373,18 @@ extern "C" {
 
 // [B, H, N, d] views with the given strides (elements); the packed
 // [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d.
-// The FMA entry takes bf16 at head dim d = 64 or 128 and any N.
+// The FMA entries take any N and any head dim d that is a multiple of 64,
+// with no alignment asked of the pointers or strides.
 int svt_attention_bhnd_fma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                                 int N, int d, long long sb, long long sh, long long sn, float scale,
                                 void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0 || (d != 64 && d != 128)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  auto* ob = static_cast<bf16*>(o);
-  return d == 64 ? launch_fma<64>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st)
-                 : launch_fma<128>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st);
+  return launch_fma<bf16>(q, k, v, o, B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
+}
+
+int svt_attention_bhnd_fma_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+                               int N, int d, long long sb, long long sh, long long sn, float scale,
+                               void* stream) {
+  return launch_fma<float>(q, k, v, o, B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The float32 tensor-core route: head dim d = 64 or 128, any N. The TMA
@@ -1114,9 +1405,10 @@ int svt_attention_bhnd_tf32x3(const void* q, const void* k, const void* v, void*
                  : launch_tf32x3<128>(qf, kf, vf, of, B, N, H, sb, sh, sn, scale, st);
 }
 
-// The bf16 tensor-core route: head dim 64, N <= 224. The TMA needs 16-byte
-// aligned addresses and strides (the strides of axes of extent 1 are never
-// used); other inputs are refused, not sent to another kernel.
+// The bf16 tensor-core route of the main paths: head dim 64, N <= 224. The
+// TMA needs 16-byte aligned addresses and strides (the strides of axes of
+// extent 1 are never used); other inputs are refused, not sent to another
+// kernel.
 int svt_attention_bhnd_bf16(const void* q, const void* k, const void* v, void* o, int B,
                             int H, int N, long long sb, long long sh, long long sn,
                             float scale, void* stream) {
@@ -1126,6 +1418,23 @@ int svt_attention_bhnd_bf16(const void* q, const void* k, const void* v, void* o
   return launch_hopper(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<bf16*>(o), B, N, H, sb, sh, sn,
                        scale, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 tensor-core route with a key loop: head dim d = 64 or 128, any
+// N. The same TMA requirements as svt_attention_bhnd_bf16; other inputs are
+// refused, not sent to another kernel.
+int svt_attention_bhnd_bf16_kl(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                               int d, long long sb, long long sh, long long sn, float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || !strides_of(B, H, sb, sh, sn, 8) || B <= 0 || H <= 0 || N <= 0 ||
+      (d != 64 && d != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* qb = static_cast<const bf16*>(q);
+  const auto* kb = static_cast<const bf16*>(k);
+  const auto* vb = static_cast<const bf16*>(v);
+  auto* ob = static_cast<bf16*>(o);
+  return d == 64 ? launch_kl<64>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st)
+                 : launch_kl<128>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st);
 }
 
 }  // extern "C"

@@ -16,24 +16,26 @@ plain version (:func:`fused_attention_packed_plain`,
 gradient: called where autograd would need one, it raises rather than cut
 the graph.
 
-The kernels are built for head dims 64 and 128 (``HEAD_DIMS``). On the card
-a head dim under 64 is zero-padded to 64, and one of 65 to 127 to 128,
-before the launch and the output cut back (:func:`resize_heads`), with the
-true head dim's scale, as the JAX wrappers pad d to 128: zero columns change
-neither q·kᵀ nor the kept columns of p·v. Head dims of 64 and 128 are
-launched as they are, without a copy. Any sequence length N runs: every
-route walks the keys in blocks with an online softmax, as the JAX kernels
-pad N with no cap.
+The tensor-core kernels are built for head dims 64 and 128 (``HEAD_DIMS``).
+On the card a head dim under 64 is zero-padded to 64, one of 65 to 127 to
+128, and one past 128 to a multiple of 64 (:func:`kernel_head_dim`), before
+the launch and the output cut back (:func:`resize_heads`), with the true
+head dim's scale, as the JAX wrappers pad d to a multiple of 128: zero
+columns change neither q·kᵀ nor the kept columns of p·v. A head dim the
+kernels take is launched as it is, without a copy. Any sequence length N
+runs: every route but the main paths' walks the keys in blocks with an
+online softmax, as the JAX kernels pad N with no cap.
 
 :func:`attention_route` picks the kernel before the launch: ``"wgmma"``
-(bf16 with 16-byte aligned pointers and strides, as the TMA needs, head dim
-64 and N <= 224; the main paths), ``"fma"`` (any other bf16) or
-``"tf32x3"`` (float32 on the tensor cores, any N; the wrappers first copy
-float32 tensors that the TMA cannot read, 16-byte aligned pointers and
-strides a multiple of 4 elements, to fresh contiguous ones). Each wrapper
-keeps the route of its last launch in its ``route`` attribute, counts its
-launches in ``launches`` and, by kernel and shape, in ``launches_by``
-(``"<route> <dtype> d<padded head dim> n<N>"``).
+(bf16 at head dim 64 and N <= 224; the main paths), ``"wgmma_kl"`` (bf16
+at head dim 128 or past 224 keys), ``"tf32x3"`` (float32 at head dim 64 or
+128, any N) or ``"fma"`` (head dims past 128, either dtype). The
+tensor-core kernels read through the TMA: the wrappers first copy tensors
+that it cannot read (pointers not 16-byte aligned, strides not multiples
+of 16 bytes) to fresh contiguous ones. Each wrapper keeps the route of its
+last launch in its ``route`` attribute, counts its launches in
+``launches`` and, by kernel and shape, in ``launches_by`` (``"<route>
+<dtype> d<padded head dim> n<N>"``).
 """
 
 from __future__ import annotations
@@ -53,9 +55,10 @@ _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 _SIG_END = [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
 # entry -> argtypes: (q, k, v, o, B, H, N, [d,] sb, sh, sn, scale, stream)
 _FNS = {f"svt_attention_bhnd_{t}": _SIG + [ctypes.c_int] + _SIG_END
-        for t in ("fma_bf16", "tf32x3")}
+        for t in ("fma_bf16", "fma_f32", "tf32x3", "bf16_kl")}
 _FNS["svt_attention_bhnd_bf16"] = _SIG + _SIG_END  # head dim 64 only
-HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
+HEAD_DIMS = (64, 128)  # the head dims the tensor-core kernels are built for
+WIDE_STEP = 64         # head dims past 128 are padded to a multiple of this (the FMA kernel's)
 WGMMA_MAX_SEQ = 224    # the bf16 tensor-core kernel's longest N (MAX_KC * KC in csrc/attention.cu)
 
 
@@ -65,13 +68,11 @@ def _round_up(x: int, m: int) -> int:
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a head dim ``d`` at: 64 for 1 <= d <= 64,
-    128 for 64 < d <= 128 (narrower heads are zero-padded); ``ValueError``
-    for any other d."""
-    for dk in HEAD_DIMS:
-        if 1 <= d <= dk:
-            return dk
-    raise ValueError(f"head dim {d} not supported (the kernels take 1 to {HEAD_DIMS[-1]}, "
-                     f"padded to one of {HEAD_DIMS})")
+    128 for 64 < d <= 128, d rounded up to a multiple of 64 past 128
+    (narrower heads are zero-padded); ``ValueError`` for d < 1."""
+    if d < 1:
+        raise ValueError(f"head dim {d} not supported (the kernels take any head dim from 1)")
+    return next((dk for dk in HEAD_DIMS if d <= dk), _round_up(d, WIDE_STEP))
 
 
 def resize_heads(t: torch.Tensor, heads: int, width: int) -> torch.Tensor:
@@ -85,33 +86,31 @@ def resize_heads(t: torch.Tensor, heads: int, width: int) -> torch.Tensor:
     return t.reshape(*lead, heads * width)
 
 
-def tma_readable(tensors, B: int, H: int, N: int, strides, m: int) -> bool:
-    """Whether the TMA can read ``tensors`` with these [B, H, N] extents and
+def tma_readable(tensors, B: int, H: int, strides) -> bool:
+    """Whether the TMA can read ``tensors`` with these batch and head extents and
     shared strides (batch, head, row; elements): 16-byte aligned pointers
-    and strides that are multiples of ``m`` elements (16 bytes), where the
-    axis's extent is over 1 (the others are never used)."""
+    and strides that are multiples of 16 bytes, where the axis's extent is
+    over 1 (the others are never used)."""
     sb, sh, sn = strides
+    m = 16 // tensors[0].element_size()
     return (all(t.data_ptr() % 16 == 0 for t in tensors) and sn > 0 and sn % m == 0
             and (H == 1 or (sh > 0 and sh % m == 0)) and (B == 1 or (sb > 0 and sb % m == 0)))
 
 
-def attention_route(tensors, B: int, H: int, N: int, strides, head_dim: int = 64) -> str:
-    """The kernel that q, k, v and out (``tensors``) with these [B, H, N]
-    extents, shared strides (batch, head, row; elements) and padded
-    ``head_dim`` take: ``"wgmma"`` for bf16 that the TMA can read
-    (:func:`tma_readable`, strides multiples of 8) at head dim 64 and
-    N <= 224, ``"fma"`` for any other bf16, ``"tf32x3"`` for float32. The
-    tensor-core entries refuse what the TMA cannot read: the wrappers copy
-    such float32 tensors first."""
-    if tensors[0].dtype == torch.float32:
+def attention_route(dtype: torch.dtype, N: int, head_dim: int) -> str:
+    """The kernel that q, k, v of ``dtype`` with N rows and padded
+    ``head_dim`` take: ``"fma"`` past head dim 128; else ``"tf32x3"`` for
+    float32, ``"wgmma"`` for bf16 at head dim 64 and N <= 224 and
+    ``"wgmma_kl"`` for other bf16. The tensor-core routes read what the TMA
+    can read (:func:`tma_readable`): the wrappers copy other tensors first."""
+    if head_dim not in HEAD_DIMS:
+        return "fma"
+    if dtype == torch.float32:
         return "tf32x3"
-    if min(B, H, N) > 0 and tma_readable(tensors, B, H, N, strides, 8) and head_dim == 64 \
-            and N <= WGMMA_MAX_SEQ:
-        return "wgmma"
-    return "fma"
+    return "wgmma" if head_dim == 64 and N <= WGMMA_MAX_SEQ else "wgmma_kl"
 
 
-_ENTRY = {"wgmma": "bf16", "tf32x3": "tf32x3", "fma": "fma_bf16"}
+_ENTRY = {"wgmma": "bf16", "wgmma_kl": "bf16_kl", "tf32x3": "tf32x3", "fma": "fma_"}
 
 
 def _count(wrapper, route: str, q: torch.Tensor, d: int, N: int) -> None:
@@ -126,11 +125,12 @@ def _launch(what: str, q, k, v, out, B: int, H: int, N: int, d: int, strides,
             scale: float) -> str:
     """Launch the kernel of :func:`attention_route`; returns the route. q, k,
     v and out share ``strides`` (batch, head, row; in elements), and the
-    padded head dim ``d`` (64 or 128) is contiguous. ``scale`` is 1/√d of
-    the caller's head dim, which may be narrower than the padded one."""
+    padded head dim ``d`` is contiguous. ``scale`` is 1/√d of the caller's
+    head dim, which may be narrower than the padded one."""
     lib = _build.load("attention", _FNS)
-    route = attention_route((q, k, v, out), B, H, N, strides, d)
-    fn = getattr(lib, f"svt_attention_bhnd_{_ENTRY[route]}")
+    route = attention_route(q.dtype, N, d)
+    entry = _ENTRY[route] + (_build.SUFFIX[q.dtype] if route == "fma" else "")
+    fn = getattr(lib, f"svt_attention_bhnd_{entry}")
     dims = (B, H, N) if route == "wgmma" else (B, H, N, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -169,8 +169,8 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int) -> torch.Tensor:
     """Packed-layout fused MHA: q/k/v ``[B, N, H·d]`` -> ``[B, N, H·d]`` in q's
     dtype. CPU tensors run :func:`fused_attention_packed_plain`; CUDA
-    tensors launch the kernel (float32 or bfloat16, contiguous, head dim 1
-    to 128, any N)."""
+    tensors launch the kernel (float32 or bfloat16, contiguous, any head dim
+    and N)."""
     _build.refuse_grad("fused_attention_packed", q, k, v, instead='attention_impl="pallas"')
     if not q.is_cuda:
         return fused_attention_packed_plain(q, k, v, heads)
@@ -184,7 +184,7 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = kernel_head_dim(d)
     if dk != d:
         q, k, v = (resize_heads(t, heads, dk) for t in (q, k, v))
-    if q.dtype == torch.float32:  # the tf32x3 route reads 16-byte aligned tensors only
+    if dk in HEAD_DIMS:  # the tensor-core routes read 16-byte aligned tensors only
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     # the packed layout as [B, H, N, d] strides: batch N·H·d, head d, row H·d
@@ -240,10 +240,10 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     """The kernel on CUDA tensors ``[B, H, N, d]``. q/k/v are read in
     place when they share their strides with a contiguous head dim (the
     views a head split makes of packed [B, N, H·d] projections); other
-    layouts, and float32 ones that the TMA cannot read, are copied to
-    contiguous first. The output keeps q's strides.
-    A head dim other than 64 or 128 is zero-padded to the next of them first
-    (contiguous copies) and the output cut back."""
+    layouts, and those of the tensor-core routes that the TMA cannot read,
+    are copied to contiguous first. The output keeps q's strides. A head dim
+    that the kernels do not take is zero-padded first (:func:`kernel_head_dim`;
+    contiguous copies) and the output cut back."""
     B, H, N, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
@@ -252,7 +252,7 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
         q, k, v = (resize_heads(t, 1, dk) for t in (q, k, v))
     out = torch.empty_like(q)
     if not (q.stride() == k.stride() == v.stride() == out.stride() and q.stride(-1) == 1
-            and (q.dtype != torch.float32 or tma_readable((q, k, v), B, H, N, q.stride()[:3], 4))):
+            and (dk not in HEAD_DIMS or tma_readable((q, k, v), B, H, q.stride()[:3]))):
         q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
         out = torch.empty_like(q)
     _build.check_tensors("fused_attention", q, k, v, contiguous=False)
@@ -284,7 +284,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Fused MHA with a gradient: q/k/v ``[B, H, N, d]`` -> context
     ``[B, H, N, d]`` in q's dtype. CPU tensors run
     :func:`fused_attention_plain`; CUDA tensors launch the kernel (float32 or
-    bfloat16, head dim 1 to 128, any N). The backward recomputes with
+    bfloat16, any head dim and N). The backward recomputes with
     :func:`xla_attention` on either device."""
     return _FusedAttention.apply(q, k, v)
 

@@ -12,6 +12,8 @@ terms taken in another order); bfloat16 2e-2 (outputs are rounded to bf16,
 neighbouring value).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -142,9 +144,10 @@ def test_patch_embed_gradient_on_the_card(dtype, B, H, P, C, D):
 
 # N of 1 to 4 query tiles of 64, key counts that are not multiples of 8 or
 # 16, a unit count (B * H = 133) that does not divide the persistent grid,
-# the round's [896, 197, 12 heads], and N past the bf16 tensor-core route's
-# 224 keys (225; 257 at 256 px; 577 at 384 px), which the FMA route takes
-# in bf16 and the float32 tensor-core route takes as any other N
+# the round's [896, 197, 12 heads], and N past the main paths' bf16
+# tensor-core route's 224 keys (225; 257 at 256 px; 577 at 384 px), which
+# the key-loop route takes in bf16 and the float32 tensor-core route takes
+# as any other N
 PACKED_SHAPES = [(3, 197, 12), (2, 100, 4), (2, 64, 2), (1, 224, 1), (1, 1, 2), (2, 8, 3),
                  (3, 63, 4), (2, 65, 3), (133, 100, 1), (896, 197, 12), (2, 225, 12),
                  (2, 257, 12), (2, 577, 4)]
@@ -153,13 +156,29 @@ BHND_SHAPES = [(64, 12, 197), (3, 4, 100), (2, 2, 17), (1, 1, 224), (1, 2, 1), (
                (2, 12, 257), (2, 4, 577)]
 
 
+def _share_bound(n: int) -> float:
+    """The share of n bf16 outputs of the key-loop route that may differ from
+    the plain version's: the main paths' kernel's at the round's shape
+    (0.22 %, PERF.md) rounded up to 0.25 %, plus four standard deviations of
+    a share drawn from n outputs (the small shapes' sampling noise, binomial
+    by ``tools/torch_attention_shares.py``'s readings over 32 seeds)."""
+    return 0.0025 + 4 * math.sqrt(0.0025 / n)
+
+
 def _attention_route(dtype, N, d=64):
-    """The route of aligned tensors: bf16 on the tensor cores up to 224 keys
-    at head dim 64 (padded), else on the FMA units; float32 always on the
+    """The route of a head dim d (padded as the wrappers pad it): past 128
+    the FMA units; bf16 on the main paths' tensor-core kernel up to 224 keys
+    at head dim 64 (padded), else on the key-loop one; float32 on the
     tensor cores (3xTF32)."""
+    if d > 128:
+        return "fma"
     if dtype == torch.float32:
         return "tf32x3"
-    return "wgmma" if N <= 224 and d <= 64 else "fma"
+    return "wgmma" if N <= 224 and d <= 64 else "wgmma_kl"
+
+
+def _share_differing(got, want):
+    return (got != want).float().mean().item()
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -173,7 +192,10 @@ def test_attention_kernel_matches_plain(dtype, B, N, H):
     assert att.fused_attention_packed.launches == before + 1
     assert att.fused_attention_packed.route == _attention_route(dtype, N)
     assert got.dtype == dtype and got.shape == q.shape
-    _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), dtype)
+    want = att.fused_attention_packed_plain(q, k, v, heads=H)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16 and N > 224:
+        assert _share_differing(got, want) <= _share_bound(got.numel())
 
 
 # (M, D, hidden): the tiny (192) and micro (32) widths; M of 1 and of
@@ -318,7 +340,10 @@ def test_bhnd_attention_kernel_matches_plain(dtype, B, H, N, layout):
     assert att.fused_attention.launches == before + 1
     assert att.fused_attention.route == _attention_route(dtype, N)
     assert got.dtype == dtype and got.shape == (B, H, N, 64) and got.stride() == q.stride()
-    _close(got, att.fused_attention_plain(q, k, v), dtype)
+    want = att.fused_attention_plain(q, k, v)
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16 and N > 224:
+        assert _share_differing(got, want) <= _share_bound(got.numel())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -344,11 +369,30 @@ def test_bhnd_attention_gradient_on_the_card(dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [16, 32, 80, 96, 128])
-@pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (896, 17, 2)])
+@pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (896, 17, 2), (2, 225, 3), (2, 257, 2),
+                                   (2, 577, 1)])
 def test_attention_narrow_head_dims(dtype, d, B, N, H):
     """Head dims under 64 (micro's 16) are zero-padded to 64 by both
     wrappers, and those of 65 to 127 (80, ViT-H/14's; 96) to 128, with the
-    true head dim's scale, and cut back; 128 runs as it is."""
+    true head dim's scale, and cut back; 128 runs as it is. bf16 at head
+    dim 128 or past 224 keys takes the key-loop tensor-core route."""
+    _check_head_dim(dtype, d, B, N, H)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [136, 256, 384])
+@pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (2, 257, 2)])
+def test_attention_wide_head_dims(dtype, d, B, N, H):
+    """Head dims past 128 take the FMA route in both dtypes, zero-padded to a
+    multiple of 64 (136 to 192) with the true head dim's scale and cut
+    back; 256 and 384 run as they are."""
+    _check_head_dim(dtype, d, B, N, H)
+
+
+def _check_head_dim(dtype, d, B, N, H):
+    """Both entries at head dim d against their plain versions, on the
+    route of d, N and dtype; on the key-loop route the share of outputs
+    that differ from the plain version's within ``_share_bound``."""
     rng = np.random.default_rng(12)
     q, k, v = (_randn(rng, (B, N, H * d), dtype=dtype) for _ in range(3))
     before = att.fused_attention_packed.launches
@@ -357,7 +401,10 @@ def test_attention_narrow_head_dims(dtype, d, B, N, H):
     assert att.fused_attention_packed.launches == before + 1
     assert att.fused_attention_packed.route == _attention_route(dtype, N, d)
     assert got.dtype == dtype and got.shape == q.shape
-    _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), dtype)
+    want = att.fused_attention_packed_plain(q, k, v, heads=H)
+    _close(got, want, dtype)
+    if att.fused_attention_packed.route == "wgmma_kl":
+        assert _share_differing(got, want) <= _share_bound(got.numel())
     qh, kh, vh = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
     before = att.fused_attention.launches
     got = att.fused_attention(qh, kh, vh)
@@ -365,7 +412,10 @@ def test_attention_narrow_head_dims(dtype, d, B, N, H):
     assert att.fused_attention.launches == before + 1
     assert att.fused_attention.route == _attention_route(dtype, N, d)
     assert got.dtype == dtype and got.shape == (B, H, N, d)
-    _close(got, att.fused_attention_plain(qh, kh, vh), dtype)
+    want = att.fused_attention_plain(qh, kh, vh)
+    _close(got, want, dtype)
+    if att.fused_attention.route == "wgmma_kl":
+        assert _share_differing(got, want) <= _share_bound(got.numel())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -402,24 +452,23 @@ def test_bhnd_attention_odd_layouts_are_copied_first():
     _close(att.fused_attention(q, k, v), att.fused_attention_plain(q, k, v), torch.bfloat16)
 
 
-def test_attention_bf16_unaligned_tensors_take_the_fma_path():
-    """bf16 tensors that are not 16-byte aligned skip the TMA path (16-byte
-    aligned addresses and strides) for the FMA one; both match the plain
-    version."""
+@pytest.mark.parametrize("N", [197, 257])
+def test_attention_bf16_unaligned_tensors_are_copied_to_the_tensor_cores(N):
+    """bf16 tensors that are not 16-byte aligned, which the TMA cannot read,
+    are copied to aligned ones and take the tensor-core route of their N
+    (the main paths' kernel up to 224 keys, the key-loop one past them);
+    both entries match the plain version."""
     rng = np.random.default_rng(4)
-    B, N, H = 2, 197, 12
-
-    def unaligned(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        out = buf[1:].view(t.shape)
-        out.copy_(t)
-        return out
-
-    q, k, v = (unaligned(_randn(rng, (B, N, H * 64), dtype=torch.bfloat16)) for _ in range(3))
+    B, H = 2, 12
+    q, k, v = (_unaligned(_randn(rng, (B, N, H * 64), dtype=torch.bfloat16)) for _ in range(3))
     assert q.is_contiguous() and q.data_ptr() % 16
     got = att.fused_attention_packed(q, k, v, heads=H)
-    assert att.fused_attention_packed.route == "fma"
+    assert att.fused_attention_packed.route == _attention_route(torch.bfloat16, N)
     _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), torch.bfloat16)
+    qh, kh, vh = (t.view(B, N, H, 64).transpose(1, 2) for t in (q, k, v))
+    got = att.fused_attention(qh, kh, vh)
+    assert att.fused_attention.route == _attention_route(torch.bfloat16, N)
+    _close(got, att.fused_attention_plain(qh, kh, vh), torch.bfloat16)
 
 
 def test_attention_float32_unaligned_tensors_are_copied_to_the_tf32x3_path():
@@ -462,24 +511,34 @@ def test_attention_float32_at_the_round_shape():
 
 
 def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
-    """The float32 tensor-core entry refuses unaligned tensors and head dims
-    other than 64 and 128, the bf16 one N past 224, each with an error and
-    no launch, rather than running another kernel."""
+    """The tensor-core entries refuse unaligned tensors, strides that are not
+    multiples of 16 bytes and head dims other than 64 and 128 (the bf16 main
+    paths' entry, which takes no head dim, N past 224), and the FMA entries
+    head dims that are not multiples of 64: each with an error and no
+    launch, rather than running another kernel."""
     from shapley_vit_tpu_torch.ops import _build
 
     lib = _build.load("attention", att._FNS)
     stream = torch.cuda.current_stream().cuda_stream
     B, N, H = 2, 17, 2
-    for dtype, entry, d, n, offset in ((torch.float32, "tf32x3", 64, N, 1),
-                                       (torch.float32, "tf32x3", 80, N, 0),
-                                       (torch.bfloat16, "bf16", 64, 225, 0)):
-        buf = torch.zeros(4 * B * n * H * d + 8, dtype=dtype, device="cuda")
-        q, k, v, o = (buf[offset + i * B * n * H * d:].data_ptr() for i in range(4))
+    for dtype, entry, d, n, offset, pad in ((torch.float32, "tf32x3", 64, N, 1, 0),
+                                            (torch.float32, "tf32x3", 80, N, 0, 0),
+                                            (torch.float32, "tf32x3", 256, N, 0, 0),
+                                            (torch.bfloat16, "bf16", 64, 225, 0, 0),
+                                            (torch.bfloat16, "bf16_kl", 64, N, 1, 0),
+                                            (torch.bfloat16, "bf16_kl", 64, N, 0, 4),
+                                            (torch.bfloat16, "bf16_kl", 80, N, 0, 0),
+                                            (torch.bfloat16, "bf16_kl", 256, 577, 0, 0),
+                                            (torch.bfloat16, "fma_bf16", 80, N, 0, 0),
+                                            (torch.float32, "fma_f32", 136, N, 0, 0)):
+        row = H * d + pad  # a row stride of H d + 4: not a multiple of 8 bf16
+        buf = torch.zeros(4 * B * n * row + 8, dtype=dtype, device="cuda")
+        q, k, v, o = (buf[offset + i * B * n * row:].data_ptr() for i in range(4))
         dims = (B, H, n) if entry == "bf16" else (B, H, n, d)
-        err = getattr(lib, f"svt_attention_bhnd_{entry}")(q, k, v, o, *dims, n * H * d, d, H * d,
+        err = getattr(lib, f"svt_attention_bhnd_{entry}")(q, k, v, o, *dims, n * row, d, row,
                                                            0.125, stream)
         torch.cuda.synchronize()
-        assert err != 0, (entry, d, n, offset)
+        assert err != 0, (entry, d, n, offset, pad)
         assert torch.count_nonzero(buf) == 0
 
 
@@ -501,24 +560,30 @@ def test_attention_bf16_entry_refuses_what_tma_cannot_read():
 
 
 @pytest.mark.parametrize("entry", ["packed", "bhnd"])
-def test_attention_reads_no_row_past_the_last_image(entry):
+@pytest.mark.parametrize("N,H,d", [(197, 12, 64), (257, 12, 64), (197, 6, 128), (197, 3, 256)])
+def test_attention_reads_no_row_past_the_last_image(entry, N, H, d):
     """q, k and v end where a NaN image begins: a kernel that read rows at or
-    past N of the last image would put NaN into its outputs."""
+    past N of the last image would put NaN into its outputs. Each bf16
+    route: the main paths' (N = 197), the key-loop one (N = 257, head dim
+    128) and the FMA one (head dim 256)."""
     rng = np.random.default_rng(8)
-    B, N, H = 3, 197, 12
+    B = 3
     bufs = []
     for _ in range(3):
-        buf = torch.full((B + 1, N, H * 64), float("nan"), dtype=torch.bfloat16, device="cuda")
-        buf[:B] = _randn(rng, (B, N, H * 64), dtype=torch.bfloat16)
+        buf = torch.full((B + 1, N, H * d), float("nan"), dtype=torch.bfloat16, device="cuda")
+        buf[:B] = _randn(rng, (B, N, H * d), dtype=torch.bfloat16)
         bufs.append(buf)
     q, k, v = (b[:B] for b in bufs)
     if entry == "packed":
         got = att.fused_attention_packed(q, k, v, heads=H)
         want = att.fused_attention_packed_plain(q, k, v, heads=H)
+        route = att.fused_attention_packed.route
     else:
-        q, k, v = (t.view(B, N, H, 64).transpose(1, 2) for t in (q, k, v))
+        q, k, v = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
         got, want = att.fused_attention(q, k, v), att.fused_attention_plain(q, k, v)
+        route = att.fused_attention.route
     torch.cuda.synchronize()
+    assert route == _attention_route(torch.bfloat16, N, d)
     assert torch.isfinite(got.float()).all()
     _close(got, want, torch.bfloat16)
 
@@ -531,29 +596,55 @@ def round_shape_inputs():
             for _ in range(3)]
 
 
-def test_attention_bf16_error_at_the_round_shape():
-    """The bf16 kernel against the plain version (float32 scores, softmax and
-    products, output rounded to bf16) at the round's shape. The kernel
-    multiplies p v as p_hi v + p_lo v on the tensor cores (p_hi = bf16(p),
-    p_lo = bf16(p - p_hi)), which keeps p to 16 bits: |p - p_hi - p_lo| <=
-    2^-18 p, so its float32 output is within 2^-18 sum_j p_j |v_j| of the
-    plain version's (2^-17 here, for the float32 sums of either). Two float32
-    values that close round to bf16 values at most that far apart plus one
-    bf16 step of the larger. Rounding p to bf16 alone (2^-9 p) would break
-    this bound.
+def _key_loop_packed(q, k, v, heads):
+    """The key-loop bf16 kernel on packed [B, N, H d] tensors through its C
+    entry (the wrappers send it only N past 224 or head dim 128)."""
+    from shapley_vit_tpu_torch.ops import _build
 
-    It does not meet the previous kernel's precision (float32 p v on the FMA
-    units). On an H100 at these inputs (tools/torch_attention_ab.py), the
-    largest difference from the plain version is one bf16 step at |o| in
-    [0.5, 1), 2^-8, where the previous kernel's was 2^-9, and 0.22 % of the
-    outputs differ from the plain version's bf16 value against 0.023 %:
-    16 bits of p carry an output across a bf16 rounding boundary more often
-    than float32 does. Against the float64 result both kernels have the
-    same largest error."""
+    lib = _build.load("attention", att._FNS)
+    B, N, HD = q.shape
+    d = HD // heads
+    out = torch.empty_like(q)
+    err = lib.svt_attention_bhnd_bf16_kl(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                         B, heads, N, d, N * HD, d, HD, 1.0 / d ** 0.5,
+                                         torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "svt_attention_bhnd_bf16_kl")
+    return out
+
+
+@pytest.mark.parametrize("route", ["wgmma", "wgmma_kl"])
+def test_attention_bf16_error_at_the_round_shape(route):
+    """The bf16 tensor-core kernels against the plain version (float32
+    scores, softmax and products, output rounded to bf16) at the round's
+    shape: the main paths' kernel through the wrapper, and the key-loop
+    kernel (64-key blocks, an online softmax) through its entry on the same
+    inputs. Both multiply p v as p_hi v + p_lo v on the tensor cores (p_hi =
+    bf16(p), p_lo = bf16(p - p_hi)), which keeps p to 16 bits: |p - p_hi -
+    p_lo| <= 2^-18 p, so the float32 output is within 2^-18 sum_j p_j |v_j|
+    of the plain version's (2^-17 here, for the float32 sums of either). Two
+    float32 values that close round to bf16 values at most that far apart
+    plus one bf16 step of the larger. Rounding p to bf16 alone (2^-9 p)
+    would break this bound.
+
+    It does not meet the precision of an FMA kernel (float32 p v). On an
+    H100 at these inputs (tools/torch_attention_ab.py), the main paths'
+    kernel's largest difference from the plain version is one bf16 step at
+    |o| in [0.5, 1), 2^-8, where a float32 p v's was 2^-9, and 0.22 % of the
+    outputs differ from the plain version's bf16 value against 0.023 %: 16
+    bits of p carry an output across a bf16 rounding boundary more often
+    than float32 does. Both shares are held within ``_share_bound`` and
+    printed."""
     H = 12
     q, k, v = round_shape_inputs()
-    got = att.fused_attention_packed(q, k, v, heads=H).float()
-    want = att.fused_attention_packed_plain(q, k, v, heads=H).float()
+    if route == "wgmma":
+        got = att.fused_attention_packed(q, k, v, heads=H)
+        assert att.fused_attention_packed.route == "wgmma"
+    else:
+        got = _key_loop_packed(q, k, v, H)
+    want = att.fused_attention_packed_plain(q, k, v, heads=H)
+    share = _share_differing(got, want)
+    print(f"{route} share_differing {share}")
+    got, want = got.float(), want.float()
     B, N, HD = q.shape
     qh, kh, vh = (t.float().view(B, N, H, HD // H).transpose(1, 2) for t in (q, k, v))
     p = torch.softmax(qh @ kh.transpose(-1, -2) / 8.0, dim=-1)
@@ -563,15 +654,15 @@ def test_attention_bf16_error_at_the_round_shape():
     step = torch.ldexp(torch.ones_like(got), e - 8)  # bf16: 8 significant bits
     excess = (got - want).abs() - (2.0 ** -17 * weight + step)
     assert excess.max().item() <= 0, f"{(excess > 0).sum().item()} outputs past the bound"
+    assert share <= _share_bound(got.numel())
 
 
 def test_kernels_reject_what_they_do_not_take():
     rng = np.random.default_rng(3)
-    d = 136  # wider than 128
-    q = _randn(rng, (2, 10, 4 * d))
+    q = _randn(rng, (2, 10, 0))  # head dim 0
     with pytest.raises(ValueError, match="head dim"):
         att.fused_attention_packed(q, q, q, heads=4)
-    qh = q.view(2, 10, 4, d).transpose(1, 2)
+    qh = q.view(2, 10, 4, 0).transpose(1, 2)
     with pytest.raises(ValueError, match="head dim"):
         att.fused_attention(qh, qh, qh)
     for dtype, D in ((torch.float32, 202), (torch.float32, 1030), (torch.bfloat16, 36)):

@@ -14,13 +14,14 @@ card's wrappers do around the kernels at those widths:
 * the head-dim padding of the attention wrappers (``resize_heads``), run
   through the plain attention with the true head dim's scale, against the
   JAX kernels at d = 16, 32 (padded to 64), 80 and 128 (padded to or run at
-  128) and N up to 257 (float32, atol 1e-5);
+  128) and N up to 257, and at d = 136 and 256 (padded to 192, run at 256;
+  the JAX wrappers pad both to 256) (float32, atol 1e-5);
 * which MLP kernel a call would take on the card (``mlp_route``), which
   attention kernel (``attention_route``), and which head dims the attention
   wrappers take;
 * a depth-2 tiny ViT against the JAX ViT at float32 (atol 2e-5, the house
   bar of test_vit_parity.py), and depth-2 ViTs at N = 257 (256 px) and at
-  head dim 96.
+  head dims 96 and 192.
 """
 
 import math
@@ -76,19 +77,19 @@ def test_mlp_at_micro_and_tiny_widths_matches_pallas(D, M, approximate, dtype):
         assert np.all(np.abs(got - want) <= step)
 
 
-@pytest.mark.parametrize("d", [16, 32, 80, 128])
-@pytest.mark.parametrize("N", [197, 50, 257])
+@pytest.mark.parametrize("N,d", [*((N, d) for N in (197, 50, 257) for d in (16, 32, 80, 128)),
+                                 (50, 136), (50, 256)])
 def test_padded_head_dims_match_pallas(d, N, monkeypatch):
-    """What the card's wrappers launch for a head dim other than 64 or 128:
-    q/k/v zero-padded to 64 or 128 per head, the kernel's arithmetic (the
-    plain version) at the true head dim's scale, the output cut back; 128
-    runs as it is. N = 257 is past the 224 keys of the bf16 tensor-core
-    route, which the other routes take."""
+    """What the card's wrappers launch for a head dim the kernels do not
+    take: q/k/v zero-padded per head to 64, 128 or, past 128, a multiple of
+    64 (136 to 192), the kernel's arithmetic (the plain version) at the true
+    head dim's scale, the output cut back; 128 and 256 run as they are.
+    N = 257 is past the 224 keys of the main paths' bf16 tensor-core route."""
     B, H = 2, 3
     rng = np.random.default_rng(d + N)
     q, k, v = (_np(rng, (B, N, H * d)) for _ in range(3))
     dk = tatt.kernel_head_dim(d)
-    assert dk == (64 if d <= 64 else 128)
+    assert dk == {16: 64, 32: 64, 80: 128, 128: 128, 136: 192, 256: 256}[d]
     scale = 1.0 / math.sqrt(d)
 
     padded = [tatt.resize_heads(torch.tensor(t), H, dk) for t in (q, k, v)]
@@ -118,10 +119,12 @@ def test_resize_heads_pads_with_zeros_and_cuts_back():
 
 @pytest.mark.parametrize("d,dk", [(8, 64), (16, 64), (32, 64), (56, 64), (64, 64), (12, 64),
                                   (4, 64), (1, 64), (72, 128), (80, 128), (96, 128), (128, 128),
-                                  (136, None), (0, None)])
+                                  (136, 192), (256, 256), (320, 320), (0, None)])
 def test_attention_head_dims_the_kernel_takes(d, dk):
-    """Any head dim from 1 to 128 runs, zero-padded to 64 or 128 as the JAX
-    wrappers pad d to a multiple of 128; a wider one is refused."""
+    """Any head dim from 1 runs: up to 128 zero-padded to 64 or 128 (the
+    tensor-core routes' widths), past 128 to a multiple of 64 (the FMA
+    route's), as the JAX wrappers pad d to a multiple of 128 with no cap;
+    d < 1 is refused."""
     if dk is not None:
         assert tatt.kernel_head_dim(d) == dk
     else:
@@ -167,36 +170,36 @@ def test_mlp_route(D, Hd, dtype, offset, route):
         assert tmlp.mlp_route(x, w1, w2) == route
 
 
-@pytest.mark.parametrize("dtype,offset,B,H,N,strides,d,route", [
-    (torch.bfloat16, 0, 896, 12, 197, (197 * 768, 64, 768), 64, "wgmma"),   # the round, packed
-    (torch.bfloat16, 0, 64, 12, 197, (197 * 768, 64, 768), 64, "wgmma"),    # training views
-    (torch.bfloat16, 0, 4, 2, 17, (17 * 128, 64, 128), 64, "wgmma"),        # micro, padded to 64
-    (torch.bfloat16, 0, 1, 1, 5, (3, 3, 64), 64, "wgmma"),                  # strides of extent 1 unused
-    (torch.bfloat16, 0, 2, 12, 224, (224 * 768, 64, 768), 64, "wgmma"),     # the longest it takes
-    (torch.bfloat16, 1, 2, 12, 197, (197 * 768, 64, 768), 64, "fma"),       # pointers not 16-byte aligned
-    (torch.bfloat16, 0, 2, 2, 17, (17 * 130, 65, 130), 64, "fma"),          # strides not multiples of 8
-    (torch.bfloat16, 0, 2, 2, 0, (0, 64, 128), 64, "fma"),                  # nothing to attend
-    (torch.bfloat16, 0, 2, 12, 225, (225 * 768, 64, 768), 64, "fma"),       # past 224 keys
-    (torch.bfloat16, 0, 2, 12, 257, (257 * 768, 64, 768), 64, "fma"),       # 256 px
-    (torch.bfloat16, 0, 2, 6, 197, (197 * 768, 128, 768), 128, "fma"),      # head dim 128
-    (torch.float32, 0, 896, 12, 197, (197 * 768, 64, 768), 64, "tf32x3"),   # the float32 round
-    (torch.float32, 0, 64, 12, 197, (197 * 768, 64, 768), 64, "tf32x3"),   # float32 training views
-    (torch.float32, 0, 2, 12, 577, (577 * 768, 64, 768), 64, "tf32x3"),    # 384 px: any N
-    (torch.float32, 0, 2, 6, 577, (577 * 768, 128, 768), 128, "tf32x3"),   # and head dim 128
-    (torch.float32, 0, 2, 2, 17, (17 * 132, 66, 132), 64, "tf32x3"),       # strides not multiples of 4,
-    (torch.float32, 1, 2, 12, 197, (197 * 768, 64, 768), 64, "tf32x3"),    # pointers not 16-byte aligned:
-    (torch.float32, 0, 2, 2, 0, (0, 64, 128), 64, "tf32x3"),               # the wrappers copy them first
+@pytest.mark.parametrize("dtype,N,d,route", [
+    (torch.bfloat16, 197, 64, "wgmma"),      # the round and the training views
+    (torch.bfloat16, 17, 64, "wgmma"),       # micro, padded to 64
+    (torch.bfloat16, 1, 64, "wgmma"),
+    (torch.bfloat16, 224, 64, "wgmma"),      # the longest it takes
+    (torch.bfloat16, 225, 64, "wgmma_kl"),   # past 224 keys
+    (torch.bfloat16, 257, 64, "wgmma_kl"),   # 256 px
+    (torch.bfloat16, 577, 64, "wgmma_kl"),   # 384 px
+    (torch.bfloat16, 17, 128, "wgmma_kl"),   # head dim 128 at any N
+    (torch.bfloat16, 197, 128, "wgmma_kl"),
+    (torch.bfloat16, 577, 128, "wgmma_kl"),
+    (torch.bfloat16, 197, 256, "fma"),       # past head dim 128
+    (torch.bfloat16, 577, 192, "fma"),
+    (torch.float32, 197, 64, "tf32x3"),      # the float32 round and training views
+    (torch.float32, 17, 64, "tf32x3"),
+    (torch.float32, 577, 64, "tf32x3"),      # 384 px: any N
+    (torch.float32, 577, 128, "tf32x3"),     # and head dim 128
+    (torch.float32, 197, 256, "fma"),        # past head dim 128
+    (torch.float32, 65, 320, "fma"),
 ])
-def test_attention_route(dtype, offset, B, H, N, strides, d, route):
-    """The kernel the attention entries launch on the card: the bf16
-    tensor-core one for bf16 that the TMA can read (16-byte aligned
-    pointers, strides multiples of 8 where the extent is over 1) at head
-    dim 64 and N <= 224, the FMA one for any other bf16; the float32
-    tensor-core one (3xTF32) for float32 at any N and head dim 64 or 128
-    (the wrappers copy float32 that the TMA cannot read to fresh tensors
-    first)."""
-    t = _offset(torch.zeros(64, dtype=dtype), offset)
-    assert tatt.attention_route((t, t, t, t), B, H, N, strides, d) == route
+def test_attention_route(dtype, N, d, route):
+    """The kernel the attention entries launch on the card for a padded head
+    dim d: past 128 the FMA one, in either dtype; else for bf16 the main
+    paths' tensor-core one at head dim 64 and N <= 224 and the key-loop
+    tensor-core one at any other N or head dim 128; for float32 the float32
+    tensor-core one (3xTF32) at any N. Where the tensors lie does not
+    change the route: the wrappers copy what the TMA cannot read
+    (``test_tma_readable``) before a tensor-core launch, and the FMA kernel
+    reads any."""
+    assert tatt.attention_route(dtype, N, d) == route
 
 
 @pytest.mark.parametrize("dtype,offset,strides,readable", [
@@ -204,14 +207,18 @@ def test_attention_route(dtype, offset, B, H, N, strides, d, route):
     (torch.float32, 1, (197 * 768, 64, 768), False),   # pointers not 16-byte aligned
     (torch.float32, 0, (17 * 132, 66, 132), False),    # strides not multiples of 4
     (torch.float32, 0, (3, 3, 64), True),              # strides of extent 1 unused
+    (torch.bfloat16, 0, (197 * 768, 64, 768), True),
+    (torch.bfloat16, 1, (197 * 768, 64, 768), False),  # pointers not 16-byte aligned
+    (torch.bfloat16, 0, (17 * 132, 66, 132), False),   # strides not multiples of 8
+    (torch.bfloat16, 0, (17 * 136, 68, 136), False),
 ])
 def test_tma_readable(dtype, offset, strides, readable):
-    """What the float32 wrappers copy before the tf32x3 launch: tensors
-    whose pointers are not 16-byte aligned or whose strides are not
-    multiples of 4 elements."""
+    """What the wrappers copy before a tensor-core launch: tensors whose
+    pointers are not 16-byte aligned or whose strides are not multiples of
+    16 bytes (4 float32, 8 bf16)."""
     t = _offset(torch.zeros(64, dtype=dtype), offset)
     B, H = (1, 1) if strides == (3, 3, 64) else (2, 2)
-    assert tatt.tma_readable((t, t, t), B, H, 17, strides, 4) == readable
+    assert tatt.tma_readable((t, t, t), B, H, strides) == readable
 
 
 def test_wgmma_route_limit_is_the_kernel_s():
@@ -221,6 +228,14 @@ def test_wgmma_route_limit_is_the_kernel_s():
     src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
     consts = {name: int(v) for name, v in re.findall(r"constexpr int (MAX_KC|KC) = (\d+);", src)}
     assert consts["MAX_KC"] * consts["KC"] == tatt.WGMMA_MAX_SEQ
+
+
+def test_wide_head_dim_step_is_the_fma_kernel_s():
+    """``WIDE_STEP``, the multiple that head dims past 128 are padded to, is
+    the FMA kernel's: the SL columns of d it stages per pass in
+    ``csrc/attention.cu``, whose entries refuse other head dims."""
+    src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
+    assert int(re.search(r"constexpr int SL = (\d+);", src).group(1)) == tatt.WIDE_STEP
 
 
 @pytest.mark.parametrize("jax_path", ["xla", "pallas"])
@@ -247,17 +262,19 @@ def test_tiny_depth2_forward_matches_jax(jax_path, monkeypatch):
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["image256", "head_dim96"])
+@pytest.mark.parametrize("case", ["image256", "head_dim96", "head_dim192"])
 def test_depth2_vit_past_224_keys_and_at_head_dim_96_matches_jax(case):
     """A depth-2 ViT with a non-trivial LoRA overlay where the card's
-    attention runs past the bf16 tensor-core route's 224 keys (tiny at 256
-    px: N = 257) or at a head dim that is padded to 128 (tiny with 2 heads
-    of 96): the port on the CPU against the JAX ViT's XLA path."""
-    over = dict(depth=2, image=256) if case == "image256" else dict(depth=2, heads=2)
+    attention runs past the main paths' bf16 tensor-core route's 224 keys
+    (tiny at 256 px: N = 257), at a head dim that is padded to 128 (tiny
+    with 2 heads of 96) or at one past 128 (tiny with 1 head of 192, the FMA
+    route's): the port on the CPU against the JAX ViT's XLA path."""
+    over = {"image256": dict(depth=2, image=256), "head_dim96": dict(depth=2, heads=2),
+            "head_dim192": dict(depth=2, heads=1)}[case]
     spec_j = jvit.make_spec("tiny", **over)
     spec_t = tvit.make_spec("tiny", **over)
     assert (spec_t.image // spec_t.patch) ** 2 + 1 == (257 if case == "image256" else 197)
-    assert spec_t.head_dim == (64 if case == "image256" else 96)
+    assert spec_t.head_dim == {"image256": 64, "head_dim96": 96, "head_dim192": 192}[case]
     base = jax.device_get(jvit.init_vit(jax.random.key(2), spec_j))
     lora = jvit.init_lora(jax.random.key(3), spec_j, classifier_from=base)
     rng = np.random.default_rng(1)

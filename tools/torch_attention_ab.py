@@ -3,56 +3,73 @@
 ``shapley_vit_tpu_torch/csrc/attention.cu`` on one NVIDIA GPU.
 
     git show <rev>:shapley_vit_tpu_torch/csrc/attention.cu > exp/other_attention.cu
-    python3 tools/torch_attention_ab.py [--dtype float32] exp/other_attention.cu [more.cu ...]
+    python3 tools/torch_attention_ab.py [--dtype float32 | --long] exp/other_attention.cu [more.cu ...]
 
 Each other source is built and run by ``tools/torch_kernel_ab.py`` with the
-packed layout's strides, as ``fused_attention_packed`` calls it. In bf16
-(the default) through its ``svt_attention_bhnd_bf16`` entry (the C
-signature is the same in all). In float32 through
-``svt_attention_bhnd_tf32x3`` where the source has it, else through the FMA
-kernel's ``svt_attention_bhnd_f32`` (in sources without the tensor-core
-route that entry takes no head dim). Inputs: the inputs of
-``chip_smoke.py``'s ``kernels`` phase in the dtype
-(``chip_smoke.kernel_inputs``: ``smoke_packed`` [896, 197, 768] and
-``smoke_bhnd``, the [64, 12, 197, 64] split-head views), and in bf16 those
-of ``tests/test_torch_kernels.py::test_attention_bf16_error_at_the_round_shape``
-(``round_shape_inputs``; ``test_packed``). For each kernel and input, one
-JSON line (``torch_kernel_ab.measure``: error and share differing from the
-plain version's output, ms per call, ms among 20 back to back, host µs) and
-the same two errors against the float64 result (``exact_*``: the exact
-value rounded to the dtype), and whether its output is bit-identical to
-this tree's kernel's. ``F.scaled_dot_product_attention`` on the same
-inputs runs first and last (float32 products in full float32).
+packed layout's strides, as ``fused_attention_packed`` calls it.
+
+* bf16 (the default): each source through its ``svt_attention_bhnd_bf16``
+  entry, the main paths' kernel (the C signature is the same in all), and
+  this tree's key-loop kernel (``svt_attention_bhnd_bf16_kl``) beside them
+  as ``this_kl``. Inputs: those of ``chip_smoke.py``'s ``kernels`` phase
+  (``chip_smoke.kernel_inputs``: ``smoke_packed`` [896, 197, 768] and
+  ``smoke_bhnd``, the [64, 12, 197, 64] training batch, packed), those of
+  ``tests/test_torch_kernels.py::test_attention_bf16_error_at_the_round_shape``
+  (``round_shape_inputs``; ``test_packed``) and ``n216`` [64, 216, 768]
+  (14 key chunks, the main paths' kernel's longest instance), 12 heads.
+* ``--long``: bf16 at ``chip_smoke.LONG_ATTENTION``'s shapes up to head
+  dim 128 (64 images: N = 257 and 577 with 12 heads of 64, 6 heads of 128
+  at N = 197), each source through its ``svt_attention_bhnd_bf16_kl`` entry,
+  or through its FMA entry ``svt_attention_bhnd_fma_bf16`` where it has
+  none.
+* ``--dtype float32``: through ``svt_attention_bhnd_tf32x3`` where the
+  source has it, else through the FMA kernel's ``svt_attention_bhnd_f32``
+  (in sources without the tensor-core route that entry takes no head dim),
+  on chip_smoke's inputs.
+
+For each kernel and input, one JSON line (``torch_kernel_ab.measure``:
+error and share differing from the plain version's output, ms per call, ms
+among 20 back to back, host µs) and the same two errors against the
+float64 result (``exact_*``: the exact value rounded to the dtype), and
+whether its output is bit-identical to this tree's kernel's (``this``: the
+main paths' kernel, or the key-loop one under ``--long``).
+``F.scaled_dot_product_attention`` on the same inputs runs first and last
+(float32 products in full float32).
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import sys
 
 import torch_kernel_ab as ab
 
-
 YARDSTICK = "sdpa"
 
 
-def inputs(dtype):
-    """(name, q, k, v) packed [B, N, 768] in ``dtype``: chip_smoke.py's, and
-    in bf16 the card test's."""
+def inputs(dtype, long: bool):
+    """(name, q, k, v, heads), packed [B, N, heads·d] in ``dtype``."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if long:
+        return [(tag, *(torch.randn((ab.chip_smoke.TB, n, h * d), generator=gen, device="cuda")
+                        .to(dtype) for _ in range(3)), h)
+                for tag, (n, h, d) in ab.chip_smoke.LONG_ATTENTION.items() if d <= 128]
     path = os.path.join(ab.ROOT, "tests", "test_torch_kernels.py")
     spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
     tests = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tests)
-    t = ab.chip_smoke.kernel_inputs(torch.Generator(device="cuda").manual_seed(0), dtype)
-    smoke = [("smoke_packed", t["q"], t["k"], t["v"]), ("smoke_bhnd", t["tq"], t["tk"], t["tv"])]
+    t = ab.chip_smoke.kernel_inputs(gen, dtype)
+    smoke = [("smoke_packed", t["q"], t["k"], t["v"], 12), ("smoke_bhnd", t["tq"], t["tk"], t["tv"], 12)]
     del t
     if dtype != torch.bfloat16:
         return smoke
-    return smoke + [("test_packed", *tests.round_shape_inputs())]
+    n216 = [torch.randn((64, 216, 768), generator=gen, device="cuda").to(dtype) for _ in range(3)]
+    return smoke + [("test_packed", *tests.round_shape_inputs(), 12), ("n216", *n216, 12)]
 
 
 def main() -> int:
@@ -62,9 +79,11 @@ def main() -> int:
     from shapley_vit_tpu_torch.ops import attention as att
 
     argv = sys.argv[1:]
-    dname = "bfloat16"
+    dname, long = "bfloat16", False
     if argv[:1] == ["--dtype"]:
         dname, argv = argv[1], argv[2:]
+    elif argv[:1] == ["--long"]:
+        long, argv = True, argv[1:]
     if not argv or dname not in ("bfloat16", "float32") or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -72,25 +91,33 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32  # the yardstick in full float32
     ab.print_card()
     libs = ab.libraries("attention", att._FNS, argv)
-    H, N, d = 12, 197, 64
     stream = torch.cuda.current_stream().cuda_stream
+    with_d = att._FNS["svt_attention_bhnd_tf32x3"]
 
     def entry(lib):
         """(C entry, whether it takes the head dim)"""
+        if long:
+            name = "svt_attention_bhnd_bf16_kl" if hasattr(lib, "svt_attention_bhnd_bf16_kl") \
+                else "svt_attention_bhnd_fma_bf16"
+            return ab.entry(lib, name, with_d), True
         if dtype == torch.bfloat16:
             return ab.entry(lib, "svt_attention_bhnd_bf16", att._FNS["svt_attention_bhnd_bf16"]), False
         if hasattr(lib, "svt_attention_bhnd_tf32x3"):
-            return ab.entry(lib, "svt_attention_bhnd_tf32x3", att._FNS["svt_attention_bhnd_tf32x3"]), True
+            return ab.entry(lib, "svt_attention_bhnd_tf32x3", with_d), True
         return ab.entry(lib, "svt_attention_bhnd_f32", att._FNS["svt_attention_bhnd_bf16"]), False
 
     fns = {name: entry(lib) for name, lib in libs.items()}
+    if dtype == torch.bfloat16 and not long:
+        fns["this_kl"] = ab.entry(libs["this"], "svt_attention_bhnd_bf16_kl", with_d), True
 
-    for name, q, k, v in inputs(dtype):
-        B = q.shape[0]
+    for name, q, k, v, H in inputs(dtype, long):
+        B, N, HD = q.shape
+        d = HD // H
+        scale = 1.0 / math.sqrt(d)
         views = [t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v)]
         want = att.fused_attention_packed_plain(q, k, v, heads=H)
         qd, kd, vd = (t.double() for t in views)
-        exact = (torch.softmax(qd @ kd.transpose(-1, -2) * 0.125, -1) @ vd)
+        exact = (torch.softmax(qd @ kd.transpose(-1, -2) * scale, -1) @ vd)
         exact = exact.transpose(1, 2).reshape(B, N, H * d)
         del qd, kd, vd
         exact_rounded = exact.to(dtype)
@@ -102,7 +129,7 @@ def main() -> int:
             def run():
                 out = torch.empty_like(q)
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
-                         N * H * d, d, H * d, 0.125, stream)
+                         N * H * d, d, H * d, scale, stream)
                 if err:
                     raise RuntimeError(f"{which} kernel: cudaError {err}")
                 return out
@@ -125,7 +152,8 @@ def main() -> int:
                          "bit_identical_to_this": bool(torch.equal(got, first))}
             del got
             print(json.dumps({"inputs": name, "kernel": which, "dtype": dname, "shape": list(q.shape),
-                              **ab.measure(runs[which], want, 20, 10, layout), **exact_row}),
+                              "heads": H, **ab.measure(runs[which], want, 20, 10, layout),
+                              **exact_row}),
                   flush=True)
         del exact, exact_rounded, want, runs, first
         torch.cuda.empty_cache()
