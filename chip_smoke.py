@@ -31,10 +31,19 @@ Phases, each printing one JSON line:
    moves most outputs off their bf16 value); ``route``
    is the kernel that ran, as the wrapper recorded it at the launch (its
    ``route`` attribute), and must be the one ``expected_route`` names:
-   ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 fused
-   MLP and attention on the tensor cores) or ``fma`` (the FMA units). The
-   float32 fused MLP is also held on its ``fma`` route, with its weights
-   one element past an aligned allocation. Both attention entries are also
+   ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 patch
+   embedding, fused MLP and attention on the tensor cores) or ``fma`` (the
+   FMA units). The float32 patch row has a second yardstick beside
+   ``F.conv2d``, its plain version's own products (the ``patchify`` copy
+   and one ``torch.addmm`` with TF32 off: ``library2_ms``). Each row also has the
+   device time of its kernel and of its library call alone, from
+   ``torch.profiler`` over calls launched back to back (``device_ms``,
+   ``library_device_ms``; ``device_kernels``: the device time of each
+   kernel or copy a call ran). The fused MLP is also held with its
+   weights one element past an aligned allocation (``*_unaligned``: copied
+   by the wrapper, then on the dtype's tensor-core route) and at a hidden
+   width of 3,070, which only the ``fma`` kernel takes (``*_fma``). Both
+   attention entries are also
    held past the main paths' shapes, at the training batch: N = 257 (256
    px) and 577 (384 px), and head dim 128 (6 heads of 128), bf16 on
    ``wgmma_kl`` (the key-loop tensor-core kernel) and float32 on
@@ -49,27 +58,30 @@ Phases, each printing one JSON line:
    wrapper's ``launches_by``: route, dtype and, for attention, the padded
    head dim and N).
 3. ``model``   — ViT-B/16 float32 logits of 8 images (LoRA overlay and two
-   merged coalitions) on the card through the kernels (the MLP and
-   attention on ``tf32x3``), against the port on the CPU through the plain versions,
-   from the same weights (atol 1e-3).
+   merged coalitions) on the card through the kernels (the patch
+   embedding, the MLP and attention on ``tf32x3``), against the port on
+   the CPU through the plain versions, from the same weights (atol 1e-3).
 4. ``round``   — one Shapley round through ``driver.start.start`` with the
    default ``Config`` (ViT-B/16, bf16, merged LoRA, comp-contrib m = 50·n) on
    the synthetic OCT validation set and three client drops written by
    ``save_lora_checkpoint``; the launch counters are zeroed just before and
    read just after, and every kernel of the round must have run, every
-   launch of the MLP and of the packed attention on ``wgmma`` (the counts
-   by kernel). ``shapley_exact`` over the round's persisted utility table
-   checks the efficiency axiom. Then the same round at
+   launch of the patch embedding, the MLP and the packed attention on
+   ``wgmma`` (the counts by kernel). ``shapley_exact`` over the round's
+   persisted utility table checks the efficiency axiom. Then the same round at
    ``compute_dtype="float32"`` (the reference's numerics; its own drops
-   and outputs), every launch of the MLP and of the packed attention on
-   ``tf32x3`` (the counts by kernel), reported as ``round_s_float32``.
+   and outputs), every launch of the patch embedding, the MLP and the
+   packed attention on ``tf32x3`` (the counts by kernel), reported as
+   ``round_s_float32``.
 5. ``profile`` — device time by kernel, and the device's idle share, over
    one more coalition pass of each round (7 coalitions, 400 images; bf16,
    then float32) under ``torch.profiler``, after the round so it touches
    neither its counts nor its time; by group: each of the port's kernels,
    the matrix products outside them (cuBLAS) and everything else. Every
-   kernel of the attention group must be the dtype's route's
-   (``attention_hopper_kernel``, ``attention_tf32x3_kernel``).
+   kernel of the attention group and of the patch group must be the
+   dtype's route's (``attention_hopper_kernel``, ``attention_tf32x3_kernel``;
+   ``patch_embed_hopper_kernel``, ``patch_embed_tf32x3_kernel`` and its
+   weight split).
 6. ``train``   — LoRA client training, in three parts:
    ``run_client`` with the default ``Config`` (ViT-B/16, bf16, synthetic OCT
    at scale 1.0, batch 64, Adam) for 4 steps on the card, counters zeroed
@@ -92,8 +104,7 @@ Phases, each printing one JSON line:
    advancing (zeroed just before); each of the four kernels at the
    variant's widths (4 images: patch P 16 or 4, attention heads of 64 or
    16, MLP D 192 / 768 or 32 / 64) against its plain version on the same
-   seeded inputs, bf16 on ``wgmma`` and float32 on ``tf32x3`` (the patch on
-   ``fma``), with the
+   seeded inputs, bf16 on ``wgmma`` and float32 on ``tf32x3``, with the
    ``kernels`` phase's tolerances; then ``run_demo()`` at its defaults
    (micro, 16 px) and at tiny / 224 px, each through ``start()``, with the
    efficiency axiom checked as in ``train``.
@@ -183,10 +194,12 @@ Phases, each printing one JSON line:
    prints seconds, metrics and peak memory of each run.
 
 Then, for the rows of the ``kernels`` phase whose kernel (route, dtype,
-head dim and N) no main path launched, a ``kernels_off_path`` line (each
-with ``main_path_launches``, 0, from the counts by kernel); the card's name
-and power limit; the kernels summary line, a row for each row of the
-``kernels`` phase whose kernel a main path launched, ``case`` naming it,
+head dim and N) no main path launched, and for the cases a main path does
+not make (unaligned weights, other widths, longer sequences: a case that
+is not its wrapper's name), a ``kernels_off_path`` line (each with
+``main_path_launches``, 0); the card's name and power limit; the kernels
+summary line, a row for each other row of the ``kernels`` phase, ``case``
+naming it,
 with ``launches`` that kernel's count by kernel over the bf16 and float32
 rounds (the patch embedding, packed attention and fused MLP) or over the
 train phase's ``run_client`` (``fused_attention``), the counters zeroed
@@ -219,14 +232,11 @@ _PEAKS = {
 }
 
 
-def expected_route(name: str, dtype: str) -> str:
+def expected_route(dtype: str) -> str:
     """The kernel each wrapper launches for a dtype on the paths chip_smoke
-    drives (ViT widths, aligned weights, N <= 224): the bf16 tensor-core
-    kernels; float32 on the tensor cores in 3xTF32, except the patch
-    embedding on the FMA units."""
-    if dtype == "bfloat16":
-        return "wgmma"
-    return "fma" if name == "patch_embed" else "tf32x3"
+    drives (ViT widths, N <= 224): the bf16 tensor-core kernels; float32 on
+    the tensor cores in 3xTF32."""
+    return "wgmma" if dtype == "bfloat16" else "tf32x3"
 
 
 def share_bound(n: int) -> float:
@@ -323,6 +333,26 @@ def back_to_back(fn, calls: int, runs: int = 3) -> tuple:
     return statistics.median(dev), statistics.median(host)
 
 
+def device_ms(fn, calls: int) -> tuple:
+    """Device time of one ``fn()`` among ``calls`` calls launched back to
+    back, from ``torch.profiler`` after a warm-up call: the sum of every
+    kernel's and copy's device time over ``calls``, without the gaps
+    between them that ``back_to_back`` counts; and that time by kernel
+    (ms a call, name cut to 80 characters), largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return (sum(ms for _, ms, _ in rows) / calls,
+            {key[:80]: ms / calls for key, ms, _ in rows[:4]})
+
+
 # The kernels phase's shapes: the round's (128 images of 224 px, 16 px
 # patches, ViT-B widths, 7 coalitions of 128 images a batch) and the
 # client's training batch.
@@ -374,8 +404,8 @@ def phase_kernels(card: str) -> dict:
     grads = []
     # the float32 yardsticks run in float32: cuDNN takes F.conv2d to TF32 by
     # default, and the port's float32 kernels keep float32
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).replace("torch.", "")
         isz = torch.finfo(dtype).bits // 8
@@ -394,6 +424,12 @@ def phase_kernels(card: str) -> dict:
             bytes=(img.numel() + pw.numel() + pb.numel() + B * NP * D) * isz,
             reps=20,
         )
+        if dtype == torch.float32:
+            # the plain version's own products: one cuBLAS SGEMM (with the
+            # bias) after the patchify copy
+            cases["patch_embed"].update(
+                library2=lambda: torch.addmm(pb, pe.patchify(img, P).reshape(-1, P * P * CH), pw),
+                library2_name="patchify + torch.addmm (cuBLAS, TF32 off)")
 
         q, k, v = inp["q"], inp["k"], inp["v"]
         qh, kh, vh = (t.view(CB, N, H, 64).transpose(1, 2) for t in (q, k, v))
@@ -422,14 +458,27 @@ def phase_kernels(card: str) -> dict:
         )
         cases["fused_mlp_block"] = dict(
             mlp_case, kernel=lambda: mlp.fused_mlp_block(*mlp_args, eps=1e-12))
-        if dtype == torch.float32:
-            # the FMA route, which float32 weights that TMA cannot read take:
-            # the same weights one element past an aligned allocation
-            inp["w1_fma"], inp["w2_fma"] = unaligned(inp["w1"]), unaligned(inp["w2"])
-            cases["fused_mlp_block_fma"] = dict(
-                mlp_case, wrapper="fused_mlp_block", route="fma", reps=1,
-                kernel=lambda: mlp.fused_mlp_block(*mlp_args[:3], inp["w1_fma"], mlp_args[4],
-                                                   inp["w2_fma"], mlp_args[6], eps=1e-12))
+        # the same weights one element past an aligned allocation, which the
+        # TMA cannot read: the wrapper copies them, and the route stays
+        w1u, w2u = unaligned(inp["w1"]), unaligned(inp["w2"])
+        cases["fused_mlp_block_unaligned"] = dict(
+            mlp_case, wrapper="fused_mlp_block",
+            kernel=lambda: mlp.fused_mlp_block(*mlp_args[:3], w1u, mlp_args[4], w2u, mlp_args[6],
+                                               eps=1e-12))
+        # the FMA kernel, which takes the hidden widths that are not a
+        # multiple of 8 (bf16) or 4 (float32): 3,070
+        hf = HID - 2
+        fma_args = (*mlp_args[:3], inp["w1"][:, :hf].contiguous(), inp["b1"][:hf], inp["w2"][:hf],
+                    mlp_args[6])
+        fma_blk = {"ln2": mlp_blk["ln2"],
+                   "mlp": {"fc1": {"kernel": fma_args[3], "bias": fma_args[4]},
+                           "fc2": {"kernel": fma_args[5], "bias": fma_args[6]}}}
+        cases["fused_mlp_block_fma"] = dict(
+            mlp_case, wrapper="fused_mlp_block", route="fma", reps=1, shape=[M, D, hf],
+            kernel=lambda: mlp.fused_mlp_block(*fma_args, eps=1e-12),
+            plain=lambda: mlp.fused_mlp_block_plain(*fma_args, eps=1e-12),
+            library=lambda: tvit.mlp_half_xla(inp["x"], fma_blk, mlp_spec),
+            flops=4.0 * M * D * hf, bytes=(2 * M * D + 2 * D * hf + hf + 3 * D) * isz)
 
         # the training path's [B, H, N, d] views of packed projections
         tq, tk, tv = inp["tq"], inp["tk"], inp["tv"]
@@ -461,7 +510,7 @@ def phase_kernels(card: str) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             differing = (got != want).float().mean().item()
             ok = (torch.allclose(got.float(), want.float(), **tol) and one_launch
-                  and route == c.get("route", expected_route(name, dname))
+                  and route == c.get("route", expected_route(dname))
                   and (dtype != torch.bfloat16 or "attention" not in name
                        or differing <= share_bound(got.numel())))
             del got, want
@@ -473,6 +522,13 @@ def phase_kernels(card: str) -> dict:
             if c["library"]:
                 library_ms = cuda_ms(c["library"], c["reps"])
                 library_b2b, library_host_us = back_to_back(c["library"], 5 * c["reps"])
+            dev_ms, dev_kernels = device_ms(c["kernel"], 2 * c["reps"])
+            library2 = {}
+            if "library2" in c:
+                library2 = {"library2": c["library2_name"],
+                            "library2_ms": cuda_ms(c["library2"], c["reps"]),
+                            "library2_ms_back_to_back": back_to_back(c["library2"], 5 * c["reps"])[0],
+                            "library2_device_ms": device_ms(c["library2"], 2 * c["reps"])[0]}
             bound_ms = 1e3 * max(t_ops, t_bytes)
             row = {
                 "name": name, "case": key, "dtype": dname, "route": route,
@@ -486,16 +542,20 @@ def phase_kernels(card: str) -> dict:
                 "ms_back_to_back": ms_b2b, "library_ms_back_to_back": library_b2b,
                 "vs_library_back_to_back": ms_b2b / library_b2b if library_b2b else None,
                 "host_us": host_us, "library_host_us": library_host_us,
+                "device_ms": dev_ms, "device_kernels": dev_kernels,
+                "library_device_ms": device_ms(c["library"], 2 * c["reps"])[0] if c["library"] else None,
+                **library2,
                 "launches": wrappers[name].launches - launched,  # this phase's, not the round's
             }
             results.append(row)
             summary[key, dname] = row
             torch.cuda.empty_cache()
-        del cases, mlp_case, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh, tkh, tvh
+        del (cases, mlp_case, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh,
+             tkh, tvh, w1u, w2u, fma_args, fma_blk)
         torch.cuda.empty_cache()
-    torch.backends.cudnn.allow_tf32 = tf32
-    emit({"phase": "kernels", "card": card, "cudnn_allow_tf32": False, "results": results,
-          "gradients": grads})
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit({"phase": "kernels", "card": card, "cudnn_allow_tf32": False, "cuda_matmul_allow_tf32": False,
+          "results": results, "gradients": grads})
     bad = [r for r in results + grads if not r["ok"]]
     if bad:
         raise SystemExit(f"kernel disagrees with its plain version: {bad}")
@@ -591,7 +651,7 @@ def grad_check(wrapper, kernel, plain, library, args, dtype, tol, seed: int) -> 
     ok = (all(torch.allclose(a.float(), b.float(), **tol) for a, b in zip(got, want))
           and all(g.dtype == t.dtype for g, t in zip(got, args))
           and wrapper.launches == launched + 1
-          and route == expected_route(wrapper.__name__, str(dtype).replace("torch.", "")))
+          and route == expected_route(str(dtype).replace("torch.", "")))
     del out, leaves, got, want
     return {"name": f"{wrapper.__name__}.backward", "dtype": str(dtype).replace("torch.", ""),
             "shape": list(args[0].shape), "route": route, "max_abs_err": errs,
@@ -645,6 +705,7 @@ def phase_model() -> None:
     from shapley_vit_tpu_torch.ops import tree_math as tm
     from shapley_vit_tpu_torch.ops.attention import fused_attention_packed
     from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
+    from shapley_vit_tpu_torch.ops.patch_embed import patch_embed
 
     spec = tvit.make_spec("base", dtype="float32")
     gen = torch.Generator().manual_seed(1)
@@ -669,14 +730,13 @@ def phase_model() -> None:
     cpu = logits("cpu")
     gpu = logits("cuda")
     err = (gpu - cpu).abs().max().item()
-    route = fused_mlp_block.route
-    att_route = fused_attention_packed.route
+    routes = {"patch_route": patch_embed.route, "mlp_route": fused_mlp_block.route,
+              "attention_route": fused_attention_packed.route}
     ok = (bool(torch.isfinite(gpu).all()) and err <= 1e-3
-          and route == expected_route("fused_mlp_block", "float32")
-          and att_route == expected_route("fused_attention_packed", "float32"))
+          and all(r == expected_route("float32") for r in routes.values()))
     emit({"phase": "model", "variant": "base", "dtype": "float32", "images": 8,
           "logits_shape": list(gpu.shape), "max_abs_err_vs_cpu": err, "atol": 1e-3,
-          "mlp_route": route, "attention_route": att_route, "ok": ok})
+          **routes, "ok": ok})
     if not ok:
         raise SystemExit("ViT-B logits on the card disagree with the CPU")
 
@@ -706,15 +766,14 @@ def exact_efficiency(output_dir: str, n: int, table_name: str = "utility_table.n
     return exact, max(abs(sum(exact[d].values()) - grand[d]) for d in range(2))
 
 
-def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None,
-                attention_route: str | None = None) -> tuple:
+def phase_round(counted, dtype: str = "bfloat16", route: str | None = None) -> tuple:
     """One Shapley round through the port's entry point at ``dtype`` (the
     default ``Config``'s bf16, or float32, the reference's numerics); returns
     each kernel's launches by kernel during the round (``counts_by_kernel``),
-    and the round's seconds. ``mlp_route``, ``attention_route``: the route
-    every launch of the fused MLP and of the packed attention must take
-    (None: any). The float32 round's drops and outputs go to their own
-    directory."""
+    and the round's seconds. ``route``: the route every launch of each
+    wrapper in ``counted`` (the patch embedding, the fused MLP, the packed
+    attention) must take (None: any). The float32 round's drops and outputs
+    go to their own directory."""
     import numpy as np
     import torch
 
@@ -723,8 +782,6 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None,
     from shapley_vit_tpu_torch.fl import ingestion
     from shapley_vit_tpu_torch.models.convert import tree_to_numpy
     from shapley_vit_tpu_torch.ops import tree_math as tm
-    from shapley_vit_tpu_torch.ops.attention import fused_attention_packed
-    from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 
     cfg = Config()  # ViT-B/16, bf16, exact_f32 GELU, merged, comp-contrib
     cfg.model.compute_dtype = dtype
@@ -753,9 +810,8 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None,
     launches = {fn.__name__: fn.launches for fn in counted}
     by_kernel = counts_by_kernel(counted)
     # every launch on the route asked for: a key of launches_by starts with its route
-    routes_ok = all(want is None or all(key.split()[0] == want for key in by_kernel[fn.__name__])
-                    for fn, want in ((fused_mlp_block, mlp_route),
-                                     (fused_attention_packed, attention_route)))
+    routes_ok = route is None or all(key.split()[0] == route for fn in counted
+                                     for key in by_kernel[fn.__name__])
 
     metrics = os.path.join(cfg.output_dir, f"party0_{cfg.obs.exp_id}_{cfg.data.mode}_metrics.csv")
     round_s = _metric(metrics, "time/shapley_round")
@@ -774,8 +830,7 @@ def phase_round(counted, dtype: str = "bfloat16", mlp_route: str | None = None,
     )
     emit({
         "phase": "round", "variant": "base", "dtype": cfg.model.compute_dtype,
-        f"round_s_{dtype}": round_s, "mlp_route": mlp_route, "attention_route": attention_route,
-        "routes_ok": routes_ok,
+        f"round_s_{dtype}": round_s, "route": route, "routes_ok": routes_ok,
         "eval_mode": cfg.model.eval_mode, "clients": 3, "validation_images": valid_n,
         "batches": math.ceil(valid_n / cfg.data.eval_batch_size),
         "shapley_value": {"accuracy": sv[0], "loss": sv[1]},
@@ -963,7 +1018,8 @@ def profile_train_step(cfg, batch: int) -> dict:
     busy = sum(ms for _, ms, _ in rows)
     families = (("fused_attention kernel", ("attention_hopper_kernel", "attention_tf32x3_kernel",
                                             "attention_kernel")),
-                ("patch_embed kernel", ("patch_embed_kernel", "patch_embed_hopper_kernel")),
+                ("patch_embed kernel", ("patch_embed_hopper_kernel", "patch_embed_tf32x3_kernel",
+                                        "patch_embed_split_kernel")),
                 ("matrix products", PRODUCT_KERNELS),
                 ("softmax", ("softmax",)),
                 ("reductions", ("reduce_kernel",)))
@@ -998,7 +1054,7 @@ PRODUCT_KERNELS = ("gemm", "nvjet", "cutlass", "sm90", "xmma")
 
 def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
                   mlp_kernel: str | None = "mlp_block_gemm_kernel",
-                  attention_kernel: str | None = None) -> None:
+                  attention_kernel: str | None = None, patch_kernels: tuple = ()) -> None:
     """Device time by kernel over one coalition pass of the round (all 7
     coalitions x the 400 validation images, at ``dtype``), from
     ``torch.profiler``; the device's idle share is taken against the
@@ -1008,7 +1064,9 @@ def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
     instead. ``mlp_kernel``: the fused MLP's GEMM kernel that must run in
     the pass (never under ``int8``, which bypasses it; None: no check);
     ``attention_kernel``: the attention kernel that must run in it, and be
-    the only one of the attention group (None: no check). Groups: the port's kernels by family, the matrix products
+    the only one of the attention group (None: no check); ``patch_kernels``:
+    the kernels the patch group must hold, the first of them the one that
+    must run (empty: no check). Groups: the port's kernels by family, the matrix products
     outside them (``PRODUCT_KERNELS``: q/k/v/out, the classifier, int8's
     ``_int_mm``) and everything else (elementwise, copies, reductions)."""
     import torch
@@ -1075,6 +1133,9 @@ def phase_profile(work: str, int8: bool = False, dtype: str = "bfloat16",
     if attention_kernel and not (members["attention"] and all(
             attention_kernel in k["name"] for k in members["attention"])):
         raise SystemExit(f"the profiled pass's attention did not run on {attention_kernel} alone")
+    if patch_kernels and not (any(patch_kernels[0] in k["name"] for k in members["patch_embed"]) and all(
+            any(p in k["name"] for p in patch_kernels) for k in members["patch_embed"])):
+        raise SystemExit(f"the profiled pass's patch embedding ran other kernels than {patch_kernels}")
 
 
 INT8_SHAPES = {  # the round's int8 products: (rows, K, N, kernel dtype)
@@ -1988,7 +2049,7 @@ def phase_variants(counted) -> None:
         bf_launches = {fn.__name__: fn.launches for fn in counted}
         want = dict(zip(names, (1, spec.depth, spec.depth, 0)))  # patch, packed attention, MLP
         kernel_rows = variant_kernel_rows(spec, images.shape[0])
-        routes_ok = all(r["route"] == expected_route(r["name"], r["dtype"]) for r in kernel_rows)
+        routes_ok = all(r["route"] == expected_route(r["dtype"]) for r in kernel_rows)
         v_ok = (bool(torch.isfinite(gpu).all()) and err <= 1e-3 and f32_launches == want
                 and bool(torch.isfinite(bf).all()) and bf_launches == want
                 and all(r["ok"] for r in kernel_rows) and routes_ok)
@@ -2053,14 +2114,15 @@ def main() -> int:
     summary = phase_kernels(card)
     phase_model()
     round_kernels = (patch_embed, fused_attention_packed, fused_mlp_block)
-    bf16_by, bf16_round_s = phase_round(round_kernels, mlp_route="wgmma", attention_route="wgmma")
-    phase_profile(round_dir("bfloat16"), attention_kernel="attention_hopper_kernel")
-    # the float32 round, the reference's numerics: the same kernels, the
-    # patch embedding on the FMA units, attention and the fused MLP on 3xTF32
-    f32_by, _ = phase_round(round_kernels, dtype="float32", mlp_route="tf32x3",
-                            attention_route="tf32x3")
+    bf16_by, bf16_round_s = phase_round(round_kernels, route="wgmma")
+    phase_profile(round_dir("bfloat16"), attention_kernel="attention_hopper_kernel",
+                  patch_kernels=("patch_embed_hopper_kernel",))
+    # the float32 round, the reference's numerics: the same kernels, all
+    # three on the tensor cores in 3xTF32
+    f32_by, _ = phase_round(round_kernels, dtype="float32", route="tf32x3")
     phase_profile(round_dir("float32"), dtype="float32", mlp_kernel="mlp_block_tf32x3_kernel",
-                  attention_kernel="attention_tf32x3_kernel")
+                  attention_kernel="attention_tf32x3_kernel",
+                  patch_kernels=("patch_embed_tf32x3_kernel", "patch_embed_split_kernel"))
     counted = (patch_embed, fused_attention_packed, fused_mlp_block, fused_attention)
     train_by = phase_train(counted)
     phase_variants(counted)
@@ -2091,9 +2153,14 @@ def main() -> int:
             "bound_share": s["bound_share"], "vs_library": s["vs_library"],
             **{key: s[key] for key in ("shape", "ms_back_to_back", "library_ms_back_to_back",
                                        "vs_library_back_to_back", "host_us", "library_host_us",
+                                       "device_ms", "library_device_ms", "library2", "library2_ms",
+                                       "library2_ms_back_to_back", "library2_device_ms",
                                        "backward_ms") if key in s},
         }
-        n = on_path[name][s["kernel"]]
+        # a main path's row is its wrapper's own case; the other cases
+        # (unaligned weights, other widths, longer sequences) are off path
+        # even where their kernel is one a main path launched
+        n = on_path[name][s["kernel"]] if case == name else 0
         if n:
             rows.append({**row, "launches": n})
         else:

@@ -65,9 +65,10 @@
 //    their own that is added to a float32 sum in registers.
 //    h is stored in float32, unrounded, as the Pallas kernel's
 //    h.astype(float32) leaves it.
-// The FMA units take float32 weights that are not 16-byte aligned, and the
-// bf16 shapes the TMA route does not take: one kernel that keeps the hidden
-// on chip. A block of 256 threads takes 32 tokens, applies LN once into
+// The FMA units take the hidden widths the TMA routes do not take (not a
+// multiple of 8 in bf16 or 4 in float32; weights that are not 16-byte
+// aligned are copied by the caller and stay on the TMA routes): one kernel
+// that keeps the hidden on chip. A block of 256 threads takes 32 tokens, applies LN once into
 // shared memory, and for each chunk of 64 hidden units computes
 // gelu(y W1[:, c] + b1[c]) (rounded through the storage type) and
 // accumulates it times W2[c, :] into a float32 [32, D] accumulator in
@@ -115,8 +116,7 @@ __device__ __forceinline__ void layer_norm_row(const T* __restrict__ xrow, const
 }
 
 // ---------------------------------------------------------------------------
-// FMA units: unaligned float32 weights, and bf16 shapes the TMA route does
-// not take
+// FMA units: the hidden widths the TMA routes do not take
 // ---------------------------------------------------------------------------
 
 constexpr int TT = 32;        // tokens per block

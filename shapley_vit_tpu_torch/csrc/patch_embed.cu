@@ -10,28 +10,34 @@
 // the fusion the Pallas kernel was after.
 //
 // Bound on an H100 SXM at the main-path shape (B = 128, 224 px, P = 16,
-// D = 768, bf16): a [25,088 x 768] x [768 x 768] product, 2*B*196*768*768 =
-// 29.6 GFLOP over 989 TFLOP/s = 0.030 ms, against ~77 MB of images, weights
-// and tokens read or written once over 3.35 TB/s = 0.023 ms: bound by
-// operations, so the product belongs on the tensor cores.
+// D = 768): a [25,088 x 768] x [768 x 768] product, 2*B*196*768*768 =
+// 29.6 GFLOP. In bf16, over 989 TFLOP/s = 0.030 ms, against ~77 MB of
+// images, weights and tokens read or written once over 3.35 TB/s =
+// 0.023 ms. In float32 as 3xTF32 (below), three TF32 products over
+// 495 TFLOP/s = 0.179 ms, against ~156 MB over 3.35 TB/s = 0.046 ms. Bound
+// by operations in both, so the product belongs on the tensor cores.
 //
-// bf16 design: one GEMM over M = B*N rows (row r is patch r % N of image
-// r / N, so the output is one contiguous [M, D] matrix; every tile but the
-// last is full, and a tile may span two images), in block tiles of 128 rows
-// x 128 columns, 1,176 of them at the main shape, two blocks on each SM.
-//  * Products: two warpgroups, 64 rows each, wgmma m64n128k16 with float32
-//    accumulators in registers, 4 steps per stage of 64 k.
+// Both dtypes run one GEMM over M = B*N rows (row r is patch r % N of
+// image r / N, so the output is one contiguous [M, D] matrix; every tile
+// but the last is full, and a tile may span two images), in block tiles of
+// 128 rows x 128 columns, 1,176 of them at the main shape, with two
+// warpgroups of 64 rows each. A (the patches) is gathered with cp.async:
+// each copy is V consecutive k of one image-row segment (16 bytes where
+// P*C and W*C allow it, as at 224 px with 3 channels; narrower shapes take
+// 8-, 4- or, in bf16, 2-byte copies, V a template parameter), at image
+// offsets computed once per row and tile; rows past M and k past K are
+// zero-filled (src-size 0). TMA cannot take A: its im2col mode needs
+// 16-byte pixels (3 channels are 6 or 12 bytes), and a tiled map over
+// [B, gh, P, gw, P*C] gives boxes of one grid row of 14 patches, which do
+// not fill 64-row wgmma tiles. Rows past M and columns past D are not
+// stored.
+//
+// bf16 (the main path), two blocks on each SM:
+//  * Products: wgmma m64n128k16 with float32 accumulators in registers,
+//    4 steps per stage of 64 k.
 //  * Loads: a 3-stage ring of (A 128 x 64, W 64 x 128) tiles in shared
 //    memory, both 128-byte swizzled, two stages in flight while the tensor
-//    cores work on the third. A (the patches) is gathered with cp.async:
-//    each copy is V consecutive k of one image-row segment (V = 8, 16 bytes,
-//    when P*C and W*C are multiples of 8, as at 224 px with 3 channels;
-//    narrower shapes take 8-, 4- or 2-byte copies, V a template parameter),
-//    at image offsets computed once per row and tile; rows past M and k
-//    past K are zero-filled (src-size 0). TMA cannot take A: its im2col mode
-//    needs 16-byte pixels (3 channels are 6 bytes), and a tiled map over
-//    [B, gh, P, gw, P*C] gives boxes of one grid row of 14 patches, which do
-//    not fill 64-row wgmma tiles. W is [K, D] row-major, an MN-major
+//    cores work on the third. W is [K, D] row-major, an MN-major
 //    ("trans-b") operand stored as two 64-column atoms per stage: TMA loads
 //    them (a 2-D map, 128-byte swizzle, k past K zero-filled) where D is a
 //    multiple of 8 and W 16-byte aligned, otherwise cp.async does, in the
@@ -41,10 +47,31 @@
 //    the next wgmma chain (and every warpgroup's last chain before the
 //    stage is loaded again).
 //  * Epilogue: accumulator + float(bias), rounded to bf16 (round to nearest
-//    even) and stored from registers as bf16 pairs; rows past M and columns
-//    past D are not stored.
-// float32 (the parity path): the FMA kernel below, unchanged since the first
-// port; TF32 would not hold the float32 1e-4 parity bar.
+//    even) and stored from registers as bf16 pairs.
+//
+// float32 (the reference's numerics: the float32 round, the parity
+// checks), on the tensor cores in 3xTF32, one block on each SM. TF32 keeps
+// 10 mantissa bits, so each operand a is split into hi = tf32(a) and
+// lo = tf32(a - hi), and each product is A_lo B_hi + A_hi B_lo + A_hi B_hi:
+// only lo lo (about 2^-22 relative) is dropped, which keeps float32's
+// accuracy where one TF32 product (2^-11) would not (the MLP's and
+// attention's float32 routes do the same).
+//  * patch_embed_split_kernel: W [K, D] into its transposed TF32 pair
+//    hi, lo [D, Kpad] (K-major, since TF32 wgmma has no transpose bit; K
+//    zero-padded to Kpad, a multiple of 4, so that a row is a multiple of
+//    16 bytes for TMA), into a caller-provided workspace: 2.4 MB read and
+//    4.7 MB written at the main shape, on every call.
+//  * patch_embed_tf32x3_kernel: a 4-stage ring of (A 128 x 32, W_hi
+//    128 x 32, W_lo 128 x 32) float32 tiles, 128-byte swizzled (48 KB a
+//    stage); A gathered by cp.async as above (V = 4, 2 or 1 floats), the
+//    pair by TMA on one mbarrier per stage. Each thread loads its wgmma
+//    fragments of A from the stage (conflict-free under the swizzle) and
+//    splits them in registers; each k-step of 8 issues wgmma m64n128k8
+//    three times, A from registers, the pair from shared memory. The
+//    tensor cores add into their accumulator with truncation, so each
+//    stage's 12 products go to an accumulator of their own that is added
+//    to a float32 sum in registers.
+//  * Epilogue: sum + bias, stored as float32 pairs.
 #include <algorithm>
 #include <cstdint>
 
@@ -54,98 +81,6 @@
 namespace {
 
 using namespace svt;  // the Hopper primitives (hopper.cuh)
-
-// ---------------------------------------------------------------------------
-// float32: FMA units, one block per (image, 32 patches, 64 output columns)
-// ---------------------------------------------------------------------------
-
-constexpr int TM = 32;        // patches per block
-constexpr int TN = 64;        // output columns per block
-constexpr int KS = 32;        // K slice staged per step
-constexpr int THREADS = 256;  // 16 x 16: rows 2*ty, 2*ty+1; columns 4*tx .. 4*tx+3
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-patch_embed_kernel(const T* __restrict__ img, const T* __restrict__ w,
-                   const T* __restrict__ bias, T* __restrict__ out,
-                   int H, int W, int C, int P, int D) {
-  __shared__ float As[KS][TM + 1];  // As[k][patch]
-  __shared__ __align__(16) float Bs[KS][TN];
-
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  const int gw = W / P;
-  const int Np = (H / P) * gw;
-  const int K = P * P * C;
-  const int PC = P * C;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const T* imgb = img + (size_t)b * H * W * C;
-
-  float acc[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += KS) {
-    // gather the A tile: consecutive threads take consecutive k, i.e.
-    // neighbouring (pw, c) values of one image row
-    for (int i = tid; i < TM * KS; i += THREADS) {
-      const int m = i / KS, kk = i % KS;
-      const int p = m0 + m, k = k0 + kk;
-      float v = 0.f;
-      if (p < Np && k < K) {
-        const int gy = p / gw, gx = p % gw;
-        const int ph = k / PC, rem = k % PC;  // rem = pw * C + c
-        v = svt::to_f32(imgb[((size_t)(gy * P + ph) * W + (size_t)gx * P) * C + rem]);
-      }
-      As[kk][m] = v;
-    }
-    for (int i = tid; i < KS * TN; i += THREADS) {
-      const int kk = i / TN, n = i % TN;
-      const int k = k0 + kk, col = n0 + n;
-      Bs[kk][n] = (k < K && col < D) ? svt::to_f32(w[(size_t)k * D + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KS; ++kk) {
-      const float a0 = As[kk][2 * ty];
-      const float a1 = As[kk][2 * ty + 1];
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
-      acc[0][0] = fmaf(a0, bv.x, acc[0][0]);
-      acc[0][1] = fmaf(a0, bv.y, acc[0][1]);
-      acc[0][2] = fmaf(a0, bv.z, acc[0][2]);
-      acc[0][3] = fmaf(a0, bv.w, acc[0][3]);
-      acc[1][0] = fmaf(a1, bv.x, acc[1][0]);
-      acc[1][1] = fmaf(a1, bv.y, acc[1][1]);
-      acc[1][2] = fmaf(a1, bv.z, acc[1][2]);
-      acc[1][3] = fmaf(a1, bv.w, acc[1][3]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int p = m0 + 2 * ty + r;
-    if (p >= Np) continue;
-    T* orow = out + ((size_t)b * Np + p) * D;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + 4 * tx + j;
-      if (col < D) orow[col] = svt::from_f32<T>(acc[r][j] + svt::to_f32(bias[col]));
-    }
-  }
-}
-
-int launch_fma(const float* img, const float* w, const float* bias, float* out, int B, int H,
-               int W, int C, int P, int D, cudaStream_t st) {
-  const int Np = (H / P) * (W / P);
-  dim3 grid((Np + TM - 1) / TM, (D + TN - 1) / TN, B);
-  patch_embed_kernel<float><<<grid, THREADS, 0, st>>>(img, w, bias, out, H, W, C, P, D);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // bf16: cp.async/TMA ring, wgmma
@@ -329,18 +264,20 @@ HopperKernel hopper_kernel(int v, bool tma) {
   }
 }
 
-// the widest copy (8, 4, 2 or 1 values) that every copy of a row can take:
-// `run` values contiguous in global memory, each run starting a multiple of
-// `stride` values after `p`
-int widest(const void* p, int run, int stride) {
+// the widest copy (16 bytes or fewer: 8, 4, 2 or 1 values of `bytes`
+// bytes) that every copy of a row can take: `run` values contiguous in
+// global memory, each run starting a multiple of `stride` values after `p`
+int widest(const void* p, int run, int stride, int bytes = 2) {
   const std::uintptr_t addr = reinterpret_cast<std::uintptr_t>(p);
-  int v = 8;
-  while (v > 1 && (run % v || stride % v || addr % (2 * v))) v /= 2;
+  int v = 16 / bytes;
+  while (v > 1 && (run % v || stride % v || addr % (bytes * v))) v /= 2;
   return v;
 }
 
-// Kernel slots of prepare_launch (hopper.cuh): 4 (TMA route) + log2(v).
-constexpr int SLOTS = 8;
+// Kernel slots of prepare_launch (hopper.cuh): bf16 4 (TMA route) +
+// log2(v), float32 TF_SLOT + log2(v).
+constexpr int TF_SLOT = 8;
+constexpr int SLOTS = TF_SLOT + 3;
 
 int launch_hopper(const bf16* img, const bf16* w, const bf16* bias, bf16* out, int B, int H, int W,
                   int C, int P, int D, cudaStream_t st) {
@@ -376,15 +313,263 @@ int launch_hopper(const bf16* img, const bf16* w, const bf16* bias, bf16* out, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// float32: cp.async ring for the patches, TMA for W's TF32 pair, 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int TF_BK = 32;                          // k per stage: one 128-byte swizzle row of float32
+constexpr int TF_STAGES = 4;
+constexpr int TF_TILE_BYTES = BM * TF_BK * 4;      // [128 rows][32 k]: A, or a half of W's pair
+constexpr int TF_STAGE_BYTES = 3 * TF_TILE_BYTES;  // A, W_hi, W_lo
+// alignment slack, the ring, each row's image offset, one mbarrier per stage
+constexpr size_t TF_SMEM = 1024 + (size_t)TF_STAGES * TF_STAGE_BYTES + BM * 8 + TF_STAGES * 8;
+static_assert(TF_SMEM <= 232448, "the TF32 ring must fit a block's 227 KB of shared memory");
+
+// a float32 as its TF32 pair: hi = tf32(a), lo = tf32(a - hi) (a - hi is
+// exact in float32), as mlp_block.cu splits its operands
+__device__ __forceinline__ float2 split_tf32(float a) {
+  const float hi = to_tf32(a);
+  return make_float2(hi, to_tf32(a - hi));
+}
+
+constexpr int SPLIT_TILE = 32;
+
+// W [K, D] (row-major, any D) into its transposed TF32 pair hi, lo
+// [D, Kpad], zero for k past K: B of the GEMM in the K-major layout TF32
+// wgmma reads. A block moves a 32 x 32 tile through shared memory: loads
+// along W's rows, stores along K.
+__global__ void __launch_bounds__(256)
+patch_embed_split_kernel(const float* __restrict__ w, float* __restrict__ hi, float* __restrict__ lo,
+                         int K, int D, int Kpad) {
+  __shared__ float tile[SPLIT_TILE][SPLIT_TILE + 1];
+  const int k0 = blockIdx.y * SPLIT_TILE, d0 = blockIdx.x * SPLIT_TILE;
+  for (int i = threadIdx.x; i < SPLIT_TILE * SPLIT_TILE; i += 256) {
+    const int kk = i / SPLIT_TILE, dd = i % SPLIT_TILE;
+    tile[kk][dd] = k0 + kk < K && d0 + dd < D ? w[(size_t)(k0 + kk) * D + d0 + dd] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < SPLIT_TILE * SPLIT_TILE; i += 256) {
+    const int dd = i / SPLIT_TILE, kk = i % SPLIT_TILE;
+    if (d0 + dd >= D || k0 + kk >= Kpad) continue;
+    const float2 p = split_tf32(tile[kk][dd]);
+    const size_t o = (size_t)(d0 + dd) * Kpad + k0 + kk;
+    hi[o] = p.x;
+    lo[o] = p.y;
+  }
+}
+
+// One block tile in 3xTF32: rows m0 .. m0 + 127 of the [M, K] patch matrix
+// times columns n0 .. n0 + 127 of W, whose TF32 pair comes by whi and wlo
+// (dims {Kpad, D}, box {32, 128}). V: floats per copy of the cp.async
+// gathers. Every wgmma chain is straight-line code.
+template <int V>
+__global__ void __launch_bounds__(HP_THREADS, 1)
+patch_embed_tf32x3_kernel(const __grid_constant__ CUtensorMap whi, const __grid_constant__ CUtensorMap wlo,
+                          const float* __restrict__ img, const float* __restrict__ bias,
+                          float* __restrict__ out, int H, int W, int C, int P, int D, int M,
+                          int col_tiles) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const unsigned char* ring = smem_raw + (base - raw);
+  long long* rowoff = reinterpret_cast<long long*>(smem_raw + (base - raw) + TF_STAGES * TF_STAGE_BYTES);
+  const uint32_t full_bar = base + TF_STAGES * TF_STAGE_BYTES + BM * 8;  // full[s] = full_bar + 8 s
+
+  const int tid = threadIdx.x;
+  // column tiles of one row tile are neighbours in the grid: they run
+  // together and read the same patches from L2
+  const int m0 = (blockIdx.x / col_tiles) * BM, n0 = (blockIdx.x % col_tiles) * BN;
+  const int PC = P * C, K = P * PC, WC = W * C;
+  const int chunks = (K + TF_BK - 1) / TF_BK;
+
+  // image offset of each row's patch (its top-left pixel), -1 past M
+  if (tid < BM) {
+    const int r = m0 + tid;
+    long long off = -1;
+    if (r < M) {
+      const int gw = W / P, np = (H / P) * gw;
+      const int b = r / np, n = r % np;
+      off = ((long long)b * H + (long long)(n / gw) * P) * WC + (long long)(n % gw) * PC;
+    }
+    rowoff[tid] = off;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < TF_STAGES; ++s) mbar_init(full_bar + 8 * s, 1);  // the expect_tx
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // this thread's copies in every stage: piece aj (V values of k) of A rows
+  // ar0, ar0 + A_STEP, ...
+  constexpr int A_PIECES = TF_BK / V, A_STEP = HP_THREADS / A_PIECES;
+  const int aj = tid % A_PIECES, ar0 = tid / A_PIECES;
+
+  // chunk kc (k = 32 kc ...) into stage kc % TF_STAGES; one cp.async group
+  // per call, empty past the last chunk, so that the groups count stages
+  auto load = [&](int kc) {
+    if (kc < chunks) {
+      const uint32_t as = base + (kc % TF_STAGES) * TF_STAGE_BYTES;
+      const int k = kc * TF_BK + aj * V;
+      const long long koff = (long long)(k / PC) * WC + k % PC;  // (ph, pw * C + c)
+#pragma unroll
+      for (int i = 0; i < BM / A_STEP; ++i) {
+        const int r = ar0 + i * A_STEP;
+        const long long ro = rowoff[r];
+        const bool ok = k < K && ro >= 0;
+        cp_async<4 * V>(as + sw128_offset(r, aj * V / 4) + (aj * V % 4) * 4, ok ? img + ro + koff : img,
+                        ok);
+      }
+      if (tid == 0) {
+        const uint32_t bar = full_bar + 8 * (kc % TF_STAGES);
+        mbar_expect_tx(bar, 2 * TF_TILE_BYTES);
+        tma_load_2d(as + TF_TILE_BYTES, &whi, bar, kc * TF_BK, n0);
+        tma_load_2d(as + 2 * TF_TILE_BYTES, &wlo, bar, kc * TF_BK, n0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  // acc: one chunk's products (wgmma's accumulator); sum: the float32 sum
+  // of the chunks
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
+
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, q = lane % 4;
+  // this thread's A elements of a chunk: rows r and r + 8 of the stage's
+  // 128-byte rows (16 warp + g of its warpgroup's 64), k = 8 kd + q (+ 4):
+  // 16-byte chunk 2 kd (+ 1) of the row, which the swizzle stores at
+  // chunk ^ (row % 8), row % 8 being g for both rows
+  const uint32_t a_row = (wg * 64 + 16 * warp + g) * 128 + 4 * q;
+  for (int s = 0; s < TF_STAGES - 1; ++s) load(s);
+  for (int kc = 0; kc < chunks; ++kc) {
+    const int s = kc % TF_STAGES;
+    const unsigned char* as = ring + s * TF_STAGE_BYTES;
+    const uint32_t bh = base + s * TF_STAGE_BYTES + TF_TILE_BYTES, bl = bh + TF_TILE_BYTES;
+    cp_async_wait<TF_STAGES - 2>();  // this thread's copies of chunk kc have landed
+    mbar_wait(full_bar + 8 * s, (kc / TF_STAGES) & 1);
+    // every thread's copies of chunk kc are in, and both warpgroups are done
+    // with chunk kc - 1, whose stage is loaded next (A is read by plain
+    // loads below, so it needs no proxy fence)
+    __syncthreads();
+    load(kc + TF_STAGES - 1);
+    // A's fragments of the chunk, split into their TF32 pairs in registers
+    uint32_t a_hi[TF_BK / 8][4], a_lo[TF_BK / 8][4];
+#pragma unroll
+    for (int kd = 0; kd < TF_BK / 8; ++kd)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t off = a_row + (j % 2) * 8 * 128 + (((2 * kd + j / 2) ^ g) << 4);
+        const float2 p = split_tf32(*reinterpret_cast<const float*>(as + off));
+        a_hi[kd][j] = __float_as_uint(p.x);
+        a_lo[kd][j] = __float_as_uint(p.y);
+      }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < TF_BK / 8; ++kd) {
+      const uint64_t bhd = sw128_desc(bh + 32 * kd), bld = sw128_desc(bl + 32 * kd);
+      // the small terms first; the chunk's first product overwrites acc
+      wgmma_m64n128k8_tf32_rs(acc, a_lo[kd], bhd, kd > 0);
+      wgmma_m64n128k8_tf32_rs(acc, a_hi[kd], bld, 1);
+      wgmma_m64n128k8_tf32_rs(acc, a_hi[kd], bhd, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+  }
+
+  // epilogue: sum[4 j + 2 h + e] is row 16 warp + g + 8 h of this
+  // warpgroup's 64, column 8 j + 2 q + e
+  const int row0 = m0 + wg * 64 + 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * q;
+    const float b0 = col < D ? bias[col] : 0.f;
+    const float b1 = col + 1 < D ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M || col >= D) continue;
+      float* o = out + (size_t)row * D + col;
+      const float v0 = sum[4 * j + 2 * h] + b0, v1 = sum[4 * j + 2 * h + 1] + b1;
+      if (D % 2 == 0) {  // col is even: the pair is 8-byte aligned and inside the row
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (col + 1 < D) o[1] = v1;
+      }
+    }
+  }
+}
+
+using Tf32Kernel = void (*)(const CUtensorMap, const CUtensorMap, const float*, const float*, float*, int,
+                            int, int, int, int, int, int);
+
+// the kernel instance of copy width v (4, 2 or 1 floats)
+Tf32Kernel tf32x3_kernel(int v) {
+  switch (v) {
+    case 4: return patch_embed_tf32x3_kernel<4>;
+    case 2: return patch_embed_tf32x3_kernel<2>;
+    default: return patch_embed_tf32x3_kernel<1>;
+  }
+}
+
+int launch_tf32x3(const float* img, const float* w, const float* bias, float* out, float* wt, int B, int H,
+                  int W, int C, int P, int D, cudaStream_t st) {
+  const int M = B * (H / P) * (W / P), K = P * P * C, Kpad = (K + 3) / 4 * 4;
+  // TMA: the pair's base and rows 16-byte aligned; float pair stores
+  const std::uintptr_t wt_addr = reinterpret_cast<std::uintptr_t>(wt);
+  if (wt_addr % 16 || reinterpret_cast<std::uintptr_t>(out) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* w_hi = wt;  // [D, Kpad]
+  float* w_lo = wt + (size_t)D * Kpad;
+  patch_embed_split_kernel<<<dim3((D + SPLIT_TILE - 1) / SPLIT_TILE, (Kpad + SPLIT_TILE - 1) / SPLIT_TILE),
+                             256, 0, st>>>(w, w_hi, w_lo, K, D, Kpad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap maps[2];
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Kpad), static_cast<cuuint64_t>(D)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Kpad) * 4};
+    const cuuint32_t box[2] = {TF_BK, BN}, unit[2] = {1, 1};
+    const CUresult r = encode(&maps[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, i ? w_lo : w_hi, dims, strides,
+                              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // A's runs are one image-row segment of a patch (P*C values), at
+  // multiples of W*C (image rows) and P*C (patches)
+  const int v = widest(img, P * C, W * C, 4);
+  const Tf32Kernel kernel = tf32x3_kernel(v);
+  int slot = TF_SLOT, sms = 0;
+  for (int x = v; x > 1; x /= 2) ++slot;
+  err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), slot, TF_SMEM, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int col_tiles = (D + BN - 1) / BN;
+  const long long tiles = (long long)col_tiles * ((M + BM - 1) / BM);
+  kernel<<<static_cast<unsigned>(tiles), HP_THREADS, TF_SMEM, st>>>(maps[0], maps[1], img, bias, out, H, W,
+                                                                     C, P, D, M, col_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
 }  // namespace
 
 extern "C" {
 
-int svt_patch_embed_f32(const void* img, const void* w, const void* bias, void* out,
-                        int B, int H, int W, int C, int P, int D, void* stream) {
-  return launch_fma(static_cast<const float*>(img), static_cast<const float*>(w),
-                    static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, C, P, D,
-                    static_cast<cudaStream_t>(stream));
+// the float32 route: W's TF32 pair into the workspace wt [2, D, Kpad]
+// (Kpad = P*P*C rounded up to a multiple of 4), then the 3xTF32 GEMM; wt
+// 16-byte aligned and out 8-byte aligned (else cudaErrorInvalidValue,
+// before any launch)
+int svt_patch_embed_tf32x3(const void* img, const void* w, const void* bias, void* out, void* wt,
+                           int B, int H, int W, int C, int P, int D, void* stream) {
+  return launch_tf32x3(static_cast<const float*>(img), static_cast<const float*>(w),
+                       static_cast<const float*>(bias), static_cast<float*>(out), static_cast<float*>(wt),
+                       B, H, W, C, P, D, static_cast<cudaStream_t>(stream));
 }
 
 int svt_patch_embed_bf16(const void* img, const void* w, const void* bias, void* out,

@@ -8,30 +8,32 @@ kernels (``csrc/mlp_block.cu``) for a CUDA tensor and runs
 package: where autograd would need a gradient it raises (train with
 ``mlp_impl="xla"``).
 
-On the card, :func:`mlp_route` picks the kernel from shape, dtype and
-alignment before the launch:
+On the card, :func:`mlp_route` picks the kernel from shape and dtype
+before the launch:
 
-* ``"wgmma"`` (bf16, D and the hidden width multiples of 8, W1 and W2
-  16-byte aligned; the main path): LN into a bf16 workspace ``y [M, D]``,
-  then two tensor-core GEMMs, fc1 (+ b1, GELU) into a bf16 workspace
-  ``h [M, Hd]`` and fc2 (+ b2, residual) into the output. Both workspaces
-  come from PyTorch's caching allocator; y and h are rounded to bf16 where
-  the Pallas kernel casts them to the weights' dtype, so the numerics are
-  the fused kernel's.
-* ``"tf32x3"`` (float32, D and the hidden width multiples of 4, W1 and W2
-  16-byte aligned): the same LN and two GEMMs on the tensor cores in
-  3xTF32, each float32 operand split into a TF32 pair hi + lo and each
-  product taken as hi·hi + hi·lo + lo·hi, which keeps float32's accuracy.
-  Workspaces ``y [M, D]`` and ``h [M, Hd]`` in float32, and ``wt`` for
-  W1's and W2's transposed TF32 pairs (``4·D·Hd`` floats).
-* ``"fma"`` (float32 and bf16 that the routes above do not take; D a
-  multiple of 32 up to 1024): one kernel on the FMA units that keeps the
-  hidden on chip.
+* ``"wgmma"`` (bf16, D and the hidden width multiples of 8; the main
+  path): LN into a bf16 workspace ``y [M, D]``, then two tensor-core
+  GEMMs, fc1 (+ b1, GELU) into a bf16 workspace ``h [M, Hd]`` and fc2
+  (+ b2, residual) into the output. Both workspaces come from PyTorch's
+  caching allocator; y and h are rounded to bf16 where the Pallas kernel
+  casts them to the weights' dtype, so the numerics are the fused
+  kernel's.
+* ``"tf32x3"`` (float32, D and the hidden width multiples of 4): the same
+  LN and two GEMMs on the tensor cores in 3xTF32, each float32 operand
+  split into a TF32 pair hi + lo and each product taken as hi·hi + hi·lo +
+  lo·hi, which keeps float32's accuracy. Workspaces ``y [M, D]`` and
+  ``h [M, Hd]`` in float32, and ``wt`` for W1's and W2's transposed TF32
+  pairs (``4·D·Hd`` floats).
+* ``"fma"`` (a hidden width that is not such a multiple, D a multiple of
+  32 up to 1024): one kernel on the FMA units that keeps the hidden on
+  chip.
 
-Any other shape raises a ``ValueError`` before any launch. The wrapper
-keeps the route of its last launch in its ``route`` attribute, counts its
-launches in ``launches`` and, by kernel, in ``launches_by``
-(``"<route> <dtype>"``).
+The tensor-core routes read W1 and W2 by TMA, from 16-byte aligned
+addresses: the wrapper first copies a weight that is not aligned to a
+fresh allocation, so alignment never changes the route. Any other shape
+raises a ``ValueError`` before any launch. The wrapper keeps the route of
+its last launch in its ``route`` attribute, counts its launches in
+``launches`` and, by kernel, in ``launches_by`` (``"<route> <dtype>"``).
 """
 
 from __future__ import annotations
@@ -82,15 +84,13 @@ def mlp_route(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
     a shape that none takes."""
     D, Hd = w1.shape
     mult = _TMA_MULTIPLE.get(x.dtype)
-    if (mult and D % mult == 0 and Hd % mult == 0
-            and w1.data_ptr() % 16 == 0 and w2.data_ptr() % 16 == 0):
+    if mult and D % mult == 0 and Hd % mult == 0:
         return _TMA_ROUTE[x.dtype]
     if D % 32 == 0 and 0 < D <= FMA_MAX_WIDTH:
         return "fma"
     raise ValueError(f"width {D} (hidden {Hd}, {x.dtype}) is taken by no kernel: the tensor cores "
-                     f"need D and the hidden width multiples of 8 (bf16) or 4 (float32) and "
-                     f"16-byte aligned weights, else D must be a multiple of 32 up to "
-                     f"{FMA_MAX_WIDTH}")
+                     f"need D and the hidden width multiples of 8 (bf16) or 4 (float32), else D "
+                     f"must be a multiple of 32 up to {FMA_MAX_WIDTH}")
 
 
 def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -112,6 +112,8 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
         raise ValueError("LN/fc1/fc2 shapes do not fit x [M, D]")
     _build.check_tensors("fused_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2)
     route = mlp_route(x, w1, w2)
+    if route != "fma":  # the TMA reads W1 and W2 from 16-byte aligned addresses
+        w1, w2 = (w if w.data_ptr() % 16 == 0 else w.clone() for w in (w1, w2))
     lib = _build.load("mlp_block", _FNS)
     out = torch.empty_like(x)
     args = [t.data_ptr() for t in (x, ln_scale, ln_bias, w1, b1, w2, b2, out)]

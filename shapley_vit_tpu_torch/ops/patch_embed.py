@@ -11,11 +11,16 @@ device (the JAX package differentiates its XLA path, ``_patchify`` and a
 matmul, since the Pallas kernel has no VJP). The adversarial attacks and
 Grad-CAM need the image gradient; LoRA training needs none.
 
-The route is the dtype's (``ROUTE``): bf16 runs the tensor-core kernel,
-whose copy widths and W loads adapt to alignment inside it, and float32 the
-FMA kernel. The wrapper keeps the route of its last launch in its ``route``
-attribute, counts its launches in ``launches`` and, by kernel, in
-``launches_by`` (``"<route> <dtype>"``).
+The route is the dtype's (``ROUTE``), both on the tensor cores, at every
+shape: bf16 runs ``"wgmma"``, whose copy widths and W loads adapt to
+alignment inside it; float32 runs ``"tf32x3"`` (entry
+``svt_patch_embed_tf32x3``), which first splits W into its transposed
+TF32 pair in a workspace ``wt [2, D, Kpad]`` from the caching allocator
+(``Kpad``: P*P*C rounded up to a multiple of 4), then takes each product
+as three TF32 products, which keeps float32's accuracy. The wrapper keeps
+the route of its last launch in its ``route`` attribute, counts its
+launches in ``launches`` and, by kernel, in ``launches_by``
+(``"<route> <dtype>"``).
 """
 
 from __future__ import annotations
@@ -28,10 +33,10 @@ import torch
 from shapley_vit_tpu_torch.ops import _build
 
 _FNS = {
-    f"svt_patch_embed_{t}": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    for t in ("f32", "bf16")
+    "svt_patch_embed_bf16": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "svt_patch_embed_tf32x3": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],  # + wt
 }
-ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the kernel of each dtype's entry
+ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}  # the kernel of each dtype's entry
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -76,13 +81,20 @@ def _patch_embed_kernel(images: torch.Tensor, kernel: torch.Tensor, bias: torch.
     lib = _build.load("patch_embed", _FNS)
     out = torch.empty((B, (H // patch) * (W // patch), D), dtype=images.dtype,
                       device=images.device)
-    fn = getattr(lib, f"svt_patch_embed_{_build.SUFFIX[images.dtype]}")
+    route = ROUTE[images.dtype]
+    ptrs = [images.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr()]
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(images.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 B, H, W, C, patch, D, stream)
+        if route == "wgmma":
+            err = lib.svt_patch_embed_bf16(*ptrs, B, H, W, C, patch, D, stream)
+        else:
+            # freed on return: the caching allocator hands its block only to
+            # work queued after the kernels on this stream
+            kpad = -(-patch * patch * C // 4) * 4
+            wt = torch.empty((2, D, kpad), dtype=torch.float32, device=images.device)
+            err = lib.svt_patch_embed_tf32x3(*ptrs, wt.data_ptr(), B, H, W, C, patch, D, stream)
     _build.check(err, "patch_embed")
-    patch_embed.route = ROUTE[images.dtype]
+    patch_embed.route = route
     patch_embed.launches += 1
     patch_embed.launches_by[f"{patch_embed.route} {str(images.dtype).replace('torch.', '')}"] += 1
     return out

@@ -47,13 +47,21 @@ def _close(got, want, dtype):
 # The bf16 kernel's routes: W by TMA where D % 8 == 0, else by cp.async
 # (D = 100: 8-byte copies; D = 33: 2-byte copies, odd D); patch rows by
 # 16-byte copies where P*C % 8 == 0, else narrower (P*C = 12: 8 bytes;
-# P*C = 15 or 5: 2 bytes). The round's (B = 128) and the training batch's
-# (64) shapes; B*N not a multiple of the 128-row tile (3 x 196, 1 x 4); D
-# not a multiple of the 128-column tile (100, 200, 33, 64); K = 48 and 75,
-# less than one 64-wide k stage.
+# P*C = 15 or 5: 2 bytes). The float32 kernel's copy widths: 16 bytes
+# where P*C % 4 == 0 (48, 24, 12), else 4 bytes (P*C = 15 or 5), and K
+# padded to a multiple of 4 (75 -> 76, 25 -> 28) for W's TF32 pair. The
+# round's (B = 128) and the training batch's (64) shapes; B*N not a
+# multiple of the 128-row tile (3 x 196, 1 x 4); D not a multiple of the
+# 128-column tile (100, 200, 33, 64); K = 48, 75 and 25, less than one
+# 64-wide (bf16) or 32-wide (float32) k stage.
 PATCH_SHAPES = [(3, 224, 16, 3, 768), (2, 48, 8, 3, 100), (128, 224, 16, 3, 768),
                 (64, 224, 16, 3, 768), (1, 32, 16, 3, 256), (2, 224, 16, 3, 200),
                 (2, 32, 4, 3, 64), (2, 15, 5, 3, 64), (2, 30, 5, 1, 33)]
+
+
+def _patch_route(dtype):
+    """Both dtypes run on the tensor cores: bf16 on wgmma, float32 in 3xTF32."""
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _patch_inputs(rng, B, H, P, C, D, dtype):
@@ -72,27 +80,55 @@ def test_patch_embed_kernel_matches_plain(dtype, B, H, P, C, D):
     got = pe.patch_embed(img, w, b, P)
     torch.cuda.synchronize()
     assert pe.patch_embed.launches == before + 1
-    assert pe.patch_embed.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    assert pe.patch_embed.route == _patch_route(dtype)
     assert got.dtype == dtype and got.shape == (B, (H // P) ** 2, D)
     _close(got, pe.patch_embed_plain(img, w, b, P), dtype)
 
 
-@pytest.mark.parametrize("B,H,P,C,D", [(3, 224, 16, 3, 768), (2, 32, 4, 3, 64), (2, 32, 4, 3, 100)])
-def test_patch_embed_reads_nothing_past_the_last_image(B, H, P, C, D):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,H,P,C,D", [(3, 224, 16, 3, 768), (2, 32, 4, 3, 64), (2, 32, 4, 3, 100),
+                                       (2, 15, 5, 3, 64)])
+def test_patch_embed_reads_nothing_past_the_last_image(dtype, B, H, P, C, D):
     """The images end where a NaN image begins, and W where NaN rows begin:
-    a bf16 kernel that read a patch row past the last image, a k past
-    K = P*P*C (48 < 64 here for P = 4) or a W row past K would put NaN into
-    its outputs. W by TMA (D = 768, 64) and by cp.async (D = 100)."""
+    a kernel that read a patch row past the last image, a k past K = P*P*C
+    (48 < 64 here for P = 4; 75 and 48 past a 32-wide float32 stage) or a
+    W row past K would put NaN into its outputs. bf16: W by TMA (D = 768,
+    64) and by cp.async (D = 100); float32: W's TF32 pair, K padded to a
+    multiple of 4 (75 -> 76), by TMA."""
     rng = np.random.default_rng(9)
-    img, w, b = _patch_inputs(rng, B, H, P, C, D, torch.bfloat16)
-    ibuf = torch.full((B + 1, H, H, C), float("nan"), dtype=torch.bfloat16, device="cuda")
+    img, w, b = _patch_inputs(rng, B, H, P, C, D, dtype)
+    ibuf = torch.full((B + 1, H, H, C), float("nan"), dtype=dtype, device="cuda")
     ibuf[:B] = img
-    wbuf = torch.full((P * P * C + 64, D), float("nan"), dtype=torch.bfloat16, device="cuda")
+    wbuf = torch.full((P * P * C + 64, D), float("nan"), dtype=dtype, device="cuda")
     wbuf[:P * P * C] = w
     got = pe.patch_embed(ibuf[:B], wbuf[:P * P * C], b, P)
     torch.cuda.synchronize()
+    assert pe.patch_embed.route == _patch_route(dtype)
     assert torch.isfinite(got.float()).all()
-    _close(got, pe.patch_embed_plain(img, w, b, P), torch.bfloat16)
+    _close(got, pe.patch_embed_plain(img, w, b, P), dtype)
+
+
+def test_patch_embed_tf32x3_entry_refuses_an_unaligned_workspace():
+    """The float32 entry's TMA reads W's TF32 pair from the workspace: a
+    workspace off 16 bytes (or an output off 8, for its pair stores) gets
+    an error and no launch, neither the weight split nor the GEMM."""
+    from shapley_vit_tpu_torch.ops import _build
+
+    lib = _build.load("patch_embed", pe._FNS)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(16)
+    B, H, P, C, D = 2, 32, 4, 3, 64
+    img, w, b = _patch_inputs(rng, B, H, P, C, D, torch.float32)
+    K = P * P * C
+    for wt_offset, out_offset in ((1, 0), (2, 0), (0, 1)):
+        wt = torch.zeros(2 * D * K + 4, device="cuda")
+        out = torch.zeros(B * (H // P) ** 2 * D + 1, device="cuda")
+        err = lib.svt_patch_embed_tf32x3(img.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                         out[out_offset:].data_ptr(), wt[wt_offset:].data_ptr(),
+                                         B, H, H, C, P, D, stream)
+        torch.cuda.synchronize()
+        assert err != 0, (wt_offset, out_offset)
+        assert torch.count_nonzero(wt) == 0 and torch.count_nonzero(out) == 0
 
 
 def test_patch_embed_bf16_within_one_step_at_the_round_shape():
@@ -136,7 +172,7 @@ def test_patch_embed_gradient_on_the_card(dtype, B, H, P, C, D):
         torch.cuda.synchronize()
         assert pe.patch_embed.launches - before == (fn is pe.patch_embed)
         grads.append([t.grad for t in leaves])
-    assert pe.patch_embed.route == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    assert pe.patch_embed.route == _patch_route(dtype)
     for a, b in zip(*grads):
         assert a.dtype == dtype
         _close(a, b, dtype)
@@ -204,7 +240,8 @@ def test_attention_kernel_matches_plain(dtype, B, N, H):
 MLP_SHAPES = [(591, 768, 3072), (100, 384, 1536), (33, 1024, 4096), (70, 768, 3000),
               (985, 192, 768), (33, 32, 64), (1, 768, 3072), (129, 768, 3000)]
 # each dtype on each kernel that takes it: both take the FMA kernel where the
-# weights are not 16-byte aligned
+# hidden width is not a multiple of 8 (bf16) or 4 (float32): MLP_SHAPES'
+# hidden + 2
 MLP_ROUTES = [(torch.float32, "tf32x3"), (torch.float32, "fma"), (torch.bfloat16, "wgmma"),
               (torch.bfloat16, "fma")]
 
@@ -233,9 +270,7 @@ def _mlp_inputs(rng, M, D, Hd, dtype):
 @pytest.mark.parametrize("M,D,Hd", MLP_SHAPES)
 def test_mlp_kernel_matches_plain(dtype, route, approximate, M, D, Hd):
     rng = np.random.default_rng(2)
-    args = _mlp_inputs(rng, M, D, Hd, dtype)
-    if route == "fma":
-        args[3], args[5] = _unaligned(args[3]), _unaligned(args[5])
+    args = _mlp_inputs(rng, M, D, Hd + 2 if route == "fma" else Hd, dtype)
     assert mlp.mlp_route(args[0], args[3], args[5]) == route
     before = mlp.fused_mlp_block.launches
     got = mlp.fused_mlp_block(*args, eps=1e-12, approximate_gelu=approximate)
@@ -275,6 +310,29 @@ def test_mlp_reads_nothing_past_its_inputs(M, D, Hd, dtype, route):
     torch.cuda.synchronize()
     assert mlp.fused_mlp_block.route == route
     assert torch.isfinite(got.float()).all()
+    _close(got, mlp.fused_mlp_block_plain(*args, eps=1e-12), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D,Hd", [(129, 768, 3000), (33, 32, 64)])
+def test_mlp_unaligned_weights_are_copied_to_the_tensor_cores(dtype, M, D, Hd):
+    """W1 and W2 one element past an aligned allocation, which the TMA
+    cannot read, are copied to aligned ones and take the dtype's
+    tensor-core route (wgmma, tf32x3), not the FMA kernel; the output
+    matches the plain version and the caller's weights are unchanged."""
+    rng = np.random.default_rng(15)
+    args = _mlp_inputs(rng, M, D, Hd, dtype)
+    w1, w2 = args[3].clone(), args[5].clone()
+    args[3], args[5] = _unaligned(args[3]), _unaligned(args[5])
+    assert args[3].data_ptr() % 16 and args[5].data_ptr() % 16
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    assert mlp.mlp_route(args[0], args[3], args[5]) == route
+    before = mlp.fused_mlp_block.launches
+    got = mlp.fused_mlp_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_block.launches == before + 1
+    assert mlp.fused_mlp_block.route == route
+    assert torch.equal(args[3], w1) and torch.equal(args[5], w2)
     _close(got, mlp.fused_mlp_block_plain(*args, eps=1e-12), dtype)
 
 

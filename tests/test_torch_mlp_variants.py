@@ -17,8 +17,8 @@ card's wrappers do around the kernels at those widths:
   128) and N up to 257, and at d = 136 and 256 (padded to 192, run at 256;
   the JAX wrappers pad both to 256) (float32, atol 1e-5);
 * which MLP kernel a call would take on the card (``mlp_route``), which
-  attention kernel (``attention_route``), and which head dims the attention
-  wrappers take;
+  attention kernel (``attention_route``), which patch-embedding kernel
+  (``ROUTE``), and which head dims the attention wrappers take;
 * a depth-2 tiny ViT against the JAX ViT at float32 (atol 2e-5, the house
   bar of test_vit_parity.py), and depth-2 ViTs at N = 257 (256 px) and at
   head dims 96 and 192.
@@ -41,6 +41,7 @@ from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import attention as tatt
 from shapley_vit_tpu_torch.ops import mlp_block as tmlp
+from shapley_vit_tpu_torch.ops import patch_embed as tpe
 
 
 def _np(rng, shape, scale=1.0):
@@ -147,17 +148,20 @@ def _offset(t, elements):
     (32, 64, torch.bfloat16, 0, "wgmma"),      # micro
     (200, 808, torch.bfloat16, 0, "wgmma"),    # any multiple of 8
     (768, 3000, torch.bfloat16, 0, "wgmma"),
-    (192, 768, torch.bfloat16, 1, "fma"),      # weights not 16-byte aligned
+    (192, 768, torch.bfloat16, 1, "wgmma"),    # weights not 16-byte aligned: copied first
     (64, 100, torch.bfloat16, 0, "fma"),       # hidden width not a multiple of 8
+    (768, 3070, torch.bfloat16, 0, "fma"),
     (32, 64, torch.float32, 0, "tf32x3"),      # micro
     (192, 768, torch.float32, 0, "tf32x3"),    # tiny
     (768, 3072, torch.float32, 0, "tf32x3"),   # base
     (1024, 4096, torch.float32, 0, "tf32x3"),
     (200, 808, torch.float32, 0, "tf32x3"),    # any multiple of 4
     (1056, 64, torch.float32, 0, "tf32x3"),    # the GEMMs have no cap on D
-    (192, 768, torch.float32, 1, "fma"),       # weights not 16-byte aligned
-    (200, 808, torch.float32, 1, None),        # ... and D not a multiple of 32
+    (192, 768, torch.float32, 1, "tf32x3"),    # weights not 16-byte aligned: copied first
+    (200, 808, torch.float32, 1, "tf32x3"),    # ... whatever D
+    (768, 3070, torch.float32, 0, "fma"),      # hidden width not a multiple of 4
     (36, 64, torch.bfloat16, 0, None),         # no route
+    (36, 66, torch.float32, 0, None),
 ])
 def test_mlp_route(D, Hd, dtype, offset, route):
     x = torch.zeros((3, D), dtype=dtype)
@@ -168,6 +172,12 @@ def test_mlp_route(D, Hd, dtype, offset, route):
             tmlp.mlp_route(x, w1, w2)
     else:
         assert tmlp.mlp_route(x, w1, w2) == route
+
+
+def test_patch_embed_runs_on_the_tensor_cores_in_both_dtypes():
+    """The patch embedding's route on the card: bf16 on ``wgmma``, float32
+    on ``tf32x3`` (3xTF32), at every shape; no FMA route is left."""
+    assert tpe.ROUTE == {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 
 @pytest.mark.parametrize("dtype,N,d,route", [

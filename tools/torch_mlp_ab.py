@@ -3,7 +3,7 @@
 ``shapley_vit_tpu_torch/csrc/mlp_block.cu`` on one NVIDIA GPU.
 
     git show <rev>:shapley_vit_tpu_torch/csrc/mlp_block.cu > exp/other_mlp_block.cu
-    python3 tools/torch_mlp_ab.py [--dtype float32] exp/other_mlp_block.cu [more.cu ...]
+    python3 tools/torch_mlp_ab.py [--dtype float32] [--unaligned] exp/other_mlp_block.cu [more.cu ...]
 
 Each other source is built and run by ``tools/torch_kernel_ab.py``. In bf16
 (the default) through its ``svt_mlp_block_bf16`` entry: a source that has
@@ -16,8 +16,15 @@ inputs are those of ``chip_smoke.py``'s ``kernels`` phase in the dtype
 (``chip_smoke.kernel_inputs``, seed 0: x [176,512, 768], W1 [768, 3072],
 W2 [3072, 768]). For each kernel one JSON line (``torch_kernel_ab.measure``:
 error and share differing from the plain version, ms per call, ms among 15
-back to back, host µs); the torch-op MLP half (``models.vit.mlp_half_xla``,
+back to back, host µs, and whether the output is bit-identical to this
+tree's); the torch-op MLP half (``models.vit.mlp_half_xla``,
 cuBLAS; float32 products in full float32) runs first and last.
+
+``--unaligned``: W1 and W2 one element past an aligned allocation, which
+the TMA cannot read. This tree runs its wrapper, ``fused_mlp_block`` (a
+copy of each weight, then the dtype's tensor-core route); each other
+source runs its FMA entry on the same weights, which is what wrappers
+before the copy launched for them.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ def main() -> int:
     dname = "bfloat16"
     if argv[:1] == ["--dtype"]:
         dname, argv = argv[1], argv[2:]
+    unaligned = argv[:1] == ["--unaligned"]
+    argv = argv[1:] if unaligned else argv
     if not argv or dname not in ("bfloat16", "float32") or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -50,6 +59,8 @@ def main() -> int:
     t = ab.chip_smoke.kernel_inputs(torch.Generator(device="cuda").manual_seed(0), dtype)
     args = [t[n] for n in ("x", "ls", "lb", "w1", "b1", "w2", "b2")]
     del t
+    if unaligned:
+        args[3], args[5] = ab.chip_smoke.unaligned(args[3]), ab.chip_smoke.unaligned(args[5])
     torch.cuda.empty_cache()
     x, w1 = args[0], args[3]
     M, D = x.shape
@@ -61,7 +72,13 @@ def main() -> int:
         return [torch.empty(shape, dtype=dtype, device="cuda") for shape in shapes]
 
     def runner(lib, name):
-        if dtype == torch.float32:
+        if unaligned and name == "this":
+            return lambda: mlp.fused_mlp_block(*args, eps=1e-12)
+        if unaligned:
+            entry = "svt_mlp_block_fma_" + ("f32" if dtype == torch.float32 else "bf16")
+            fn = ab.entry(lib, entry, mlp._FNS[entry])
+            shapes = []
+        elif dtype == torch.float32:
             if hasattr(lib, "svt_mlp_block_tf32x3"):
                 fn = ab.entry(lib, "svt_mlp_block_tf32x3", mlp._FNS["svt_mlp_block_tf32x3"])
                 shapes = [(M, D), (M, Hd), (4, D, Hd)]
@@ -92,8 +109,12 @@ def main() -> int:
                    "fc2": {"kernel": args[5], "bias": args[6]}}}
     runs = {YARDSTICK: lambda: tvit.mlp_half_xla(x, blk, spec)}
     runs.update({name: runner(lib, name) for name, lib in libs.items()})
+    first = runs["this"]()
     for name in ab.order(libs, YARDSTICK):
+        same = bool(torch.equal(runs[name](), first))
         print(json.dumps({"kernel": name, "dtype": dname, "shape": [M, D, Hd],
+                          "weights": "unaligned" if unaligned else "aligned",
+                          "bit_identical_to_this": same,
                           **ab.measure(runs[name], want, 15, 5)}), flush=True)
     return 0
 
