@@ -3,12 +3,14 @@
 // [B, H, N, d] through their batch, head and row strides: _bf16 the bf16
 // tensor-core kernel of the main paths (16-byte aligned, head dim 64, N <=
 // 224), _bf16_kl the bf16 tensor-core kernel with a key loop (16-byte
-// aligned, head dim 64 or 128, any N), _tf32x3 the float32 tensor-core
-// kernel (16-byte aligned, head dim 64 or 128, any N), _fma_bf16 and
-// _fma_f32 the FMA kernel (any head dim that is a multiple of 64, any N).
-// The tensor-core entries refuse other inputs. The caller picks the route
-// (ops/attention.attention_route), pads head dims to 64, to 128 or past 128
-// to a multiple of 64, and copies tensors that the TMA cannot read.
+// aligned, head dim 64 or 128, any N), _bf16_wide the bf16 tensor-core
+// kernel past head dim 128 (16-byte aligned, head dim 192, 256, ..., 512,
+// any N), _tf32x3 the float32 tensor-core kernel (16-byte aligned, head dim
+// 64 or 128, any N), _fma_bf16 and _fma_f32 the FMA kernel (any head dim
+// that is a multiple of 64, any N). The tensor-core entries refuse other
+// inputs. The caller picks the route (ops/attention.attention_route), pads
+// head dims to 64, to 128 or past 128 to a multiple of 64, and copies
+// tensors that the TMA cannot read.
 //
 // Replaces (shapley_vit_tpu/ops/attention.py):
 //  * _attn_v2_kernel (Pallas, entry fused_attention_packed): q, k, v, o are
@@ -93,13 +95,21 @@
 // product as A_lo B_hi + A_hi B_lo + A_hi B_hi), one block per (image, head,
 // 128 query rows) walking the keys in blocks of 64 (32 at head dim 128)
 // with an online softmax; see the kernel for the design.
-// Head dims past 128, in either dtype: attention_fma_kernel, on the FMA
-// units, one block per (batch, head, 64 query rows, 128 output columns),
-// the keys in chunks and q k^T in slices of 64 columns of d staged in
-// shared memory, with an online softmax; each of the 8 warps takes 4 query
-// rows at a time, lane l owning keys l, l+32 of a chunk, so one float4 of K
-// feeds the 4 rows. No model the repo names has such a head: the kernel is
-// simple, not fast.
+// bf16 at head dims 192 to 512: attention_wgmma_wide_kernel, the key-loop
+// kernel's unit, grid and key blocks with the output in 128-column panels,
+// S recomputed over all of d for each panel, so each consumer warpgroup
+// keeps the key-loop kernel's registers; see the kernel for the design. At
+// 64 images of N = 197 and 3 heads of 256 the bytes bound it: 77 MB of q,
+// k, v and o, 0.023 ms over 3.35 TB/s, against 4*B*H*N^2*d = 7.6 GFLOP:
+// 15 GFLOP of tensor-core work with S done once for each of the two output
+// panels and the p split, 0.015 ms at 989 TFLOP/s.
+// float32 past head dim 128 and bf16 past 512: attention_fma_kernel, on
+// the FMA units, one block per (batch, head, 64 query rows, 128 output
+// columns), the keys in chunks and q k^T in slices of 64 columns of d
+// staged in shared memory, with an online softmax; each of the 8 warps
+// takes 4 query rows at a time, lane l owning keys l, l+32 of a chunk, so
+// one float4 of K feeds the 4 rows. No model the repo names has such a
+// head: the kernel is simple, not fast.
 #include <cuda.h>
 
 #include <algorithm>
@@ -118,8 +128,8 @@ using bf16 = __nv_bfloat16;
 constexpr int HD = 64;  // head dim of the bf16 tensor-core kernel
 
 // ---------------------------------------------------------------------------
-// FMA units: head dims past 128, float32 and bf16; any N, any head dim that
-// is a multiple of 64
+// FMA units: float32 past head dim 128 and bf16 past 512; any N, any head
+// dim that is a multiple of 64
 // ---------------------------------------------------------------------------
 
 constexpr int R = 4;            // query rows a warp handles at once
@@ -963,6 +973,7 @@ struct Kl {
   static constexpr int Q_BYTES = QROWS * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;     // one of K, V
   static constexpr int PANEL_BYTES = BK * 128;    // one 64-column panel of K or V
+  static constexpr int OCOLS = D;                 // columns of V and O a block's P V covers
   static constexpr int STAGES = D == 64 ? 4 : 3;  // K and V blocks in flight
   static constexpr int CONSUMERS = 256;           // two warpgroups
   static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
@@ -972,30 +983,35 @@ struct Kl {
 static_assert(Kl<64>::SMEM <= 232448 && Kl<128>::SMEM <= 232448,
               "a unit must fit a block's 227 KB of shared memory");
 
-// O[64 x D] (+)= P[64 x 16] V[16 x D], P (bf16 pairs) from registers, V in
-// shared memory MN-major (trans-b); at D = 128 its two 64-column panels lie
-// PANEL_BYTES apart
-template <int D>
-__device__ __forceinline__ void wgmma_pv_kl(float (&d)[D / 2], const uint32_t* a, uint32_t v) {
-  if constexpr (D == 64) wgmma_pv(d, a, sw128_desc(v), 1);
-  else wgmma_m64n128k16_rs(d, a, sw128_desc(v, Kl<D>::PANEL_BYTES), 1);
+// O[64 x OC] (+)= P[64 x 16] V[16 x OC], P (bf16 pairs) from registers, V
+// in shared memory MN-major (trans-b); at OC = 128 its two 64-column panels
+// lie PANEL bytes apart
+template <int OC, int PANEL>
+__device__ __forceinline__ void wgmma_pv_kl(float (&d)[OC / 2], const uint32_t* a, uint32_t v) {
+  if constexpr (OC == 64) wgmma_pv(d, a, sw128_desc(v), 1);
+  else wgmma_m64n128k16_rs(d, a, sw128_desc(v, PANEL), 1);
 }
 
 // One key block of a consumer warpgroup: S = Q K^T over the block's first W
-// keys (a multiple of 16), the online softmax, and O += P V. W is a template
-// parameter so that every wgmma chain is straight-line code.
-template <int D>
+// keys (a multiple of 16) and all of d, the online softmax, and O += P V
+// over the S::OCOLS columns of V at v. W is a template parameter so that
+// every wgmma chain is straight-line code. S holds the kernel's shapes
+// (Kl<D> or Wide<NP>): the 64-column panels of d (PANELS), the rows of a Q
+// buffer (QROWS) and the bytes of one 64-column panel of a K or V block
+// (PANEL_BYTES).
+template <class S>
 struct KlBlock {
-  uint32_t q;    // shared address of this warpgroup's 64 rows of Q (panel 0)
-  uint32_t k;    // the block's K; V follows it
-  int qd;        // lane % 4
-  int rem;       // keys of the block below N
-  float l2;      // scale log2 e
+  uint32_t q;       // shared address of this warpgroup's 64 rows of Q (panel 0)
+  uint32_t k;       // the block's K
+  uint32_t v;       // the block's V, the columns of this O
+  int qd;           // lane % 4
+  int rem;          // keys of the block below N
+  float l2;         // scale log2 e
+  uint32_t s_done;  // an mbarrier to arrive at once S has read Q, or 0
 
   template <int W>
-  __device__ __forceinline__ void run(float (&oc)[D / 2], float (&m)[2], float (&l)[2]) const {
-    using S = Kl<D>;
-    // S [64, W] = Q K^T, one chain of D / 16 steps. Element e is row
+  __device__ __forceinline__ void run(float (&oc)[S::OCOLS / 2], float (&m)[2], float (&l)[2]) const {
+    // S [64, W] = Q K^T, one chain of 4 PANELS steps. Element e is row
     // 16 warp + lane / 4 + 8 ((e % 4) / 2), key 8 (e / 4) + 2 qd + e % 2.
     float sc[W / 2];
     fence_regs(sc);
@@ -1009,6 +1025,7 @@ struct KlBlock {
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
+    if (s_done) mbar_arrive(s_done);
 
     // the online softmax; keys at or past N (only in the last block) get
     // -inf, since their zero-filled rows would score 0
@@ -1044,16 +1061,16 @@ struct KlBlock {
                              b - __uint_as_float(phi[e / 2] & 0xffff0000u));
     }
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) oc[e] *= alpha[(e % 4) / 2];
+    for (int e = 0; e < S::OCOLS / 2; ++e) oc[e] *= alpha[(e % 4) / 2];
 
     // O += P V over 16-key steps, hi and lo
     fence_regs(oc);
     wgmma_fence();
 #pragma unroll
     for (int c = 0; c < W / 16; ++c) {
-      const uint32_t vc = k + S::KV_BYTES + c * 16 * 128;
-      wgmma_pv_kl<D>(oc, phi + 4 * c, vc);
-      wgmma_pv_kl<D>(oc, plo + 4 * c, vc);
+      const uint32_t vc = v + c * 16 * 128;
+      wgmma_pv_kl<S::OCOLS, S::PANEL_BYTES>(oc, phi + 4 * c, vc);
+      wgmma_pv_kl<S::OCOLS, S::PANEL_BYTES>(oc, plo + 4 * c, vc);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -1167,7 +1184,8 @@ attention_wgmma_kl_kernel(const __grid_constant__ CUtensorMap qmap, const __grid
       // the products span the block's keys below N, rounded up to 16: the
       // last block of a ViT's N (197, 257, 577) has 1 to 5
       const int rem = N - kb * BK;
-      const KlBlock<D> blk{qw, ring + 2 * s * S::KV_BYTES, qd, rem, l2};
+      const uint32_t ks = ring + 2 * s * S::KV_BYTES;
+      const KlBlock<S> blk{qw, ks, ks + S::KV_BYTES, qd, rem, l2, 0};
       if (rem > 48) blk.template run<64>(oc, m, l);
       else if (rem > 32) blk.template run<48>(oc, m, l);
       else if (rem > 16) blk.template run<32>(oc, m, l);
@@ -1196,12 +1214,203 @@ attention_wgmma_kl_kernel(const __grid_constant__ CUtensorMap qmap, const __grid
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head dims 192 to 512 and any N: the key loop above, per 128-column
+// panel of the output
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_MIN_NP = 3;   // the narrowest head dim of the wide kernel, in 64-column panels
+constexpr int WIDE_MAX = 512;    // its widest head dim (ops/attention.WIDE_MAX)
+constexpr int WIDE_NP = WIDE_MAX / 64 - WIDE_MIN_NP + 1;  // its instances
+
+// The shapes of attention_wgmma_wide_kernel<NP> (head dim D = 64 NP). Q is
+// loaded once per unit and stays for all of its output panels; a ring stage
+// holds one K block (BK keys x D) and the V block's 128 columns of one
+// output panel. What fits a block's 232,448 bytes of shared memory with the
+// 1,024 bytes of alignment and mbarriers decides BK, the Q buffers and the
+// stages (pinned below). At d = 256 two Q buffers and two stages took 3.7 %
+// less time than one Q buffer and three stages on an H100
+// (tools/torch_attention_ab.py --wide).
+template <int NP>
+struct Wide {
+  static constexpr int D = 64 * NP;
+  static constexpr int BK = NP <= 6 ? 64 : 32;     // keys per block
+  static constexpr int QROWS = 128;                // query rows of a unit: 64 per warpgroup
+  static constexpr int PANELS = NP;                // 128-byte swizzle rows (64 bf16) per row of d
+  static constexpr int OCOLS = 128;                // columns of an output panel
+  static constexpr int OPANELS = (NP + 1) / 2;     // output panels; an odd NP's last is half past d
+  static constexpr int PANEL_BYTES = BK * 128;     // one 64-column panel of a K or V block
+  static constexpr int Q_BYTES = QROWS * D * 2;
+  static constexpr int K_BYTES = BK * D * 2;
+  static constexpr int V_BYTES = BK * OCOLS * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int QBUF = NP <= 4 ? 2 : 1;     // Q buffers: two where they fit
+  static constexpr int STAGES = NP == 3 || NP == 7 ? 3 : 2;
+  static constexpr int CONSUMERS = 256;            // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+  static constexpr int BYTES = QBUF * Q_BYTES + STAGES * STAGE_BYTES;
+  // QBUF x Q | STAGES x (K, V panel) | mbarriers: Q full[QBUF], Q empty[QBUF], full[STAGES], empty[STAGES]
+  static constexpr size_t SMEM = 1024 + (size_t)BYTES + 8 * (2 * QBUF + 2 * STAGES);
+};
+static_assert(Wide<3>::BYTES == 2 * 49152 + 3 * 40960, "d 192: BK 64, 2 Q + 3 stages");
+static_assert(Wide<4>::BYTES == 2 * 65536 + 2 * 49152, "d 256: BK 64, 2 Q + 2 stages");
+static_assert(Wide<5>::BYTES == 81920 + 2 * 57344, "d 320: BK 64, 1 Q + 2 stages");
+static_assert(Wide<6>::BYTES == 98304 + 2 * 65536, "d 384: BK 64, 1 Q + 2 stages");
+static_assert(Wide<7>::BYTES == 114688 + 3 * 36864, "d 448: BK 32, 1 Q + 3 stages");
+static_assert(Wide<8>::BYTES == 131072 + 2 * 40960, "d 512: BK 32, 1 Q + 2 stages");
+static_assert(Wide<3>::SMEM <= 232448 && Wide<4>::SMEM <= 232448 && Wide<5>::SMEM <= 232448 &&
+                  Wide<6>::SMEM <= 232448 && Wide<7>::SMEM <= 232448 && Wide<8>::SMEM <= 232448,
+              "a unit must fit a block's 227 KB of shared memory");
+static_assert(WIDE_MAX / 64 == 8 && WIDE_MAX % 64 == 0, "Wide<NP> is pinned up to NP = 8");
+
+// attention_wgmma_kl_kernel's unit, grid, warpgroups and key blocks, with
+// the output in panels: a unit is (image b, head h, query rows q0 .. q0 +
+// 127), a persistent grid of one block per SM walks the units in the same
+// order, two consumer warpgroups take 64 query rows each (240 registers a
+// thread) and the producer warpgroup's one thread loads by TMA. Q is loaded
+// once per unit, NP panels of 64 columns, and stays for the unit. For each
+// 128-column panel c of O the consumers walk the key blocks (KlBlock: S =
+// Q K^T over all of d, NP x 4 wgmma steps; the online softmax; O_c += P V_c
+// with the p_hi + p_lo split), m and l starting again: every panel computes
+// the same S, so they come out the same. O_c / l is stored in bf16, rows at
+// or past N and columns at or past d dropped. Each panel re-reads the K
+// blocks (from L2 after the first panel), which costs tensor-core work, not
+// bytes: S is recomputed OPANELS times, so at d = 256 the work is twice
+// SDPA's and stays under the bytes' time. Each consumer warpgroup keeps
+// Kl<128>'s registers: O 64, S 32, the p pairs 32.
+// The ring (one K block and V_c's 128 columns a stage) runs on across
+// panels and units. The tensor maps' d extent is d, so V_c's columns past
+// d (an odd NP's last panel from column 64) arrive as zeros without a read
+// of memory, and a packed layout's next head is never read. The next
+// unit's Q loads as soon as the last panel's last S has read Q (one Q
+// buffer) or at once (two).
+template <int NP>
+__global__ void __launch_bounds__(Wide<NP>::THREADS, 1)
+attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int N, int H,
+                            int qtiles, int units, long long sb, long long sh, long long sn, int pos,
+                            float scale) {
+  using S = Wide<NP>;
+  constexpr int BK = S::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024 bytes
+  const uint32_t ring = base + S::QBUF * S::Q_BYTES;  // stage s: K at ring + s STAGE_BYTES, V_c after it
+  const uint32_t qfull_bar = ring + S::STAGES * S::STAGE_BYTES, qempty_bar = qfull_bar + 8 * S::QBUF;
+  const uint32_t full_bar = qempty_bar + 8 * S::QBUF, empty_bar = full_bar + 8 * S::STAGES;
+  const int tid = threadIdx.x, blocks = (N + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int i = 0; i < S::QBUF; ++i) {
+      mbar_init(qfull_bar + 8 * i, 1);               // the producer's expect_tx
+      mbar_init(qempty_bar + 8 * i, S::CONSUMERS);   // each consumer thread, its last S done
+    }
+    for (int s = 0; s < S::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, S::CONSUMERS);    // each consumer thread, its products done
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= S::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid != S::CONSUMERS) return;
+    int it = 0;  // K and V blocks loaded so far, over all of the block's units and panels
+    for (int i = 0, u = blockIdx.x; u < units; ++i, u += gridDim.x) {
+      const int bh = u / qtiles, b = bh / H, h = bh % H;
+      const uint32_t qb = qfull_bar + 8 * (i % S::QBUF);
+      if (i >= S::QBUF) mbar_wait(qempty_bar + 8 * (i % S::QBUF), (i / S::QBUF - 1) & 1);
+      mbar_expect_tx(qb, S::Q_BYTES);  // rows at or past N arrive zero-filled and count
+      const Coords cq = unit_coords(pos, b, h, (u % qtiles) * S::QROWS);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        tma_load(base + (i % S::QBUF) * S::Q_BYTES + p * S::QROWS * 128, &qmap, qb, cq, 64 * p);
+      for (int c = 0; c < S::OPANELS; ++c) {
+        for (int kb = 0; kb < blocks; ++kb, ++it) {
+          const int s = it % S::STAGES;
+          if (it >= S::STAGES) mbar_wait(empty_bar + 8 * s, (it / S::STAGES - 1) & 1);
+          const uint32_t bar = full_bar + 8 * s, ks = ring + s * S::STAGE_BYTES;
+          mbar_expect_tx(bar, S::STAGE_BYTES);  // columns past d arrive zero-filled and count
+          const Coords ck = unit_coords(pos, b, h, kb * BK);
+#pragma unroll
+          for (int p = 0; p < NP; ++p) tma_load(ks + p * S::PANEL_BYTES, &kmap, bar, ck, 64 * p);
+          tma_load(ks + S::K_BYTES, &vmap, bar, ck, 128 * c);
+          tma_load(ks + S::K_BYTES + S::PANEL_BYTES, &vmap, bar, ck, 128 * c + 64);
+        }
+      }
+    }
+    // stay until the consumers are done with the last blocks: every load
+    // has landed before the thread that issued it exits
+    for (int j = max(it - S::STAGES, 0); j < it; ++j)
+      mbar_wait(empty_bar + 8 * (j % S::STAGES), (j / S::STAGES) & 1);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const float l2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x scale log2 e)
+  int it = 0;
+  for (int i = 0, u = blockIdx.x; u < units; ++i, u += gridDim.x) {
+    const int bh = u / qtiles, b = bh / H, h = bh % H, q0 = (u % qtiles) * S::QROWS;
+    mbar_wait(qfull_bar + 8 * (i % S::QBUF), (i / S::QBUF) & 1);
+    const uint32_t qw = base + (i % S::QBUF) * S::Q_BYTES + wg * 64 * 128;  // this warpgroup's rows
+#pragma unroll 1
+    for (int c = 0; c < S::OPANELS; ++c) {
+      float oc[S::OCOLS / 2];
+#pragma unroll
+      for (int e = 0; e < S::OCOLS / 2; ++e) oc[e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+      for (int kb = 0; kb < blocks; ++kb, ++it) {
+        const int s = it % S::STAGES;
+        mbar_wait(full_bar + 8 * s, (it / S::STAGES) & 1);
+        // the products span the block's keys below N, rounded up to 16
+        const int rem = N - kb * BK;
+        const uint32_t ks = ring + s * S::STAGE_BYTES;
+        const bool last = c == S::OPANELS - 1 && kb == blocks - 1;  // the unit's last S
+        const KlBlock<S> blk{qw, ks, ks + S::K_BYTES, qd, rem, l2,
+                             last ? qempty_bar + 8 * (i % S::QBUF) : 0u};
+        if constexpr (BK == 64) {
+          if (rem > 48) blk.template run<64>(oc, m, l);
+          else if (rem > 32) blk.template run<48>(oc, m, l);
+          else if (rem > 16) blk.template run<32>(oc, m, l);
+          else blk.template run<16>(oc, m, l);
+        } else {
+          if (rem > 16) blk.template run<32>(oc, m, l);
+          else blk.template run<16>(oc, m, l);
+        }
+        mbar_arrive(empty_bar + 8 * s);  // this thread's products of the block are done
+      }
+
+      // O_c / l in bf16, pairs of columns 128 c + 8 j + 2 qd, + 1 below d
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = 1.f / l[r];
+      }
+      const int cols = min(S::OCOLS, S::D - 128 * c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + wg * 64 + 16 * warp + g + 8 * r;
+        if (row >= N) continue;
+        bf16* orow = o + (size_t)b * sb + (size_t)h * sh + (size_t)row * sn + 128 * c + 2 * qd;
+#pragma unroll
+        for (int j = 0; j < S::OCOLS / 8; ++j)
+          if (8 * j < cols)
+            *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+                pack_bf16(oc[4 * j + 2 * r] * l[r], oc[4 * j + 2 * r + 1] * l[r]);
+      }
+    }
+  }
+}
+
 // Kernel slots of prepare_launch (hopper.cuh), each allowed the dynamic
 // shared memory of its largest instance: attention_hopper_kernel<nch> is
 // nch - 1; then attention_fma_kernel<bf16 | float>,
-// attention_tf32x3_kernel<64 | 128> and attention_wgmma_kl_kernel<64 | 128>.
-constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 2, SLOT_KL = MAX_KC + 4;
-constexpr int SLOTS = MAX_KC + 6;
+// attention_tf32x3_kernel<64 | 128>, attention_wgmma_kl_kernel<64 | 128>
+// and attention_wgmma_wide_kernel<3 .. 8>.
+constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 2, SLOT_KL = MAX_KC + 4, SLOT_WIDE = MAX_KC + 6;
+constexpr int SLOTS = SLOT_WIDE + WIDE_NP;
 
 // The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
 // head and image axes in order of stride. An axis of extent 1 other than
@@ -1336,6 +1545,42 @@ int launch_kl(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NP>
+int launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H, long long sb,
+                long long sh, long long sn, float scale, cudaStream_t st) {
+  using S = Wide<NP>;
+  // boxes of one 128-byte row of d (64 bf16) by QROWS query rows or BK keys
+  CUtensorMap maps[3];
+  int pos[3] = {0, 0, 0};
+  const void* const ptrs[3] = {q, k, v};
+  const int rows[3] = {S::QROWS, S::BK, S::BK};
+  const int enc = encode_bhnd_maps(ptrs, rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, N, H, sb, sh,
+                                   sn, S::D, maps, pos);
+  if (enc != cudaSuccess) return enc;
+  const auto kernel = attention_wgmma_wide_kernel<NP>;
+  int sms = 0;
+  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel),
+                                                SLOT_WIDE + NP - WIDE_MIN_NP, S::SMEM, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int qtiles = (N + S::QROWS - 1) / S::QROWS;
+  const long long units = (long long)B * H * qtiles;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(std::min<long long>(units, sms)), S::THREADS, S::SMEM, st>>>(
+      maps[0], maps[1], maps[2], o, N, H, qtiles, static_cast<int>(units), sb, sh, sn,
+      pos[1] | (pos[2] << 2), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using WideLaunch = int (*)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int, long long, long long,
+                           long long, float, cudaStream_t);
+
+// launch_wide<NP> for NP = WIDE_MIN_NP .. WIDE_MAX / 64
+template <int... I>
+WideLaunch wide_launch(int np, std::integer_sequence<int, I...>) {
+  static constexpr WideLaunch launches[] = {launch_wide<WIDE_MIN_NP + I>...};
+  return launches[np - WIDE_MIN_NP];
+}
+
 // q, k, v and o share the strides (in elements) sb of the batch, sh of the
 // head and sn of the row; the head dim D (a multiple of 64) is contiguous.
 template <typename T>
@@ -1435,6 +1680,19 @@ int svt_attention_bhnd_bf16_kl(const void* q, const void* k, const void* v, void
   auto* ob = static_cast<bf16*>(o);
   return d == 64 ? launch_kl<64>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st)
                  : launch_kl<128>(qb, kb, vb, ob, B, N, H, sb, sh, sn, scale, st);
+}
+
+// The bf16 tensor-core route past head dim 128: head dim d = 192, 256, ...,
+// WIDE_MAX, any N. The same TMA requirements as svt_attention_bhnd_bf16;
+// other inputs are refused, not sent to another kernel.
+int svt_attention_bhnd_bf16_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                                 int d, long long sb, long long sh, long long sn, float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || !strides_of(B, H, sb, sh, sn, 8) || B <= 0 || H <= 0 || N <= 0 ||
+      d % 64 != 0 || d < 64 * WIDE_MIN_NP || d > WIDE_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return wide_launch(d / 64, std::make_integer_sequence<int, WIDE_NP>{})(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), B, N, H, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

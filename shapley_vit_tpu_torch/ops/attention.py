@@ -16,7 +16,8 @@ plain version (:func:`fused_attention_packed_plain`,
 gradient: called where autograd would need one, it raises rather than cut
 the graph.
 
-The tensor-core kernels are built for head dims 64 and 128 (``HEAD_DIMS``).
+The key-loop tensor-core kernels are built for head dims 64 and 128
+(``HEAD_DIMS``), the wide one for multiples of 64 from 192 to ``WIDE_MAX``.
 On the card a head dim under 64 is zero-padded to 64, one of 65 to 127 to
 128, and one past 128 to a multiple of 64 (:func:`kernel_head_dim`), before
 the launch and the output cut back (:func:`resize_heads`), with the true
@@ -28,8 +29,9 @@ online softmax, as the JAX kernels pad N with no cap.
 
 :func:`attention_route` picks the kernel before the launch: ``"wgmma"``
 (bf16 at head dim 64 and N <= 224; the main paths), ``"wgmma_kl"`` (bf16
-at head dim 128 or past 224 keys), ``"tf32x3"`` (float32 at head dim 64 or
-128, any N) or ``"fma"`` (head dims past 128, either dtype). The
+at head dim 128 or past 224 keys), ``"wgmma_wide"`` (bf16 at head dims 192
+to 512, any N), ``"tf32x3"`` (float32 at head dim 64 or 128, any N) or
+``"fma"`` (float32 past head dim 128, bf16 past 512). The
 tensor-core kernels read through the TMA: the wrappers first copy tensors
 that it cannot read (pointers not 16-byte aligned, strides not multiples
 of 16 bytes) to fresh contiguous ones. Each wrapper keeps the route of its
@@ -55,10 +57,11 @@ _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 _SIG_END = [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
 # entry -> argtypes: (q, k, v, o, B, H, N, [d,] sb, sh, sn, scale, stream)
 _FNS = {f"svt_attention_bhnd_{t}": _SIG + [ctypes.c_int] + _SIG_END
-        for t in ("fma_bf16", "fma_f32", "tf32x3", "bf16_kl")}
+        for t in ("fma_bf16", "fma_f32", "tf32x3", "bf16_kl", "bf16_wide")}
 _FNS["svt_attention_bhnd_bf16"] = _SIG + _SIG_END  # head dim 64 only
-HEAD_DIMS = (64, 128)  # the head dims the tensor-core kernels are built for
-WIDE_STEP = 64         # head dims past 128 are padded to a multiple of this (the FMA kernel's)
+HEAD_DIMS = (64, 128)  # the head dims the key-loop tensor-core kernels are built for
+WIDE_STEP = 64         # head dims past 128 are padded to a multiple of this (the wide and FMA kernels')
+WIDE_MAX = 512         # the bf16 wide tensor-core kernel's widest head dim (WIDE_MAX in csrc/attention.cu)
 WGMMA_MAX_SEQ = 224    # the bf16 tensor-core kernel's longest N (MAX_KC * KC in csrc/attention.cu)
 
 
@@ -99,18 +102,20 @@ def tma_readable(tensors, B: int, H: int, strides) -> bool:
 
 def attention_route(dtype: torch.dtype, N: int, head_dim: int) -> str:
     """The kernel that q, k, v of ``dtype`` with N rows and padded
-    ``head_dim`` take: ``"fma"`` past head dim 128; else ``"tf32x3"`` for
-    float32, ``"wgmma"`` for bf16 at head dim 64 and N <= 224 and
-    ``"wgmma_kl"`` for other bf16. The tensor-core routes read what the TMA
-    can read (:func:`tma_readable`): the wrappers copy other tensors first."""
-    if head_dim not in HEAD_DIMS:
-        return "fma"
-    if dtype == torch.float32:
-        return "tf32x3"
-    return "wgmma" if head_dim == 64 and N <= WGMMA_MAX_SEQ else "wgmma_kl"
+    ``head_dim`` take: up to head dim 128 ``"tf32x3"`` for float32,
+    ``"wgmma"`` for bf16 at head dim 64 and N <= 224 and ``"wgmma_kl"`` for
+    other bf16; past 128 ``"wgmma_wide"`` for bf16 up to ``WIDE_MAX`` and
+    ``"fma"`` for the rest. Every route but ``"fma"`` reads what the TMA can
+    read (:func:`tma_readable`): the wrappers copy other tensors first."""
+    if head_dim in HEAD_DIMS:
+        if dtype == torch.float32:
+            return "tf32x3"
+        return "wgmma" if head_dim == 64 and N <= WGMMA_MAX_SEQ else "wgmma_kl"
+    return "wgmma_wide" if dtype == torch.bfloat16 and head_dim <= WIDE_MAX else "fma"
 
 
-_ENTRY = {"wgmma": "bf16", "wgmma_kl": "bf16_kl", "tf32x3": "tf32x3", "fma": "fma_"}
+_ENTRY = {"wgmma": "bf16", "wgmma_kl": "bf16_kl", "wgmma_wide": "bf16_wide", "tf32x3": "tf32x3",
+          "fma": "fma_"}
 
 
 def _count(wrapper, route: str, q: torch.Tensor, d: int, N: int) -> None:
@@ -184,7 +189,7 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = kernel_head_dim(d)
     if dk != d:
         q, k, v = (resize_heads(t, heads, dk) for t in (q, k, v))
-    if dk in HEAD_DIMS:  # the tensor-core routes read 16-byte aligned tensors only
+    if attention_route(q.dtype, N, dk) != "fma":  # the TMA reads 16-byte aligned tensors only
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     # the packed layout as [B, H, N, d] strides: batch N·H·d, head d, row H·d
@@ -252,7 +257,8 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
         q, k, v = (resize_heads(t, 1, dk) for t in (q, k, v))
     out = torch.empty_like(q)
     if not (q.stride() == k.stride() == v.stride() == out.stride() and q.stride(-1) == 1
-            and (dk not in HEAD_DIMS or tma_readable((q, k, v), B, H, q.stride()[:3]))):
+            and (attention_route(q.dtype, N, dk) == "fma"
+                 or tma_readable((q, k, v), B, H, q.stride()[:3]))):
         q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
         out = torch.empty_like(q)
     _build.check_tensors("fused_attention", q, k, v, contiguous=False)

@@ -203,11 +203,12 @@ def _share_bound(n: int) -> float:
 
 def _attention_route(dtype, N, d=64):
     """The route of a head dim d (padded as the wrappers pad it): past 128
-    the FMA units; bf16 on the main paths' tensor-core kernel up to 224 keys
-    at head dim 64 (padded), else on the key-loop one; float32 on the
-    tensor cores (3xTF32)."""
+    bf16 on the wide tensor-core kernel up to 512 and the FMA units past
+    it, float32 on the FMA units; bf16 on the main paths' tensor-core
+    kernel up to 224 keys at head dim 64 (padded), else on the key-loop
+    one; float32 on the tensor cores (3xTF32)."""
     if d > 128:
-        return "fma"
+        return "wgmma_wide" if dtype == torch.bfloat16 and d <= 512 else "fma"
     if dtype == torch.float32:
         return "tf32x3"
     return "wgmma" if N <= 224 and d <= 64 else "wgmma_kl"
@@ -438,19 +439,21 @@ def test_attention_narrow_head_dims(dtype, d, B, N, H):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [136, 256, 384])
+@pytest.mark.parametrize("d", [136, 256, 384, 448, 512, 576])
 @pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (2, 257, 2)])
 def test_attention_wide_head_dims(dtype, d, B, N, H):
-    """Head dims past 128 take the FMA route in both dtypes, zero-padded to a
-    multiple of 64 (136 to 192) with the true head dim's scale and cut
-    back; 256 and 384 run as they are."""
+    """Head dims past 128, zero-padded to a multiple of 64 (136 to 192)
+    with the true head dim's scale and cut back, the others run as they
+    are: bf16 on the wide tensor-core route up to 512 (an odd number of
+    64-column panels at 192 and 448, 32-key blocks at 448 and 512) and on
+    the FMA route at 576, float32 on the FMA route."""
     _check_head_dim(dtype, d, B, N, H)
 
 
 def _check_head_dim(dtype, d, B, N, H):
     """Both entries at head dim d against their plain versions, on the
-    route of d, N and dtype; on the key-loop route the share of outputs
-    that differ from the plain version's within ``_share_bound``."""
+    route of d, N and dtype; on the key-loop and wide routes the share of
+    outputs that differ from the plain version's within ``_share_bound``."""
     rng = np.random.default_rng(12)
     q, k, v = (_randn(rng, (B, N, H * d), dtype=dtype) for _ in range(3))
     before = att.fused_attention_packed.launches
@@ -461,7 +464,7 @@ def _check_head_dim(dtype, d, B, N, H):
     assert got.dtype == dtype and got.shape == q.shape
     want = att.fused_attention_packed_plain(q, k, v, heads=H)
     _close(got, want, dtype)
-    if att.fused_attention_packed.route == "wgmma_kl":
+    if att.fused_attention_packed.route in ("wgmma_kl", "wgmma_wide"):
         assert _share_differing(got, want) <= _share_bound(got.numel())
     qh, kh, vh = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
     before = att.fused_attention.launches
@@ -472,8 +475,30 @@ def _check_head_dim(dtype, d, B, N, H):
     assert got.dtype == dtype and got.shape == (B, H, N, d)
     want = att.fused_attention_plain(qh, kh, vh)
     _close(got, want, dtype)
-    if att.fused_attention.route == "wgmma_kl":
+    if att.fused_attention.route in ("wgmma_kl", "wgmma_wide"):
         assert _share_differing(got, want) <= _share_bound(got.numel())
+
+
+def test_bhnd_attention_gradient_at_head_dim_256():
+    """The gradient through the wide tensor-core route's forward (bf16,
+    [2, 3, 197, 256]) against autograd through the plain version; the
+    backward launches nothing."""
+    rng = np.random.default_rng(15)
+    B, H, N, d = 2, 3, 197, 256
+    base = [_randn(rng, (B, N, H * d), dtype=torch.bfloat16) for _ in range(3)]
+    cot = _randn(rng, (B, H, N, d), dtype=torch.bfloat16)
+    grads = []
+    for fn in (att.fused_attention, att.fused_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        out = fn(*[t.view(B, N, H, d).transpose(1, 2) for t in leaves])
+        if fn is att.fused_attention:
+            assert att.fused_attention.route == "wgmma_wide"
+        before = att.fused_attention.launches
+        out.backward(cot)
+        assert att.fused_attention.launches == before
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        _close(a, b, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -571,9 +596,10 @@ def test_attention_float32_at_the_round_shape():
 def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
     """The tensor-core entries refuse unaligned tensors, strides that are not
     multiples of 16 bytes and head dims other than 64 and 128 (the bf16 main
-    paths' entry, which takes no head dim, N past 224), and the FMA entries
-    head dims that are not multiples of 64: each with an error and no
-    launch, rather than running another kernel."""
+    paths' entry, which takes no head dim, N past 224; the wide entry head
+    dims other than 192, 256, ..., 512), and the FMA entries head dims that
+    are not multiples of 64: each with an error and no launch, rather than
+    running another kernel."""
     from shapley_vit_tpu_torch.ops import _build
 
     lib = _build.load("attention", att._FNS)
@@ -587,6 +613,11 @@ def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
                                             (torch.bfloat16, "bf16_kl", 64, N, 0, 4),
                                             (torch.bfloat16, "bf16_kl", 80, N, 0, 0),
                                             (torch.bfloat16, "bf16_kl", 256, 577, 0, 0),
+                                            (torch.bfloat16, "bf16_wide", 256, N, 1, 0),
+                                            (torch.bfloat16, "bf16_wide", 256, N, 0, 4),
+                                            (torch.bfloat16, "bf16_wide", 128, N, 0, 0),
+                                            (torch.bfloat16, "bf16_wide", 576, N, 0, 0),
+                                            (torch.bfloat16, "bf16_wide", 200, N, 0, 0),
                                             (torch.bfloat16, "fma_bf16", 80, N, 0, 0),
                                             (torch.float32, "fma_f32", 136, N, 0, 0)):
         row = H * d + pad  # a row stride of H d + 4: not a multiple of 8 bf16
@@ -618,12 +649,15 @@ def test_attention_bf16_entry_refuses_what_tma_cannot_read():
 
 
 @pytest.mark.parametrize("entry", ["packed", "bhnd"])
-@pytest.mark.parametrize("N,H,d", [(197, 12, 64), (257, 12, 64), (197, 6, 128), (197, 3, 256)])
+@pytest.mark.parametrize("N,H,d", [(197, 12, 64), (257, 12, 64), (197, 6, 128), (197, 3, 256),
+                                   (197, 4, 192), (197, 1, 576)])
 def test_attention_reads_no_row_past_the_last_image(entry, N, H, d):
     """q, k and v end where a NaN image begins: a kernel that read rows at or
     past N of the last image would put NaN into its outputs. Each bf16
     route: the main paths' (N = 197), the key-loop one (N = 257, head dim
-    128) and the FMA one (head dim 256)."""
+    128), the wide one (head dims 256 and 192; at 192 the second output
+    panel's columns past d are, packed, the next head's, and on the last
+    head the NaN image's) and the FMA one (head dim 576)."""
     rng = np.random.default_rng(8)
     B = 3
     bufs = []

@@ -14,8 +14,9 @@ card's wrappers do around the kernels at those widths:
 * the head-dim padding of the attention wrappers (``resize_heads``), run
   through the plain attention with the true head dim's scale, against the
   JAX kernels at d = 16, 32 (padded to 64), 80 and 128 (padded to or run at
-  128) and N up to 257, and at d = 136 and 256 (padded to 192, run at 256;
-  the JAX wrappers pad both to 256) (float32, atol 1e-5);
+  128) and N up to 257, and at d = 136, 256, 384 and 512 (136 padded to
+  192, the others run as they are; the JAX wrappers pad to a multiple of
+  128) (float32, atol 1e-5);
 * which MLP kernel a call would take on the card (``mlp_route``), which
   attention kernel (``attention_route``), which patch-embedding kernel
   (``ROUTE``), and which head dims the attention wrappers take;
@@ -79,18 +80,19 @@ def test_mlp_at_micro_and_tiny_widths_matches_pallas(D, M, approximate, dtype):
 
 
 @pytest.mark.parametrize("N,d", [*((N, d) for N in (197, 50, 257) for d in (16, 32, 80, 128)),
-                                 (50, 136), (50, 256)])
+                                 (50, 136), (50, 256), (50, 384), (17, 512)])
 def test_padded_head_dims_match_pallas(d, N, monkeypatch):
     """What the card's wrappers launch for a head dim the kernels do not
     take: q/k/v zero-padded per head to 64, 128 or, past 128, a multiple of
     64 (136 to 192), the kernel's arithmetic (the plain version) at the true
-    head dim's scale, the output cut back; 128 and 256 run as they are.
-    N = 257 is past the 224 keys of the main paths' bf16 tensor-core route."""
+    head dim's scale, the output cut back; 128, 256, 384 and 512 run as
+    they are. N = 257 is past the 224 keys of the main paths' bf16
+    tensor-core route."""
     B, H = 2, 3
     rng = np.random.default_rng(d + N)
     q, k, v = (_np(rng, (B, N, H * d)) for _ in range(3))
     dk = tatt.kernel_head_dim(d)
-    assert dk == {16: 64, 32: 64, 80: 128, 128: 128, 136: 192, 256: 256}[d]
+    assert dk == {16: 64, 32: 64, 80: 128, 128: 128, 136: 192, 256: 256, 384: 384, 512: 512}[d]
     scale = 1.0 / math.sqrt(d)
 
     padded = [tatt.resize_heads(torch.tensor(t), H, dk) for t in (q, k, v)]
@@ -123,9 +125,9 @@ def test_resize_heads_pads_with_zeros_and_cuts_back():
                                   (136, 192), (256, 256), (320, 320), (0, None)])
 def test_attention_head_dims_the_kernel_takes(d, dk):
     """Any head dim from 1 runs: up to 128 zero-padded to 64 or 128 (the
-    tensor-core routes' widths), past 128 to a multiple of 64 (the FMA
-    route's), as the JAX wrappers pad d to a multiple of 128 with no cap;
-    d < 1 is refused."""
+    key-loop tensor-core routes' widths), past 128 to a multiple of 64 (the
+    wide tensor-core and FMA routes'), as the JAX wrappers pad d to a
+    multiple of 128 with no cap; d < 1 is refused."""
     if dk is not None:
         assert tatt.kernel_head_dim(d) == dk
     else:
@@ -191,8 +193,11 @@ def test_patch_embed_runs_on_the_tensor_cores_in_both_dtypes():
     (torch.bfloat16, 17, 128, "wgmma_kl"),   # head dim 128 at any N
     (torch.bfloat16, 197, 128, "wgmma_kl"),
     (torch.bfloat16, 577, 128, "wgmma_kl"),
-    (torch.bfloat16, 197, 256, "fma"),       # past head dim 128
-    (torch.bfloat16, 577, 192, "fma"),
+    (torch.bfloat16, 197, 256, "wgmma_wide"),  # past head dim 128
+    (torch.bfloat16, 577, 192, "wgmma_wide"),
+    (torch.bfloat16, 17, 512, "wgmma_wide"),   # the widest it takes
+    (torch.bfloat16, 65, 320, "wgmma_wide"),
+    (torch.bfloat16, 197, 576, "fma"),         # past WIDE_MAX
     (torch.float32, 197, 64, "tf32x3"),      # the float32 round and training views
     (torch.float32, 17, 64, "tf32x3"),
     (torch.float32, 577, 64, "tf32x3"),      # 384 px: any N
@@ -202,13 +207,14 @@ def test_patch_embed_runs_on_the_tensor_cores_in_both_dtypes():
 ])
 def test_attention_route(dtype, N, d, route):
     """The kernel the attention entries launch on the card for a padded head
-    dim d: past 128 the FMA one, in either dtype; else for bf16 the main
-    paths' tensor-core one at head dim 64 and N <= 224 and the key-loop
-    tensor-core one at any other N or head dim 128; for float32 the float32
-    tensor-core one (3xTF32) at any N. Where the tensors lie does not
-    change the route: the wrappers copy what the TMA cannot read
-    (``test_tma_readable``) before a tensor-core launch, and the FMA kernel
-    reads any."""
+    dim d: for bf16 the main paths' tensor-core one at head dim 64 and
+    N <= 224, the key-loop tensor-core one at any other N or head dim 128,
+    the wide tensor-core one (128-column output panels) at head dims 192 to
+    512 and any N, and the FMA one past 512; for float32 the float32
+    tensor-core one (3xTF32) up to head dim 128 at any N and the FMA one
+    past 128. Where the tensors lie does not change the route: the wrappers
+    copy what the TMA cannot read (``test_tma_readable``) before a
+    tensor-core launch, and the FMA kernel reads any."""
     assert tatt.attention_route(dtype, N, d) == route
 
 
@@ -240,10 +246,23 @@ def test_wgmma_route_limit_is_the_kernel_s():
     assert consts["MAX_KC"] * consts["KC"] == tatt.WGMMA_MAX_SEQ
 
 
+def test_wide_route_limit_is_the_kernel_s():
+    """``WIDE_MAX``, the widest padded head dim the route sends the bf16
+    wide tensor-core kernel, is the kernel's own in ``csrc/attention.cu``,
+    whose entry refuses wider heads, and the route takes every multiple of
+    ``WIDE_STEP`` from 192 up to it."""
+    src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
+    assert int(re.search(r"constexpr int WIDE_MAX = (\d+);", src).group(1)) == tatt.WIDE_MAX
+    for d in range(192, tatt.WIDE_MAX + 1, tatt.WIDE_STEP):
+        assert tatt.attention_route(torch.bfloat16, 197, d) == "wgmma_wide"
+    assert tatt.attention_route(torch.bfloat16, 197, tatt.WIDE_MAX + tatt.WIDE_STEP) == "fma"
+
+
 def test_wide_head_dim_step_is_the_fma_kernel_s():
     """``WIDE_STEP``, the multiple that head dims past 128 are padded to, is
     the FMA kernel's: the SL columns of d it stages per pass in
-    ``csrc/attention.cu``, whose entries refuse other head dims."""
+    ``csrc/attention.cu``, whose entries refuse other head dims (the wide
+    tensor-core entry takes the same multiples, 64-column panels)."""
     src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
     assert int(re.search(r"constexpr int SL = (\d+);", src).group(1)) == tatt.WIDE_STEP
 
@@ -277,8 +296,9 @@ def test_depth2_vit_past_224_keys_and_at_head_dim_96_matches_jax(case):
     """A depth-2 ViT with a non-trivial LoRA overlay where the card's
     attention runs past the main paths' bf16 tensor-core route's 224 keys
     (tiny at 256 px: N = 257), at a head dim that is padded to 128 (tiny
-    with 2 heads of 96) or at one past 128 (tiny with 1 head of 192, the FMA
-    route's): the port on the CPU against the JAX ViT's XLA path."""
+    with 2 heads of 96) or at one past 128 (tiny with 1 head of 192, the
+    wide tensor-core route's in bf16 and the FMA route's in float32): the
+    port on the CPU against the JAX ViT's XLA path."""
     over = {"image256": dict(depth=2, image=256), "head_dim96": dict(depth=2, heads=2),
             "head_dim192": dict(depth=2, heads=1)}[case]
     spec_j = jvit.make_spec("tiny", **over)

@@ -3,7 +3,7 @@
 ``shapley_vit_tpu_torch/csrc/attention.cu`` on one NVIDIA GPU.
 
     git show <rev>:shapley_vit_tpu_torch/csrc/attention.cu > exp/other_attention.cu
-    python3 tools/torch_attention_ab.py [--dtype float32 | --long] exp/other_attention.cu [more.cu ...]
+    python3 tools/torch_attention_ab.py [--dtype float32 | --long | --wide] exp/other_attention.cu [more.cu ...]
 
 Each other source is built and run by ``tools/torch_kernel_ab.py`` with the
 packed layout's strides, as ``fused_attention_packed`` calls it.
@@ -22,6 +22,13 @@ packed layout's strides, as ``fused_attention_packed`` calls it.
   at N = 197), each source through its ``svt_attention_bhnd_bf16_kl`` entry,
   or through its FMA entry ``svt_attention_bhnd_fma_bf16`` where it has
   none.
+* ``--wide``: bf16 at ``chip_smoke.LONG_ATTENTION``'s head dims from 192
+  to 512 (64 images, N = 197: 4 heads of 192, 3 of 256, 2 of 384, 1 of
+  512), each source through its ``svt_attention_bhnd_bf16_wide`` entry, or
+  through its FMA entry ``svt_attention_bhnd_fma_bf16`` where it has none.
+  Each line also has the least time the card could take (``bound_ms``:
+  the bytes of q, k, v and o over 3.35 TB/s against 4 B H N² d FLOP over
+  989 TFLOP/s).
 * ``--dtype float32``: through ``svt_attention_bhnd_tf32x3`` where the
   source has it, else through the FMA kernel's ``svt_attention_bhnd_f32``
   (in sources without the tensor-core route that entry takes no head dim),
@@ -29,10 +36,11 @@ packed layout's strides, as ``fused_attention_packed`` calls it.
 
 For each kernel and input, one JSON line (``torch_kernel_ab.measure``:
 error and share differing from the plain version's output, ms per call, ms
-among 20 back to back, host µs) and the same two errors against the
-float64 result (``exact_*``: the exact value rounded to the dtype), and
-whether its output is bit-identical to this tree's kernel's (``this``: the
-main paths' kernel, or the key-loop one under ``--long``).
+among 20 back to back, host µs, device ms from ``torch.profiler``) and the
+same two errors against the float64 result (``exact_*``: the exact value
+rounded to the dtype), and whether its output is bit-identical to this
+tree's kernel's (``this``: the main paths' kernel, the key-loop one under
+``--long``, the wide one under ``--wide``).
 ``F.scaled_dot_product_attention`` on the same inputs runs first and last
 (float32 products in full float32).
 """
@@ -50,15 +58,18 @@ import torch_kernel_ab as ab
 YARDSTICK = "sdpa"
 
 
-def inputs(dtype, long: bool):
+def inputs(dtype, mode: str):
     """(name, q, k, v, heads), packed [B, N, heads·d] in ``dtype``."""
     import torch
 
+    from shapley_vit_tpu_torch.ops import attention as att
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if long:
+    if mode in ("long", "wide"):
+        low, high = (0, 128) if mode == "long" else (128, att.WIDE_MAX)
         return [(tag, *(torch.randn((ab.chip_smoke.TB, n, h * d), generator=gen, device="cuda")
                         .to(dtype) for _ in range(3)), h)
-                for tag, (n, h, d) in ab.chip_smoke.LONG_ATTENTION.items() if d <= 128]
+                for tag, (n, h, d) in ab.chip_smoke.LONG_ATTENTION.items() if low < d <= high]
     path = os.path.join(ab.ROOT, "tests", "test_torch_kernels.py")
     spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
     tests = importlib.util.module_from_spec(spec)
@@ -79,11 +90,11 @@ def main() -> int:
     from shapley_vit_tpu_torch.ops import attention as att
 
     argv = sys.argv[1:]
-    dname, long = "bfloat16", False
+    dname, mode = "bfloat16", "main"
     if argv[:1] == ["--dtype"]:
         dname, argv = argv[1], argv[2:]
-    elif argv[:1] == ["--long"]:
-        long, argv = True, argv[1:]
+    elif argv[:1] in (["--long"], ["--wide"]):
+        mode, argv = argv[0][2:], argv[1:]
     if not argv or dname not in ("bfloat16", "float32") or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -96,10 +107,9 @@ def main() -> int:
 
     def entry(lib):
         """(C entry, whether it takes the head dim)"""
-        if long:
-            name = "svt_attention_bhnd_bf16_kl" if hasattr(lib, "svt_attention_bhnd_bf16_kl") \
-                else "svt_attention_bhnd_fma_bf16"
-            return ab.entry(lib, name, with_d), True
+        if mode != "main":
+            name = f"svt_attention_bhnd_bf16_{'kl' if mode == 'long' else 'wide'}"
+            return ab.entry(lib, name if hasattr(lib, name) else "svt_attention_bhnd_fma_bf16", with_d), True
         if dtype == torch.bfloat16:
             return ab.entry(lib, "svt_attention_bhnd_bf16", att._FNS["svt_attention_bhnd_bf16"]), False
         if hasattr(lib, "svt_attention_bhnd_tf32x3"):
@@ -107,10 +117,11 @@ def main() -> int:
         return ab.entry(lib, "svt_attention_bhnd_f32", att._FNS["svt_attention_bhnd_bf16"]), False
 
     fns = {name: entry(lib) for name, lib in libs.items()}
-    if dtype == torch.bfloat16 and not long:
+    if dtype == torch.bfloat16 and mode == "main":
         fns["this_kl"] = ab.entry(libs["this"], "svt_attention_bhnd_bf16_kl", with_d), True
+    pk = ab.chip_smoke.peaks(torch.cuda.get_device_name(0))
 
-    for name, q, k, v, H in inputs(dtype, long):
+    for name, q, k, v, H in inputs(dtype, mode):
         B, N, HD = q.shape
         d = HD // H
         scale = 1.0 / math.sqrt(d)
@@ -121,6 +132,10 @@ def main() -> int:
         exact = exact.transpose(1, 2).reshape(B, N, H * d)
         del qd, kd, vd
         exact_rounded = exact.to(dtype)
+        bound = {}
+        if mode == "wide":
+            bound["bound_ms"] = 1e3 * max(4 * q.numel() * q.element_size() / pk["bytes"],
+                                          4.0 * B * H * N * N * d / pk[dname])
 
         def runner(which):
             fn, takes_d = fns[which]
@@ -153,7 +168,7 @@ def main() -> int:
             del got
             print(json.dumps({"inputs": name, "kernel": which, "dtype": dname, "shape": list(q.shape),
                               "heads": H, **ab.measure(runs[which], want, 20, 10, layout),
-                              **exact_row}),
+                              **exact_row, **bound}),
                   flush=True)
         del exact, exact_rounded, want, runs, first
         torch.cuda.empty_cache()

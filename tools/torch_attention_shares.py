@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Share of bf16 attention outputs that differ from the plain version's, on
-the two bf16 tensor-core kernels, over many seeds, on one NVIDIA GPU.
+the bf16 tensor-core kernels, over many seeds, on one NVIDIA GPU.
 
-    python3 tools/torch_attention_shares.py [--seeds S]
+    python3 tools/torch_attention_shares.py [--seeds S] [--wide]
 
 Inputs: those of ``tests/test_torch_kernels.py``'s bf16 attention tests
 (``numpy.random.default_rng(seed).normal``, as its ``_randn``; packed
 ``[B, N, H·d]``), at the shapes of ``test_attention_kernel_matches_plain``
 (head dim 64; the round's [896, 197, 12 heads] left out) and of
-``test_attention_narrow_head_dims`` (head dims 16 to 128), for seeds 0 to
-S - 1 (default 32; the tests draw seed 1 and seed 12). Head dims are
+``test_attention_narrow_head_dims`` (head dims 16 to 128) and of
+``test_attention_wide_head_dims`` (bf16 head dims 136 to 512), for seeds 0
+to S - 1 (default 32; the tests draw seed 1 and seed 12). Head dims are
 zero-padded as the wrappers pad them, with the true head dim's scale.
+``--wide`` runs the wide head dims alone.
 
-Each shape runs on the key-loop kernel (``svt_attention_bhnd_bf16_kl``);
-where the main paths' kernel (``svt_attention_bhnd_bf16``) takes it too
-(padded head dim 64, N <= 224), that one runs on the same inputs. One JSON
+Each shape up to head dim 128 runs on the key-loop kernel
+(``svt_attention_bhnd_bf16_kl``); where the main paths' kernel
+(``svt_attention_bhnd_bf16``) takes it too (padded head dim 64, N <= 224),
+that one runs on the same inputs. Wider ones run on the wide kernel
+(``svt_attention_bhnd_bf16_wide``). One JSON
 line per shape and kernel: the share for each seed, their mean, the share
 pooled over all seeds' outputs and that pool's binomial standard deviation.
 Then one line per group (``paired``: the shapes both kernels take;
-``n_past_224``; ``d128``: padded head dim 128 at N <= 224) and kernel,
-pooled over its shapes and seeds.
+``n_past_224``; ``d128``: padded head dim 128 at N <= 224; ``wide``:
+padded head dims 192 to 512) and kernel, pooled over its shapes and
+seeds.
 """
 
 from __future__ import annotations
@@ -37,15 +42,21 @@ sys.path.insert(0, ROOT)
 PACKED = [(3, 197, 12), (2, 100, 4), (2, 64, 2), (1, 224, 1), (1, 1, 2), (2, 8, 3), (3, 63, 4),
           (2, 65, 3), (133, 100, 1), (2, 225, 12), (2, 257, 12), (2, 577, 4)]
 NARROW = [(3, 197, 2), (2, 17, 3), (896, 17, 2), (2, 225, 3), (2, 257, 2), (2, 577, 1)]
+WIDE = [(3, 197, 2), (2, 17, 3), (2, 257, 2)]
 
 
-def shapes():
+def shapes(wide_only: bool):
     """(B, N, H, d) of the tests' bf16 tensor-core cases."""
+    wide = [(B, N, H, d) for d in (136, 256, 384, 448, 512) for B, N, H in WIDE]
+    if wide_only:
+        return wide
     return [(B, N, H, 64) for B, N, H in PACKED] + [
-        (B, N, H, d) for d in (16, 32, 80, 96, 128) for B, N, H in NARROW]
+        (B, N, H, d) for d in (16, 32, 80, 96, 128) for B, N, H in NARROW] + wide
 
 
 def group(N: int, dk: int) -> str:
+    if dk > 128:
+        return "wide"
     if N > 224:
         return "n_past_224"
     return "paired" if dk == 64 else "d128"
@@ -58,7 +69,7 @@ def main() -> int:
     from shapley_vit_tpu_torch.ops import attention as att
 
     argv = sys.argv[1:]
-    seeds = int(argv[1]) if argv[:1] == ["--seeds"] else 32
+    seeds = int(argv[argv.index("--seeds") + 1]) if "--seeds" in argv else 32
     if not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 2
@@ -81,9 +92,10 @@ def main() -> int:
         return att.resize_heads(out, H, d)
 
     pools = {}
-    for B, N, H, d in shapes():
+    for B, N, H, d in shapes("--wide" in argv):
         dk = att.kernel_head_dim(d)
-        entries = ["bf16_kl"] + (["bf16"] if dk == 64 and N <= 224 else [])
+        entries = (["bf16_wide"] if dk > 128 else
+                   ["bf16_kl"] + (["bf16"] if dk == 64 and N <= 224 else []))
         shares = {e: [] for e in entries}
         for seed in range(seeds):
             rng = np.random.default_rng(seed)

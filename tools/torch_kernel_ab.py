@@ -68,9 +68,11 @@ def measure(run, want, calls: int, reps: int, layout=None) -> dict:
     """One run against the plain version's output ``want``: the largest
     difference and the share of outputs that differ (``layout`` brings a
     yardstick's output to ``want``'s layout first, untimed); the time of one
-    call per event pair (``ms``: ``chip_smoke.cuda_ms`` over ``reps``) and
-    the device time of one call among ``calls`` back to back with the host's
-    time to launch one (``chip_smoke.back_to_back``)."""
+    call per event pair (``ms``: ``chip_smoke.cuda_ms`` over ``reps``), the
+    time of one call among ``calls`` back to back with the host's time to
+    launch one (``chip_smoke.back_to_back``), and the device time of one
+    call among ``calls`` back to back, the kernels alone
+    (``chip_smoke.device_ms``)."""
     import torch
 
     got = run() if layout is None else layout(run())
@@ -80,4 +82,4 @@ def measure(run, want, calls: int, reps: int, layout=None) -> dict:
     del got
     ms_b2b, host_us = chip_smoke.back_to_back(run, calls)
     return {**row, "ms": chip_smoke.cuda_ms(run, reps), "ms_back_to_back": ms_b2b,
-            "host_us": host_us}
+            "host_us": host_us, "device_ms": chip_smoke.device_ms(run, calls)[0]}
