@@ -32,10 +32,11 @@ Phases, each printing one JSON line:
    is the kernel that ran, as the wrapper recorded it at the launch (its
    ``route`` attribute), and must be the one ``expected_route`` names:
    ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 patch
-   embedding, fused MLP and attention on the tensor cores) or ``fma`` (the
-   FMA units). The float32 patch row has a second yardstick beside
-   ``F.conv2d``, its plain version's own products (the ``patchify`` copy
-   and one ``torch.addmm`` with TF32 off: ``library2_ms``). Each row also has the
+   embedding, fused MLP and attention on the tensor cores; ``tf32x3_wide``
+   attention past head dim 128) or ``fma`` (the FMA units). The float32
+   patch row has a second yardstick beside ``F.conv2d``, its plain
+   version's own products (the ``patchify`` copy and one ``torch.addmm``
+   with TF32 off: ``library2_ms``). Each row also has the
    device time of its kernel and of its library call alone, from
    ``torch.profiler`` over calls launched back to back (``device_ms``,
    ``library_device_ms``; ``device_kernels``: the device time of each
@@ -49,7 +50,9 @@ Phases, each printing one JSON line:
    ``wgmma_kl`` (the key-loop tensor-core kernel) and float32 on
    ``tf32x3``, and head dims 192, 256, 384 and 512 (4, 3, 2 and 1 heads),
    bf16 on ``wgmma_wide`` (the key loop in 128-column output panels), and
-   576 (1 head), bf16 on ``fma``; float32 past 128 on ``fma``.
+   576 (1 head), bf16 on ``fma``; float32 past 128 on ``tf32x3_wide`` (Q
+   and K streamed in 32-column panels of d), its ``bound_ms`` at the
+   3xTF32 rate.
    ``fused_attention``'s and ``patch_embed``'s
    gradients (each an ``autograd.Function``) are held against autograd
    through the plain version on the same inputs, with the same tolerances
@@ -106,14 +109,14 @@ Phases, each printing one JSON line:
    each (4 images; 128 for ViT-B), finite, with the patch, packed-attention
    and MLP counters advancing (zeroed just before: one patch launch and
    one of each per block) and every packed-attention launch on the
-   variant's route (ViT-B at head dim 256: ``wgmma_wide`` in bf16, ``fma``
-   in float32); each of the four kernels at the variant's widths (bf16 at
-   the bf16 forward's images, float32 at 4: patch P 16 or 4, attention
-   heads of 64, 16 or 256, MLP D 192 / 768, 32 / 64 or 768 / 3072) against
-   its plain version on the same seeded inputs, bf16 on ``wgmma``
-   (attention at head dim 256 on ``wgmma_wide``) and float32 on ``tf32x3``
-   (attention at 256 on ``fma``), with the ``kernels`` phase's tolerances
-   and, for bf16 attention, its ``share_bound``; each route a literal of
+   variant's route (ViT-B at head dim 256: ``wgmma_wide`` in bf16,
+   ``tf32x3_wide`` in float32); each of the four kernels at the variant's
+   widths (bf16 at the bf16 forward's images, float32 at 4: patch P 16 or
+   4, attention heads of 64, 16 or 256, MLP D 192 / 768, 32 / 64 or 768 /
+   3072) against its plain version on the same seeded inputs, bf16 on
+   ``wgmma`` (attention at head dim 256 on ``wgmma_wide``) and float32 on
+   ``tf32x3`` (attention at 256 on ``tf32x3_wide``), with the ``kernels``
+   phase's tolerances and, for bf16 attention, its ``share_bound``; each route a literal of
    ``VARIANTS``, as the long attention rows' are of ``LONG_ROUTES``; then ``run_demo()`` at its defaults
    (micro, 16 px) and at tiny / 224 px, each through ``start()``, with the
    efficiency axiom checked as in ``train``.
@@ -258,8 +261,9 @@ def share_bound(n: int) -> float:
 
 def peak_ops(pk: dict, dtype: str, route: str, flops: float) -> float:
     """Seconds the card's peak rate needs for a kernel's ``flops`` on its
-    route: 3xTF32 does three TF32 products for each float32 one."""
-    if route == "tf32x3":
+    route: 3xTF32 (``tf32x3``, ``tf32x3_wide``) does three TF32 products
+    for each float32 one."""
+    if route.startswith("tf32x3"):
         return 3 * flops / pk["tfloat32"]
     return flops / pk[dtype]
 
@@ -589,11 +593,11 @@ LONG_ATTENTION = {"n257": (257, 12, 64), "n577": (577, 12, 64), "d128": (N, 6, 1
 # The route each of them must take, by dtype: bf16 past the main paths' 224
 # keys and head dim 64 up to 128 on the key-loop tensor-core kernel, from
 # 192 to 512 on the wide one, past 512 on the FMA kernel; float32 on
-# 3xTF32 up to 128, on the FMA kernel past it.
+# 3xTF32 up to 128, on the float32 wide tensor-core kernel past it.
 LONG_ROUTES = {"n257": ("wgmma_kl", "tf32x3"), "n577": ("wgmma_kl", "tf32x3"),
-               "d128": ("wgmma_kl", "tf32x3"), "d192": ("wgmma_wide", "fma"),
-               "d256": ("wgmma_wide", "fma"), "d384": ("wgmma_wide", "fma"),
-               "d512": ("wgmma_wide", "fma"), "d576": ("fma", "fma")}
+               "d128": ("wgmma_kl", "tf32x3"), "d192": ("wgmma_wide", "tf32x3_wide"),
+               "d256": ("wgmma_wide", "tf32x3_wide"), "d384": ("wgmma_wide", "tf32x3_wide"),
+               "d512": ("wgmma_wide", "tf32x3_wide"), "d576": ("fma", "tf32x3_wide")}
 
 
 def long_attention_cases(gen, dtype, isz: int) -> dict:
@@ -2044,17 +2048,17 @@ def variant_kernel_rows(spec, images: dict, attention_routes: dict) -> list:
 # 128 images.
 VARIANTS = (("tiny", "tiny", dict(depth=2), 4, ("wgmma", "tf32x3")),
             ("micro", "micro", dict(depth=2), 4, ("wgmma", "tf32x3")),
-            ("base_heads3", "base", dict(heads=3), IMAGES, ("wgmma_wide", "fma")))
+            ("base_heads3", "base", dict(heads=3), IMAGES, ("wgmma_wide", "tf32x3_wide")))
 
 
 def phase_variants(counted) -> None:
     """The ``VARIANTS`` ViTs on the card: float32 logits of 4 images
     against the CPU port, a bf16 forward through the kernels, every packed
     attention launch of both on the route ``VARIANTS`` names (ViT-B/16 with
-    3 heads of 256: ``wgmma_wide`` in bf16, ``fma`` in float32), each kernel
-    at the variant's widths (bf16 at the bf16 forward's images) against its
-    plain version, and ``run_demo`` at its defaults (micro) and at tiny
-    / 224 px."""
+    3 heads of 256: ``wgmma_wide`` in bf16, ``tf32x3_wide`` in float32),
+    each kernel at the variant's widths (bf16 at the bf16 forward's images)
+    against its plain version, and ``run_demo`` at its defaults (micro) and
+    at tiny / 224 px."""
     import torch
 
     from shapley_vit_tpu_torch.config import Config

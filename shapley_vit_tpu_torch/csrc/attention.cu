@@ -6,11 +6,13 @@
 // aligned, head dim 64 or 128, any N), _bf16_wide the bf16 tensor-core
 // kernel past head dim 128 (16-byte aligned, head dim 192, 256, ..., 512,
 // any N), _tf32x3 the float32 tensor-core kernel (16-byte aligned, head dim
-// 64 or 128, any N), _fma_bf16 and _fma_f32 the FMA kernel (any head dim
-// that is a multiple of 64, any N). The tensor-core entries refuse other
-// inputs. The caller picks the route (ops/attention.attention_route), pads
-// head dims to 64, to 128 or past 128 to a multiple of 64, and copies
-// tensors that the TMA cannot read.
+// 64 or 128, any N), _tf32x3_wide the float32 tensor-core kernel past head
+// dim 128 (16-byte aligned, any head dim from 192 that is a multiple of 64,
+// any N), _fma_bf16 the bf16 FMA kernel (any head dim that is a multiple
+// of 64, any N; the caller sends it only head dims past 512). The
+// tensor-core entries refuse other inputs. The caller picks the route
+// (ops/attention.attention_route), pads head dims to 64, to 128 or past 128
+// to a multiple of 64, and copies tensors that the TMA cannot read.
 //
 // Replaces (shapley_vit_tpu/ops/attention.py):
 //  * _attn_v2_kernel (Pallas, entry fused_attention_packed): q, k, v, o are
@@ -103,13 +105,21 @@
 // k, v and o, 0.023 ms over 3.35 TB/s, against 4*B*H*N^2*d = 7.6 GFLOP:
 // 15 GFLOP of tensor-core work with S done once for each of the two output
 // panels and the p split, 0.015 ms at 989 TFLOP/s.
-// float32 past head dim 128 and bf16 past 512: attention_fma_kernel, on
-// the FMA units, one block per (batch, head, 64 query rows, 128 output
-// columns), the keys in chunks and q k^T in slices of 64 columns of d
-// staged in shared memory, with an online softmax; each of the 8 warps
-// takes 4 query rows at a time, lane l owning keys l, l+32 of a chunk, so
-// one float4 of K feeds the 4 rows. No model the repo names has such a
-// head: the kernel is simple, not fast.
+// float32 past head dim 128: attention_tf32x3_wide_kernel, 3xTF32 as
+// above, the output in 128-column panels with S recomputed over all of d
+// for each, and Q and K streamed together in 32-column panels of d, so
+// that shared memory does not grow with d and the head dim is a runtime
+// count of panels, with no cap; see the kernel for the design. At 64
+// images of N = 197 and 3 heads of 256, 4*B*H*N^2*d = 7.6 GFLOP, three
+// TF32 products each, 0.046 ms at 495 TFLOP/s, against 0.155 GB of q, k, v
+// and o, 0.046 ms over 3.35 TB/s.
+// bf16 past head dim 512: attention_fma_kernel, on the FMA units, one
+// block per (batch, head, 64 query rows, 128 output columns), the keys in
+// chunks and q k^T in slices of 64 columns of d staged in shared memory,
+// with an online softmax; each of the 8 warps takes 4 query rows at a
+// time, lane l owning keys l, l+32 of a chunk, so one float4 of K feeds the
+// 4 rows. No model the repo names has such a head: the kernel is simple,
+// not fast.
 #include <cuda.h>
 
 #include <algorithm>
@@ -128,8 +138,8 @@ using bf16 = __nv_bfloat16;
 constexpr int HD = 64;  // head dim of the bf16 tensor-core kernel
 
 // ---------------------------------------------------------------------------
-// FMA units: float32 past head dim 128 and bf16 past 512; any N, any head
-// dim that is a multiple of 64
+// FMA units: bf16 past head dim 512 (the entry takes any N and any head
+// dim that is a multiple of 64)
 // ---------------------------------------------------------------------------
 
 constexpr int R = 4;            // query rows a warp handles at once
@@ -158,10 +168,9 @@ constexpr size_t FMA_SMEM =
 // at the end. Lane l owns keys l and l + 32 of a chunk (one float4 of K
 // feeds R rows) and output columns c0 + 4 l ... c0 + 4 l + 3 (V's columns
 // at or past D are staged as zeros and never stored).
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int N, int D, int panels, long long sb, long long sh,
+attention_fma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     bf16* __restrict__ o, int N, int D, int panels, long long sb, long long sh,
                      long long row_stride, float scale) {
   constexpr int NJ = FKC / 32, CW = CP / 32;
   extern __shared__ __align__(16) float smem[];
@@ -292,10 +301,10 @@ attention_fma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       const int row = q0 + (g * WARPS + warp) * R + r;
       const float inv = 1.f / svt::warp_sum(l[g][r]);
       if (row < N) {
-        T* orow = o + base + (size_t)row * row_stride + c0 + CW * lane;
+        bf16* orow = o + base + (size_t)row * row_stride + c0 + CW * lane;
 #pragma unroll
         for (int c = 0; c < CW; ++c)
-          if (c0 + CW * lane + c < D) orow[c] = svt::from_f32<T>(acc[g][r][c] * inv);
+          if (c0 + CW * lane + c < D) orow[c] = svt::from_f32<bf16>(acc[g][r][c] * inv);
       }
     }
 }
@@ -672,49 +681,95 @@ __device__ __forceinline__ float4 minus(float4 a, float4 b) {
   return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
 }
 
-// The block's raw K and V (TMA's 128-byte swizzled panels of [BK keys][32
-// d]) into the TF32 pairs the products read, hi = tf32(x), lo = tf32(x - hi),
-// by the producer warpgroup's 128 threads: K_hi and K_lo in the same layout
-// (the K-major B of S = Q K^T), and V transposed, Vt [D][BK] in panels of
-// [D][32 keys] (the K-major B of P V: TF32 wgmma has no transpose bit).
-// Within each 8 keys Vt stores keys (0, 2, 4, 6, 1, 3, 5, 7): the S
-// accumulator gives a thread keys 2q and 2q + 1 of each 8, which are then
-// the k = q and q + 4 of the A fragment, so p goes from S's registers to
-// P V's A operand without a shuffle. Every access is free of bank
-// conflicts: a warp's V reads are 8 rows' distinct 16-byte chunks, and its
-// Vt writes 32 keys of one row of d.
+// Raw K and V (TMA's 128-byte swizzled boxes of [BK keys][32 columns])
+// into the TF32 pairs the products read, hi = tf32(x), lo = tf32(x - hi), a
+// float4 i at a time by the producer warpgroup. split_k4: K into K_hi and
+// K_lo in the same layout (the K-major B of S = Q K^T). split_v4: V's key
+// i % BK, columns 4 (i / BK) .. + 3, into Vt [ROWS][BK] transposed, in
+// panels of [ROWS][32 keys] (the K-major B of P V: TF32 wgmma has no
+// transpose bit). Within each 8 keys Vt stores keys (0, 2, 4, 6, 1, 3, 5,
+// 7): the S accumulator gives a thread keys 2q and 2q + 1 of each 8, which
+// are then the k = q and q + 4 of the A fragment, so p goes from S's
+// registers to P V's A operand without a shuffle. With consecutive i on a
+// warp's lanes every access is free of bank conflicts: a warp's V reads are
+// 8 rows' distinct 16-byte chunks, and its Vt writes 32 keys of one row of d.
+__device__ __forceinline__ void split_k4(unsigned char* sm, uint32_t k, uint32_t khi, uint32_t klo, int i) {
+  const float4 x = *reinterpret_cast<const float4*>(sm + k + 16 * i);
+  const float4 hi = tf32_hi(x);
+  *reinterpret_cast<float4*>(sm + khi + 16 * i) = hi;
+  *reinterpret_cast<float4*>(sm + klo + 16 * i) = tf32_hi(minus(x, hi));
+}
+
+template <int BK, int ROWS>
+__device__ __forceinline__ void split_v4(unsigned char* sm, uint32_t v, uint32_t vhi, uint32_t vlo, int i) {
+  static_assert(BK % 32 == 0, "whole panels of 32 keys");
+  const int j = i % BK, d0 = 4 * (i / BK);  // key j, columns d0 .. d0 + 3
+  const float4 x =
+      *reinterpret_cast<const float4*>(sm + v + (d0 / 32) * BK * 128 + sw128_offset(j, (d0 % 32) / 4));
+  const int kx = (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);  // key j's column in Vt
+  const uint32_t col = (kx / 32) * ROWS * 128 + 4 * (kx % 4);
+  const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint32_t off = col + sw128_offset(d0 + e, (kx % 32) / 4);
+    const float hi = tf32_rna(xs[e]);
+    *reinterpret_cast<float*>(sm + vhi + off) = hi;
+    *reinterpret_cast<float*>(sm + vlo + off) = tf32_rna(xs[e] - hi);
+  }
+}
+
+// The block's raw K and V into their pairs at `pairs` (K_hi, K_lo, Vt_hi,
+// Vt_lo), by the producer warpgroup's 128 threads.
 template <int D>
 __device__ __forceinline__ void split_block(unsigned char* sm, uint32_t k, uint32_t v, uint32_t pairs,
                                             int tid) {
   using S = Tf32<D>;
-  constexpr int BK = S::BK;
   const uint32_t khi = pairs, klo = khi + S::KV_BYTES, vhi = klo + S::KV_BYTES, vlo = vhi + S::KV_BYTES;
-  static_assert(S::KV_BYTES % (16 * 128) == 0 && BK % 32 == 0, "whole passes of the warpgroup");
+  static_assert(S::KV_BYTES % (16 * 128) == 0, "whole passes of the warpgroup");
 #pragma unroll 2
-  for (int it = 0; it < S::KV_BYTES / (16 * 128); ++it) {
-    const int i = tid + it * 128;
-    const float4 x = *reinterpret_cast<const float4*>(sm + k + 16 * i);
-    const float4 hi = tf32_hi(x);
-    *reinterpret_cast<float4*>(sm + khi + 16 * i) = hi;
-    *reinterpret_cast<float4*>(sm + klo + 16 * i) = tf32_hi(minus(x, hi));
+  for (int it = 0; it < S::KV_BYTES / (16 * 128); ++it) split_k4(sm, k, khi, klo, tid + it * 128);
+#pragma unroll 2
+  for (int it = 0; it < S::BK * D / (4 * 128); ++it) split_v4<S::BK, D>(sm, v, vhi, vlo, tid + it * 128);
+}
+
+// The online softmax of a key block's scores sc [64, W] (S's accumulator
+// layout: element e is row 16 warp + lane / 4 + 8 ((e % 4) / 2), key 8 (e /
+// 4) + 2 qd + e % 2): keys at or past N (rem keys of the block are below
+// it) get -inf, since their zero rows would score 0; the row max m over
+// the 4 lanes of a row, p = 2^(s l2 - m), the thread's share of the row
+// sum l, and alpha = 2^(m_old - m_new), by which the caller rescales O.
+// p's TF32 pair (hi = tf32(p), lo = tf32(p - hi)) is P V's A fragment, 8
+// keys a step: registers (4c, 4c + 2, 4c + 1, 4c + 3) of S's.
+template <int W>
+__device__ __forceinline__ void tf32_softmax(float (&sc)[W / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], uint32_t (&phi)[W / 8][4],
+                                             uint32_t (&plo)[W / 8][4], int rem, int qd, float l2) {
+#pragma unroll
+  for (int e = 0; e < W / 2; ++e)
+    if (8 * (e / 4) + 2 * qd + e % 2 >= rem) sc[e] = -INFINITY;
+  float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0
+#pragma unroll
+  for (int e = 0; e < W / 2; ++e) mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sc[e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r] * l2);  // finite: the block has a key below N
+    alpha[r] = ex2(m[r] - mn);                 // 0 for the first block
+    m[r] = mn;
+    l[r] *= alpha[r];
   }
-#pragma unroll 2
-  for (int it = 0; it < BK * D / (4 * 128); ++it) {
-    const int i = tid + it * 128;
-    const int j = i % BK, d0 = 4 * (i / BK);  // key j, d0 .. d0 + 3
-    const float4 x =
-        *reinterpret_cast<const float4*>(sm + v + (d0 / 32) * BK * 128 + sw128_offset(j, (d0 % 32) / 4));
-    const int kx = (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);  // key j's column in Vt
-    const uint32_t col = (kx / 32) * D * 128 + 4 * (kx % 4);
-    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const uint32_t off = col + sw128_offset(d0 + e, (kx % 32) / 4);
-      const float hi = tf32_rna(xs[e]);
-      *reinterpret_cast<float*>(sm + vhi + off) = hi;
-      *reinterpret_cast<float*>(sm + vlo + off) = tf32_rna(xs[e] - hi);
+      const int x = 4 * c + (e == 1 ? 2 : e == 2 ? 1 : e), r = (x % 4) / 2;
+      const float p = ex2(fmaf(sc[x], l2, -m[r]));  // masked keys: 2^-inf == 0
+      l[r] += p;
+      const float hi = tf32_rna(p);
+      phi[c][e] = __float_as_uint(hi);
+      plo[c][e] = __float_as_uint(tf32_rna(p - hi));
     }
-  }
 }
 
 // One key block of a consumer warpgroup: S = Q K^T over the block's first W
@@ -769,37 +824,10 @@ struct KeyBlock {
       fence_regs(sc);
     }
 
-    // the online softmax; keys at or past N get -inf (their zero rows would
-    // score 0)
-#pragma unroll
-    for (int e = 0; e < W / 2; ++e)
-      if (8 * (e / 4) + 2 * qd + e % 2 >= rem) sc[e] = -INFINITY;
-    float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores: scale > 0
-#pragma unroll
-    for (int e = 0; e < W / 2; ++e) mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sc[e]);
+    // the online softmax; p's pair as P V's A fragment
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r] * l2);  // finite: the block has a key below N
-      alpha[r] = ex2(m[r] - mn);                 // 0 for the first block
-      m[r] = mn;
-      l[r] *= alpha[r];
-    }
-    // p of 8 keys as P V's A fragment: registers (4c, 4c + 2, 4c + 1, 4c + 3)
     uint32_t phi[W / 8][4], plo[W / 8][4];
-#pragma unroll
-    for (int c = 0; c < W / 8; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 4 * c + (e == 1 ? 2 : e == 2 ? 1 : e), r = (x % 4) / 2;
-        const float p = ex2(fmaf(sc[x], l2, -m[r]));  // masked keys: 2^-inf == 0
-        l[r] += p;
-        const float hi = tf32_rna(p);
-        phi[c][e] = __float_as_uint(hi);
-        plo[c][e] = __float_as_uint(tf32_rna(p - hi));
-      }
+    tf32_softmax<W>(sc, m, l, alpha, phi, plo, rem, qd, l2);
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) oc[e] *= alpha[(e % 4) / 2];
 
@@ -1404,13 +1432,377 @@ attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __gr
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 past head dim 128: 3xTF32 on wgmma, Q and K streamed in 32-column
+// panels of d, the output in 128-column panels
+// ---------------------------------------------------------------------------
+
+// The shapes of attention_tf32x3_wide_kernel, the same at every head dim.
+// A float32 Q of 128 rows does not fit beside K, V and their TF32 pairs
+// past d = 128 (96 KB at d = 192), so nothing of a unit stays in shared
+// memory for all of d: Q and K come together in panels of 32 columns of d
+// (one 128-byte swizzle row of float32), SP panels a stage, through a ring
+// of RAW stages, and V's block in the output panel's 128 columns after its
+// key block's last stage. Every region is a multiple of 1,024 bytes (the
+// swizzle atom):
+//   raw ring   RAW x (Q [128][32] x 2, K [32][32] x 2)    3 x 40 KB   TMA
+//   K pairs    KPAIRS x (K_hi, K_lo [32][32] x 2)         3 x 16 KB   split by the producer
+//   V          V [32 keys][128] as 4 x [32][32]               16 KB   TMA
+//   Vt pairs   Vt_hi, Vt_lo [128][32 keys]                    32 KB   split and transposed by the producer
+// 216 KB and 16 mbarriers, pinned below. What bounds the kernel is each
+// stage's hand-overs (the waits, the producer's split, the chains'
+// completion, one after another; tools/torch_attention_ablate.py builds
+// the kernel with parts cut out by the SVT_ABLATE_* macros), so a
+// stage carries two panels and the raw ring holds three stages, with one
+// Vt buffer to make room: on an H100 each of the two was faster than one
+// panel a stage in six stages with two Vt buffers. The key block is 32
+// keys for the registers:
+// ptxas gives the kernel's 384 threads 168 each, and S's chains hold O
+// (64), S (16), the panel's fresh sum (16) and Q's pair (32), P V's O, a
+// fresh 64-column sum (32) and P's pair (32). At 64 keys each held 32
+// more, and ptxas serialised the chains (C7511).
+struct Tw {
+  static constexpr int BK = 32;                         // keys per block
+  static constexpr int QROWS = 128;                     // query rows of a unit: 64 per consumer warpgroup
+  static constexpr int DP = 32;                         // columns of d in a panel
+  static constexpr int SP = 2;                          // panels a stage: d is a multiple of 64
+  static constexpr int OCOLS = 128;                     // columns of an output panel
+  static constexpr int Q_BYTES = QROWS * DP * 4;        // a panel of Q
+  static constexpr int K_BYTES = BK * DP * 4;           // a panel of K (or K_hi, K_lo), a 32-column box of V
+  static constexpr int RAW_BYTES = SP * (Q_BYTES + K_BYTES);  // a stage: SP panels of Q, then of K
+  static constexpr int KP_BYTES = 2 * SP * K_BYTES;     // a stage's K_hi panels, then its K_lo panels
+  static constexpr int V_BYTES = BK * OCOLS * 4;        // V's block in an output panel (or Vt_hi, Vt_lo)
+  static constexpr int RAW = 3;                         // stages of the raw ring
+  static constexpr int KPAIRS = 3;                      // stages of the K pairs
+  static constexpr int CONSUMERS = 256;                 // two warpgroups
+  static constexpr int SPLITTERS = 96;                  // producer warps 1-3; warp 0 loads
+  static constexpr int THREADS = CONSUMERS + 128;       // and the producer warpgroup
+  static constexpr int KP0 = RAW * RAW_BYTES;           // offsets from the 1,024-aligned base
+  static constexpr int V0 = KP0 + KPAIRS * KP_BYTES;
+  static constexpr int VT0 = V0 + V_BYTES;
+  static constexpr int BYTES = VT0 + 2 * V_BYTES;
+  // mbarriers: raw full[RAW], raw free[RAW], K ready[KPAIRS], K free[KPAIRS], V full, V free,
+  // Vt ready, Vt free
+  static constexpr int RFULL = BYTES, RFREE = RFULL + 8 * RAW, KREADY = RFREE + 8 * RAW,
+                       KFREE = KREADY + 8 * KPAIRS, VFULL = KFREE + 8 * KPAIRS, VFREE = VFULL + 8,
+                       VTREADY = VFREE + 8, VTFREE = VTREADY + 8;
+  static constexpr size_t SMEM = 1024 + (size_t)VTFREE + 8;
+};
+static_assert(Tw::BYTES == 3 * 2 * (16384 + 4096) + 3 * 4 * 4096 + 16384 + 2 * 16384,
+              "raw ring 3 x 40 KB, K pairs 3 x 16 KB, V 16 KB, Vt pairs 32 KB");
+static_assert(Tw::RAW_BYTES % 1024 == 0 && Tw::K_BYTES % 1024 == 0 && Tw::V_BYTES % 1024 == 0,
+              "every tile starts on a swizzle atom");
+static_assert(Tw::SMEM == 1024 + 221184 + 8 * 16 && Tw::SMEM <= 232448,
+              "a block's 227 KB of shared memory, whatever the head dim");
+static_assert(64 % (Tw::SP * Tw::DP) == 0, "a stage's panels divide every head dim the entry takes");
+
+// One key block of a consumer warpgroup in one output panel: S = Q K^T over
+// the block's first W keys (a multiple of 8) and all of d, the online
+// softmax, and O += P V over the panel's columns. jq and jv count the
+// stages and V blocks this thread has taken, over the block's units;
+// every barrier's phase follows from them. W is a template parameter so
+// that every wgmma chain is straight-line code.
+struct TwBlock {
+  unsigned char* sm;  // generic address of the aligned base
+  uint32_t base;      // its shared address
+  uint32_t a_row;     // this thread's first A element of Q in a panel, from the panel
+  int g, qd;          // lane / 4, lane % 4
+  int rem;            // keys of the block below N
+  int panels;         // 32-column panels of d, a multiple of SP
+  bool half2;         // whether the output panel's columns 64-127 are below d
+  float l2;           // scale log2 e
+
+  template <int W>
+  __device__ __forceinline__ void run(float (&oc)[64], float (&m)[2], float (&l)[2], int& jq, int& jv) const {
+    // S [64, W] = Q K^T, a stage of SP panels of d at a time: Q's fragments
+    // from the raw ring, split in registers, a panel at a time; each
+    // panel's 12 products into a fresh accumulator, then added to S in
+    // float32 (the tensor cores truncate their sums). Element e is row
+    // 16 warp + g + 8 ((e % 4) / 2), key 8 (e / 4) + 2 qd + e % 2.
+    float sc[W / 2];
+#pragma unroll
+    for (int e = 0; e < W / 2; ++e) sc[e] = 0.f;
+#pragma unroll 1
+    for (int p = 0; p < panels; p += Tw::SP, ++jq) {
+      const int s = jq % Tw::RAW, t = jq % Tw::KPAIRS;
+      mbar_wait(base + Tw::RFULL + 8 * s, (jq / Tw::RAW) & 1);
+#pragma unroll
+      for (int sp = 0; sp < Tw::SP; ++sp) {
+      uint32_t a_hi[4][4], a_lo[4][4];
+      const uint32_t qp = s * Tw::RAW_BYTES + sp * Tw::Q_BYTES + a_row;
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x = *reinterpret_cast<const float*>(sm + qp + (j % 2) * 8 * 128 +
+                                                          (((2 * kd + j / 2) ^ g) << 4));
+          const float hi = tf32_rna(x);
+          a_hi[kd][j] = __float_as_uint(hi);
+          a_lo[kd][j] = __float_as_uint(tf32_rna(x - hi));
+        }
+      if (sp == Tw::SP - 1) mbar_arrive(base + Tw::RFREE + 8 * s);  // this thread has read its Q of the stage
+      if (sp == 0) mbar_wait(base + Tw::KREADY + 8 * t, (jq / Tw::KPAIRS) & 1);
+      const uint32_t khi = base + Tw::KP0 + t * Tw::KP_BYTES + sp * Tw::K_BYTES, klo = khi + Tw::SP * Tw::K_BYTES;
+      float st[W / 2];
+      fence_regs(st);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd) {
+        const uint64_t bhd = sw128_desc(khi + 32 * kd), bld = sw128_desc(klo + 32 * kd);
+        // the small terms first; the chain's first product overwrites st
+#ifndef SVT_ABLATE_NO_S_PRODUCTS
+        wgmma_tf32<W>(st, a_lo[kd], bhd, kd > 0);
+        wgmma_tf32<W>(st, a_hi[kd], bld, 1);
+        wgmma_tf32<W>(st, a_hi[kd], bhd, 1);
+#else
+        if (kd == 0) wgmma_tf32<W>(st, a_lo[kd], bhd, 0);
+#endif
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      if (sp == Tw::SP - 1) mbar_arrive(base + Tw::KFREE + 8 * t);  // this thread's products of the stage are done
+#pragma unroll
+      for (int e = 0; e < W / 2; ++e) sc[e] += st[e];
+      }
+    }
+
+    // the online softmax; p's pair as P V's A fragment
+    float alpha[2];
+    uint32_t phi[W / 8][4], plo[W / 8][4];
+    tf32_softmax<W>(sc, m, l, alpha, phi, plo, rem, qd, l2);
+#pragma unroll
+    for (int e = 0; e < 64; ++e) oc[e] *= alpha[(e % 4) / 2];
+
+    // O += P V, 64 columns at a time (the second half only below d), each
+    // half over 8-key steps into a fresh accumulator added in float32
+    mbar_wait(base + Tw::VTREADY, jv & 1);
+    const uint32_t vhi = base + Tw::VT0, vlo = vhi + Tw::V_BYTES;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !half2) break;
+      float pv[32];
+      fence_regs(pv);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < W / 8; ++c) {
+        const uint32_t vp = h * 64 * 128 + 32 * c;
+        const uint64_t vhd = sw128_desc(vhi + vp), vld = sw128_desc(vlo + vp);
+        wgmma_tf32<64>(pv, plo[c], vhd, c > 0);
+#ifndef SVT_ABLATE_NO_PV_PRODUCTS
+        wgmma_tf32<64>(pv, phi[c], vld, 1);
+        wgmma_tf32<64>(pv, phi[c], vhd, 1);
+#endif
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pv);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oc[32 * h + e] += pv[e];
+    }
+    mbar_arrive(base + Tw::VTFREE);  // this thread's products of the V block are done
+    ++jv;
+  }
+};
+
+// A unit is (image b, head h, query rows q0 .. q0 + 127); a persistent grid
+// of one block per SM walks the units u = blockIdx.x, blockIdx.x +
+// gridDim.x, ... (unit u: query tile u % qtiles of (image, head) u /
+// qtiles). Warps 0-7 are two consumer warpgroups of 64 query rows each
+// (setmaxnreg gives them 232 registers a thread), warps 8-11 the producer
+// warpgroup: one thread of warp 8 loads by TMA, warps 9-11 split. For each
+// 128-column panel c of O (the last one only 64 wide where d is an odd
+// multiple of 64) and each key block (32 keys), in this order:
+//   the stages of d, SP panels of 32 columns each: the loader TMA-loads
+//     Q's panels (128 rows) and K's (32 keys) into a stage of the raw ring;
+//     the splitters write K's TF32 pairs (split_k4's hi = tf32(x), lo =
+//     tf32(x - hi)) into a stage of the K pairs; for each panel, each
+//     consumer warpgroup reads its 64 rows of Q into registers, splits them
+//     there, and adds Q_lo K_hi + Q_hi K_lo + Q_hi K_hi, 4 steps of 8
+//     columns, to S (TwBlock);
+//   V's block in the panel's columns: the loader TMA-loads it (the 32-column
+//     boxes below d), the splitters write its pair transposed (Vt), and the
+//     consumers run the online softmax and O_c += P V_c (TwBlock).
+// O_c / l goes from registers to global memory, rows at or past N and
+// columns at or past d dropped, and m and l start again for the next
+// panel: every panel computes the same S, so they come out the same.
+// mbarriers hand each stage over (full: loaded; ready: split; free: read),
+// and each thread counts the stages it has taken, so the rings run on
+// across key blocks, panels and units. Shared memory is the same at every
+// d (Tw). Q is read from L2 again for every key block and output panel:
+// at 3 heads of 256 and N = 197, 7 key blocks x 2 panels = 14 reads of each
+// unit's Q, 14 x 128 KB a unit. The tensor maps' d extent is d and their N
+// extent N, so nothing past either is read: a packed layout's next head and
+// the next image never are. Every wgmma chain is straight-line code.
+__global__ void __launch_bounds__(Tw::THREADS, 1)
+attention_tf32x3_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap, float* __restrict__ o, int N, int H,
+                             int d, int qtiles, int units, long long sb, long long sh, long long sn, int pos,
+                             float scale) {
+  constexpr int BK = Tw::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms: 1024 bytes
+  unsigned char* const sm = smem_raw + (base - raw);
+  const int tid = threadIdx.x, blocks = (N + BK - 1) / BK;
+  const int panels = d / Tw::DP, opanels = (d + Tw::OCOLS - 1) / Tw::OCOLS;
+
+  if (tid == 0) {
+    for (int s = 0; s < Tw::RAW; ++s) {
+      mbar_init(base + Tw::RFULL + 8 * s, 1);                               // the loader's expect_tx
+      mbar_init(base + Tw::RFREE + 8 * s, Tw::SPLITTERS + Tw::CONSUMERS);  // K split, Q read
+    }
+    for (int t = 0; t < Tw::KPAIRS; ++t) {
+      mbar_init(base + Tw::KREADY + 8 * t, Tw::SPLITTERS);
+      mbar_init(base + Tw::KFREE + 8 * t, Tw::CONSUMERS);
+    }
+    mbar_init(base + Tw::VFULL, 1);
+    mbar_init(base + Tw::VFREE, Tw::SPLITTERS);
+    mbar_init(base + Tw::VTREADY, Tw::SPLITTERS);
+    mbar_init(base + Tw::VTFREE, Tw::CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= Tw::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int pt = tid - Tw::CONSUMERS - 32;  // the splitters' index, 0 .. 95
+    int jq = 0, jv = 0;                       // streamed panels and V blocks so far
+    if (pt < 0) {
+      // the loader: one thread
+      if (pt != -32) return;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int bh = u / qtiles, b = bh / H, h = bh % H;
+        const Coords cq = unit_coords(pos, b, h, (u % qtiles) * Tw::QROWS);
+        for (int c = 0; c < opanels; ++c) {
+          const int boxes = min(Tw::OCOLS, d - Tw::OCOLS * c) / Tw::DP;  // V's boxes below d: 2 or 4
+          for (int kb = 0; kb < blocks; ++kb) {
+            const Coords ck = unit_coords(pos, b, h, kb * BK);
+            for (int p = 0; p < panels; p += Tw::SP, ++jq) {
+              const int s = jq % Tw::RAW;
+              if (jq >= Tw::RAW) mbar_wait(base + Tw::RFREE + 8 * s, (jq / Tw::RAW - 1) & 1);
+              const uint32_t bar = base + Tw::RFULL + 8 * s, dst = base + s * Tw::RAW_BYTES;
+#ifndef SVT_ABLATE_NO_Q_LOAD
+              mbar_expect_tx(bar, Tw::RAW_BYTES);  // rows at or past N arrive zero-filled and count
+#else
+              mbar_expect_tx(bar, Tw::SP * Tw::K_BYTES);
+#endif
+              for (int sp = 0; sp < Tw::SP; ++sp) {
+#ifndef SVT_ABLATE_NO_Q_LOAD
+                tma_load(dst + sp * Tw::Q_BYTES, &qmap, bar, cq, Tw::DP * (p + sp));
+#endif
+                tma_load(dst + Tw::SP * Tw::Q_BYTES + sp * Tw::K_BYTES, &kmap, bar, ck, Tw::DP * (p + sp));
+              }
+            }
+            if (jv > 0) mbar_wait(base + Tw::VFREE, (jv - 1) & 1);
+            mbar_expect_tx(base + Tw::VFULL, boxes * Tw::K_BYTES);
+            for (int x = 0; x < boxes; ++x)
+              tma_load(base + Tw::V0 + x * Tw::K_BYTES, &vmap, base + Tw::VFULL, ck,
+                       Tw::OCOLS * c + Tw::DP * x);
+            ++jv;
+          }
+        }
+      }
+      // stay until the last loads have been taken: every load has landed
+      // before the thread that issued it exits
+      for (int j = max(jq - Tw::RAW, 0); j < jq; ++j)
+        mbar_wait(base + Tw::RFREE + 8 * (j % Tw::RAW), (j / Tw::RAW) & 1);
+      if (jv > 0) mbar_wait(base + Tw::VFREE, (jv - 1) & 1);
+      return;
+    }
+    // the splitters: K's panels into their pairs, V's blocks into Vt's
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      for (int c = 0; c < opanels; ++c) {
+        const int cols = min(Tw::OCOLS, d - Tw::OCOLS * c);  // V's columns below d
+        for (int kb = 0; kb < blocks; ++kb) {
+          for (int p = 0; p < panels; p += Tw::SP, ++jq) {
+            const int s = jq % Tw::RAW, t = jq % Tw::KPAIRS;
+            mbar_wait(base + Tw::RFULL + 8 * s, (jq / Tw::RAW) & 1);
+            if (jq >= Tw::KPAIRS) mbar_wait(base + Tw::KFREE + 8 * t, (jq / Tw::KPAIRS - 1) & 1);
+            const uint32_t khi = Tw::KP0 + t * Tw::KP_BYTES;
+#ifndef SVT_ABLATE_NO_SPLIT
+#pragma unroll 2
+            for (int i = pt; i < Tw::SP * Tw::K_BYTES / 16; i += Tw::SPLITTERS)
+              split_k4(sm, s * Tw::RAW_BYTES + Tw::SP * Tw::Q_BYTES, khi, khi + Tw::SP * Tw::K_BYTES, i);
+#endif
+            fence_proxy_async();  // the generic-proxy writes, before wgmma reads them
+            mbar_arrive(base + Tw::KREADY + 8 * t);
+            mbar_arrive(base + Tw::RFREE + 8 * s);
+          }
+          // Vt [128][32 keys]
+          mbar_wait(base + Tw::VFULL, jv & 1);
+          if (jv > 0) mbar_wait(base + Tw::VTFREE, (jv - 1) & 1);
+#ifndef SVT_ABLATE_NO_SPLIT
+#pragma unroll 2
+          for (int i = pt; i < BK * cols / 4; i += Tw::SPLITTERS)
+            split_v4<BK, Tw::OCOLS>(sm, Tw::V0, Tw::VT0, Tw::VT0 + Tw::V_BYTES, i);
+#endif
+          fence_proxy_async();
+          mbar_arrive(base + Tw::VTREADY);
+          mbar_arrive(base + Tw::VFREE);
+          ++jv;
+        }
+      }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  // this thread's A elements of Q: rows 16 warp + g (+ 8) of its
+  // warpgroup's 64, k = 8 kd + qd (+ 4) of a panel: 16-byte chunk 2 kd (+ 1)
+  // of the row, which the swizzle stores at chunk ^ (row % 8) = chunk ^ g
+  const uint32_t a_row = (wg * 64 + 16 * warp + g) * 128 + 4 * qd;
+  const float l2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x scale log2 e)
+  int jq = 0, jv = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int bh = u / qtiles, b = bh / H, h = bh % H, q0 = (u % qtiles) * Tw::QROWS;
+#pragma unroll 1
+    for (int c = 0; c < opanels; ++c) {
+      float oc[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) oc[e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+      for (int kb = 0; kb < blocks; ++kb) {
+        // the products span the block's keys below N, rounded up to 8, 16
+        // or 32: the last block of a ViT's N (197, 257, 577) has 1 to 5
+        const int rem = N - kb * BK;
+        const TwBlock blk{sm, base, a_row, g, qd, rem, panels, Tw::OCOLS * c + 64 < d, l2};
+        if (rem > 16) blk.run<32>(oc, m, l, jq, jv);
+        else if (rem > 8) blk.run<16>(oc, m, l, jq, jv);
+        else blk.run<8>(oc, m, l, jq, jv);
+      }
+
+      // O_c / l, float2 stores of columns 128 c + 8 j + 2 qd, + 1 below d
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = 1.f / l[r];
+      }
+      const int cols = min(Tw::OCOLS, d - Tw::OCOLS * c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + wg * 64 + 16 * warp + g + 8 * r;
+        if (row >= N) continue;
+        float* orow = o + (size_t)b * sb + (size_t)h * sh + (size_t)row * sn + Tw::OCOLS * c + 2 * qd;
+#pragma unroll
+        for (int j = 0; j < Tw::OCOLS / 8; ++j)
+          if (8 * j < cols)
+            *reinterpret_cast<float2*>(orow + 8 * j) =
+                make_float2(oc[4 * j + 2 * r] * l[r], oc[4 * j + 2 * r + 1] * l[r]);
+      }
+    }
+  }
+}
+
 // Kernel slots of prepare_launch (hopper.cuh), each allowed the dynamic
 // shared memory of its largest instance: attention_hopper_kernel<nch> is
-// nch - 1; then attention_fma_kernel<bf16 | float>,
-// attention_tf32x3_kernel<64 | 128>, attention_wgmma_kl_kernel<64 | 128>
-// and attention_wgmma_wide_kernel<3 .. 8>.
-constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 2, SLOT_KL = MAX_KC + 4, SLOT_WIDE = MAX_KC + 6;
-constexpr int SLOTS = SLOT_WIDE + WIDE_NP;
+// nch - 1; then attention_fma_kernel, attention_tf32x3_kernel<64 | 128>,
+// attention_wgmma_kl_kernel<64 | 128>, attention_wgmma_wide_kernel<3 .. 8>
+// and attention_tf32x3_wide_kernel.
+constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 1, SLOT_KL = MAX_KC + 3, SLOT_WIDE = MAX_KC + 5;
+constexpr int SLOT_TF32_WIDE = SLOT_WIDE + WIDE_NP;
+constexpr int SLOTS = SLOT_TF32_WIDE + 1;
 
 // The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
 // head and image axes in order of stride. An axis of extent 1 other than
@@ -1571,6 +1963,30 @@ int launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_tf32x3_wide(const float* q, const float* k, const float* v, float* o, int B, int N, int H, int d,
+                       long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
+  // boxes of one 128-byte row of d (32 float32) by QROWS query rows or BK keys
+  CUtensorMap maps[3];
+  int pos[3] = {0, 0, 0};
+  const void* const ptrs[3] = {q, k, v};
+  const int rows[3] = {Tw::QROWS, Tw::BK, Tw::BK};
+  const int enc = encode_bhnd_maps(ptrs, rows, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, B, N, H, sb, sh, sn, d,
+                                   maps, pos);
+  if (enc != cudaSuccess) return enc;
+  const auto kernel = attention_tf32x3_wide_kernel;
+  int sms = 0;
+  const cudaError_t err =
+      prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), SLOT_TF32_WIDE, Tw::SMEM, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int qtiles = (N + Tw::QROWS - 1) / Tw::QROWS;
+  const long long units = (long long)B * H * qtiles;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(std::min<long long>(units, sms)), Tw::THREADS, Tw::SMEM, st>>>(
+      maps[0], maps[1], maps[2], o, N, H, d, qtiles, static_cast<int>(units), sb, sh, sn,
+      pos[1] | (pos[2] << 2), scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 using WideLaunch = int (*)(const bf16*, const bf16*, const bf16*, bf16*, int, int, int, long long, long long,
                            long long, float, cudaStream_t);
 
@@ -1583,22 +1999,21 @@ WideLaunch wide_launch(int np, std::integer_sequence<int, I...>) {
 
 // q, k, v and o share the strides (in elements) sb of the batch, sh of the
 // head and sn of the row; the head dim D (a multiple of 64) is contiguous.
-template <typename T>
 int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int N, int H, int D,
                long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
   if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D % SL != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = attention_fma_kernel<T>;
+  const auto kernel = attention_fma_kernel;
   int sms = 0;
-  const cudaError_t err = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel),
-                                                SLOT_FMA + (sizeof(T) == 4 ? 1 : 0), FMA_SMEM, &sms);
+  const cudaError_t err =
+      prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), SLOT_FMA, FMA_SMEM, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int panels = (D + CP - 1) / CP;
   const long long blocks = (long long)((N + QT - 1) / QT) * panels;
   if (H > 65535 || B > 65535 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   dim3 grid(static_cast<unsigned>(blocks), H, B);
-  kernel<<<grid, THREADS, FMA_SMEM, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                          static_cast<const T*>(v), static_cast<T*>(o), N, D, panels, sb, sh,
-                                          sn, scale);
+  kernel<<<grid, THREADS, FMA_SMEM, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                          static_cast<const bf16*>(v), static_cast<bf16*>(o), N, D, panels, sb,
+                                          sh, sn, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1618,18 +2033,13 @@ extern "C" {
 
 // [B, H, N, d] views with the given strides (elements); the packed
 // [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d.
-// The FMA entries take any N and any head dim d that is a multiple of 64,
-// with no alignment asked of the pointers or strides.
+// The bf16 FMA entry takes any N and any head dim d that is a multiple of
+// 64, with no alignment asked of the pointers or strides; the caller sends
+// it head dims past 512 only.
 int svt_attention_bhnd_fma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
                                 int N, int d, long long sb, long long sh, long long sn, float scale,
                                 void* stream) {
-  return launch_fma<bf16>(q, k, v, o, B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
-}
-
-int svt_attention_bhnd_fma_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                               int N, int d, long long sb, long long sh, long long sn, float scale,
-                               void* stream) {
-  return launch_fma<float>(q, k, v, o, B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
+  return launch_fma(q, k, v, o, B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The float32 tensor-core route: head dim d = 64 or 128, any N. The TMA
@@ -1648,6 +2058,20 @@ int svt_attention_bhnd_tf32x3(const void* q, const void* k, const void* v, void*
   auto* of = static_cast<float*>(o);
   return d == 64 ? launch_tf32x3<64>(qf, kf, vf, of, B, N, H, sb, sh, sn, scale, st)
                  : launch_tf32x3<128>(qf, kf, vf, of, B, N, H, sb, sh, sn, scale, st);
+}
+
+// The float32 tensor-core route past head dim 128: any head dim d from 192
+// that is a multiple of 64, any N. The same TMA requirements as
+// svt_attention_bhnd_tf32x3; other inputs are refused, not sent to another
+// kernel.
+int svt_attention_bhnd_tf32x3_wide(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                                   int d, long long sb, long long sh, long long sn, float scale, void* stream) {
+  if (!aligned16(q, k, v, o) || !strides_of(B, H, sb, sh, sn, 4) || B <= 0 || H <= 0 || N <= 0 ||
+      d % 64 != 0 || d < 192)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tf32x3_wide(static_cast<const float*>(q), static_cast<const float*>(k),
+                            static_cast<const float*>(v), static_cast<float*>(o), B, N, H, d, sb, sh, sn,
+                            scale, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 tensor-core route of the main paths: head dim 64, N <= 224. The

@@ -17,7 +17,8 @@ gradient: called where autograd would need one, it raises rather than cut
 the graph.
 
 The key-loop tensor-core kernels are built for head dims 64 and 128
-(``HEAD_DIMS``), the wide one for multiples of 64 from 192 to ``WIDE_MAX``.
+(``HEAD_DIMS``), the bf16 wide one for multiples of 64 from 192 to
+``WIDE_MAX``, the float32 wide one for every multiple of 64 from 192.
 On the card a head dim under 64 is zero-padded to 64, one of 65 to 127 to
 128, and one past 128 to a multiple of 64 (:func:`kernel_head_dim`), before
 the launch and the output cut back (:func:`resize_heads`), with the true
@@ -30,11 +31,12 @@ online softmax, as the JAX kernels pad N with no cap.
 :func:`attention_route` picks the kernel before the launch: ``"wgmma"``
 (bf16 at head dim 64 and N <= 224; the main paths), ``"wgmma_kl"`` (bf16
 at head dim 128 or past 224 keys), ``"wgmma_wide"`` (bf16 at head dims 192
-to 512, any N), ``"tf32x3"`` (float32 at head dim 64 or 128, any N) or
-``"fma"`` (float32 past head dim 128, bf16 past 512). The
-tensor-core kernels read through the TMA: the wrappers first copy tensors
-that it cannot read (pointers not 16-byte aligned, strides not multiples
-of 16 bytes) to fresh contiguous ones. Each wrapper keeps the route of its
+to 512, any N), ``"tf32x3"`` (float32 at head dim 64 or 128, any N),
+``"tf32x3_wide"`` (float32 past head dim 128, any head dim and N: Q and K
+streamed in 32-column panels of d) or ``"fma"`` (bf16 past 512, the only
+route on the FMA units). The tensor-core kernels read through the TMA:
+the wrappers first copy tensors that it cannot read (pointers not 16-byte
+aligned, strides not multiples of 16 bytes) to fresh contiguous ones. Each wrapper keeps the route of its
 last launch in its ``route`` attribute, counts its launches in
 ``launches`` and, by kernel and shape, in ``launches_by`` (``"<route>
 <dtype> d<padded head dim> n<N>"``).
@@ -57,7 +59,7 @@ _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 _SIG_END = [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
 # entry -> argtypes: (q, k, v, o, B, H, N, [d,] sb, sh, sn, scale, stream)
 _FNS = {f"svt_attention_bhnd_{t}": _SIG + [ctypes.c_int] + _SIG_END
-        for t in ("fma_bf16", "fma_f32", "tf32x3", "bf16_kl", "bf16_wide")}
+        for t in ("fma_bf16", "tf32x3", "tf32x3_wide", "bf16_kl", "bf16_wide")}
 _FNS["svt_attention_bhnd_bf16"] = _SIG + _SIG_END  # head dim 64 only
 HEAD_DIMS = (64, 128)  # the head dims the key-loop tensor-core kernels are built for
 WIDE_STEP = 64         # head dims past 128 are padded to a multiple of this (the wide and FMA kernels')
@@ -104,18 +106,21 @@ def attention_route(dtype: torch.dtype, N: int, head_dim: int) -> str:
     """The kernel that q, k, v of ``dtype`` with N rows and padded
     ``head_dim`` take: up to head dim 128 ``"tf32x3"`` for float32,
     ``"wgmma"`` for bf16 at head dim 64 and N <= 224 and ``"wgmma_kl"`` for
-    other bf16; past 128 ``"wgmma_wide"`` for bf16 up to ``WIDE_MAX`` and
-    ``"fma"`` for the rest. Every route but ``"fma"`` reads what the TMA can
-    read (:func:`tma_readable`): the wrappers copy other tensors first."""
+    other bf16; past 128 ``"tf32x3_wide"`` for float32 (no cap),
+    ``"wgmma_wide"`` for bf16 up to ``WIDE_MAX`` and ``"fma"`` for bf16
+    past it. Every route but ``"fma"`` reads what the TMA can read
+    (:func:`tma_readable`): the wrappers copy other tensors first."""
     if head_dim in HEAD_DIMS:
         if dtype == torch.float32:
             return "tf32x3"
         return "wgmma" if head_dim == 64 and N <= WGMMA_MAX_SEQ else "wgmma_kl"
-    return "wgmma_wide" if dtype == torch.bfloat16 and head_dim <= WIDE_MAX else "fma"
+    if dtype == torch.float32:
+        return "tf32x3_wide"
+    return "wgmma_wide" if head_dim <= WIDE_MAX else "fma"
 
 
 _ENTRY = {"wgmma": "bf16", "wgmma_kl": "bf16_kl", "wgmma_wide": "bf16_wide", "tf32x3": "tf32x3",
-          "fma": "fma_"}
+          "tf32x3_wide": "tf32x3_wide", "fma": "fma_bf16"}
 
 
 def _count(wrapper, route: str, q: torch.Tensor, d: int, N: int) -> None:
@@ -134,8 +139,7 @@ def _launch(what: str, q, k, v, out, B: int, H: int, N: int, d: int, strides,
     head dim, which may be narrower than the padded one."""
     lib = _build.load("attention", _FNS)
     route = attention_route(q.dtype, N, d)
-    entry = _ENTRY[route] + (_build.SUFFIX[q.dtype] if route == "fma" else "")
-    fn = getattr(lib, f"svt_attention_bhnd_{entry}")
+    fn = getattr(lib, f"svt_attention_bhnd_{_ENTRY[route]}")
     dims = (B, H, N) if route == "wgmma" else (B, H, N, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

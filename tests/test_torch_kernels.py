@@ -204,11 +204,14 @@ def _share_bound(n: int) -> float:
 def _attention_route(dtype, N, d=64):
     """The route of a head dim d (padded as the wrappers pad it): past 128
     bf16 on the wide tensor-core kernel up to 512 and the FMA units past
-    it, float32 on the FMA units; bf16 on the main paths' tensor-core
-    kernel up to 224 keys at head dim 64 (padded), else on the key-loop
-    one; float32 on the tensor cores (3xTF32)."""
+    it, float32 on the float32 wide tensor-core kernel at any head dim;
+    bf16 on the main paths' tensor-core kernel up to 224 keys at head dim
+    64 (padded), else on the key-loop one; float32 on the tensor cores
+    (3xTF32)."""
     if d > 128:
-        return "wgmma_wide" if dtype == torch.bfloat16 and d <= 512 else "fma"
+        if dtype == torch.float32:
+            return "tf32x3_wide"
+        return "wgmma_wide" if d <= 512 else "fma"
     if dtype == torch.float32:
         return "tf32x3"
     return "wgmma" if N <= 224 and d <= 64 else "wgmma_kl"
@@ -439,14 +442,16 @@ def test_attention_narrow_head_dims(dtype, d, B, N, H):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [136, 256, 384, 448, 512, 576])
+@pytest.mark.parametrize("d", [136, 256, 384, 448, 512, 576, 1024])
 @pytest.mark.parametrize("B,N,H", [(3, 197, 2), (2, 17, 3), (2, 257, 2)])
 def test_attention_wide_head_dims(dtype, d, B, N, H):
     """Head dims past 128, zero-padded to a multiple of 64 (136 to 192)
     with the true head dim's scale and cut back, the others run as they
     are: bf16 on the wide tensor-core route up to 512 (an odd number of
     64-column panels at 192 and 448, 32-key blocks at 448 and 512) and on
-    the FMA route at 576, float32 on the FMA route."""
+    the FMA route at 576 and 1024, float32 on the float32 wide
+    tensor-core route at every one (a last output panel 64 columns wide at
+    192, 448 and 576; 32 streamed panels of d at 1024)."""
     _check_head_dim(dtype, d, B, N, H)
 
 
@@ -499,6 +504,28 @@ def test_bhnd_attention_gradient_at_head_dim_256():
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         _close(a, b, torch.bfloat16)
+
+
+def test_bhnd_attention_float32_gradient_at_head_dim_256():
+    """The gradient through the float32 wide tensor-core route's forward
+    ([2, 3, 197, 256]) against autograd through the plain version; the
+    backward launches nothing."""
+    rng = np.random.default_rng(16)
+    B, H, N, d = 2, 3, 197, 256
+    base = [_randn(rng, (B, N, H * d)) for _ in range(3)]
+    cot = _randn(rng, (B, H, N, d))
+    grads = []
+    for fn in (att.fused_attention, att.fused_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        out = fn(*[t.view(B, N, H, d).transpose(1, 2) for t in leaves])
+        if fn is att.fused_attention:
+            assert att.fused_attention.route == "tf32x3_wide"
+        before = att.fused_attention.launches
+        out.backward(cot)
+        assert att.fused_attention.launches == before
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        _close(a, b, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -578,6 +605,58 @@ def test_attention_float32_unaligned_tensors_are_copied_to_the_tf32x3_path():
     _close(got, att.fused_attention_plain(qh, kh, vh), torch.float32)
 
 
+@pytest.mark.parametrize("d", [192, 256])
+def test_attention_float32_unaligned_wide_heads_are_copied_to_the_tensor_cores(d):
+    """float32 tensors past head dim 128 that are not 16-byte aligned are
+    copied to aligned ones and take the float32 wide tensor-core route;
+    both entries match the plain version."""
+    rng = np.random.default_rng(17)
+    B, N, H = 2, 197, 2
+    q, k, v = (_unaligned(_randn(rng, (B, N, H * d))) for _ in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = att.fused_attention_packed(q, k, v, heads=H)
+    assert att.fused_attention_packed.route == "tf32x3_wide"
+    _close(got, att.fused_attention_packed_plain(q, k, v, heads=H), torch.float32)
+    qh, kh, vh = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
+    got = att.fused_attention(qh, kh, vh)
+    assert att.fused_attention.route == "tf32x3_wide"
+    _close(got, att.fused_attention_plain(qh, kh, vh), torch.float32)
+
+
+@pytest.mark.parametrize("entry", ["packed", "bhnd"])
+@pytest.mark.parametrize("d", [192, 320])
+@pytest.mark.parametrize("nan_in", ["next_head", "next_image"])
+def test_attention_float32_wide_reads_nothing_past_its_head(entry, d, nan_in):
+    """The float32 wide tensor-core route reads no column past d and no
+    row past N: with the last head's q, k and v NaN, the other heads'
+    outputs (whose last output panel, at d = 192 and 320, reaches past d
+    into the next head's columns) stay finite and match the plain version;
+    with the next image NaN, every output does."""
+    rng = np.random.default_rng(18)
+    B, N, H = 3, 197, 3
+    bufs = []
+    for _ in range(3):
+        buf = torch.full((B + 1, N, H * d), float("nan"), device="cuda")
+        buf[:B] = _randn(rng, (B, N, H * d))
+        if nan_in == "next_head":
+            buf[:B, :, (H - 1) * d:] = float("nan")
+        bufs.append(buf)
+    q, k, v = (b[:B] for b in bufs)
+    if entry == "packed":
+        got = att.fused_attention_packed(q, k, v, heads=H).view(B, N, H, d).transpose(1, 2)
+        want = att.fused_attention_packed_plain(q, k, v, heads=H).view(B, N, H, d).transpose(1, 2)
+        route = att.fused_attention_packed.route
+    else:
+        q, k, v = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
+        got, want = att.fused_attention(q, k, v), att.fused_attention_plain(q, k, v)
+        route = att.fused_attention.route
+    torch.cuda.synchronize()
+    assert route == "tf32x3_wide"
+    kept = H - 1 if nan_in == "next_head" else H
+    assert torch.isfinite(got[:, :kept]).all()
+    _close(got[:, :kept], want[:, :kept], torch.float32)
+
+
 def test_attention_float32_at_the_round_shape():
     """The tf32x3 route at the float32 round's shape ([896, 197, 768], 12
     heads, chip_smoke's inputs' distribution) within 1e-4 of the plain
@@ -596,10 +675,11 @@ def test_attention_float32_at_the_round_shape():
 def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
     """The tensor-core entries refuse unaligned tensors, strides that are not
     multiples of 16 bytes and head dims other than 64 and 128 (the bf16 main
-    paths' entry, which takes no head dim, N past 224; the wide entry head
-    dims other than 192, 256, ..., 512), and the FMA entries head dims that
-    are not multiples of 64: each with an error and no launch, rather than
-    running another kernel."""
+    paths' entry, which takes no head dim, N past 224; the bf16 wide entry
+    head dims other than 192, 256, ..., 512; the float32 wide entry head
+    dims under 192 or off the multiples of 64), and the FMA entry head
+    dims that are not multiples of 64: each with an error and no launch,
+    rather than running another kernel."""
     from shapley_vit_tpu_torch.ops import _build
 
     lib = _build.load("attention", att._FNS)
@@ -619,8 +699,12 @@ def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
                                             (torch.bfloat16, "bf16_wide", 576, N, 0, 0),
                                             (torch.bfloat16, "bf16_wide", 200, N, 0, 0),
                                             (torch.bfloat16, "fma_bf16", 80, N, 0, 0),
-                                            (torch.float32, "fma_f32", 136, N, 0, 0)):
-        row = H * d + pad  # a row stride of H d + 4: not a multiple of 8 bf16
+                                            (torch.float32, "tf32x3_wide", 256, N, 1, 0),
+                                            (torch.float32, "tf32x3_wide", 256, N, 0, 2),
+                                            (torch.float32, "tf32x3_wide", 128, N, 0, 0),
+                                            (torch.float32, "tf32x3_wide", 200, N, 0, 0)):
+        # a row stride of H d + 4 (bf16) or + 2 (float32): not a multiple of 16 bytes
+        row = H * d + pad
         buf = torch.zeros(4 * B * n * row + 8, dtype=dtype, device="cuda")
         q, k, v, o = (buf[offset + i * B * n * row:].data_ptr() for i in range(4))
         dims = (B, H, n) if entry == "bf16" else (B, H, n, d)

@@ -202,8 +202,11 @@ def test_patch_embed_runs_on_the_tensor_cores_in_both_dtypes():
     (torch.float32, 17, 64, "tf32x3"),
     (torch.float32, 577, 64, "tf32x3"),      # 384 px: any N
     (torch.float32, 577, 128, "tf32x3"),     # and head dim 128
-    (torch.float32, 197, 256, "fma"),        # past head dim 128
-    (torch.float32, 65, 320, "fma"),
+    (torch.float32, 197, 256, "tf32x3_wide"),  # past head dim 128
+    (torch.float32, 65, 320, "tf32x3_wide"),
+    (torch.float32, 197, 192, "tf32x3_wide"),  # the narrowest it takes
+    (torch.float32, 197, 576, "tf32x3_wide"),  # past bf16's WIDE_MAX
+    (torch.float32, 17, 1024, "tf32x3_wide"),  # no cap
 ])
 def test_attention_route(dtype, N, d, route):
     """The kernel the attention entries launch on the card for a padded head
@@ -211,9 +214,10 @@ def test_attention_route(dtype, N, d, route):
     N <= 224, the key-loop tensor-core one at any other N or head dim 128,
     the wide tensor-core one (128-column output panels) at head dims 192 to
     512 and any N, and the FMA one past 512; for float32 the float32
-    tensor-core one (3xTF32) up to head dim 128 at any N and the FMA one
-    past 128. Where the tensors lie does not change the route: the wrappers
-    copy what the TMA cannot read (``test_tma_readable``) before a
+    tensor-core one (3xTF32) up to head dim 128 at any N and the float32
+    wide tensor-core one (Q and K streamed in panels of d) at every head
+    dim past 128. Where the tensors lie does not change the route: the
+    wrappers copy what the TMA cannot read (``test_tma_readable``) before a
     tensor-core launch, and the FMA kernel reads any."""
     assert tatt.attention_route(dtype, N, d) == route
 
@@ -258,11 +262,27 @@ def test_wide_route_limit_is_the_kernel_s():
     assert tatt.attention_route(torch.bfloat16, 197, tatt.WIDE_MAX + tatt.WIDE_STEP) == "fma"
 
 
+def test_float32_wide_route_has_no_cap():
+    """Every float32 head dim past 128 that the wrappers pad to (each
+    multiple of ``WIDE_STEP`` from 192 to 2048) goes to the float32 wide
+    tensor-core route, never to the FMA one, and that route's entry in
+    ``_FNS`` is defined in ``csrc/attention.cu`` (the card tests run it at
+    head dim 1024)."""
+    src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
+    for d in range(192, 2048 + 1, tatt.WIDE_STEP):
+        assert tatt.attention_route(torch.float32, 197, d) == "tf32x3_wide"
+        assert tatt.attention_route(torch.float32, 17, d) == "tf32x3_wide"
+    entry = f"svt_attention_bhnd_{tatt._ENTRY['tf32x3_wide']}"
+    assert entry in tatt._FNS
+    assert f"int {entry}(" in src
+
+
 def test_wide_head_dim_step_is_the_fma_kernel_s():
     """``WIDE_STEP``, the multiple that head dims past 128 are padded to, is
     the FMA kernel's: the SL columns of d it stages per pass in
-    ``csrc/attention.cu``, whose entries refuse other head dims (the wide
-    tensor-core entry takes the same multiples, 64-column panels)."""
+    ``csrc/attention.cu``, whose entries refuse other head dims (both wide
+    tensor-core entries take the same multiples: 64-column panels of the
+    bf16 kernel, 64-column halves of the float32 one's output panels)."""
     src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
     assert int(re.search(r"constexpr int SL = (\d+);", src).group(1)) == tatt.WIDE_STEP
 
@@ -297,7 +317,7 @@ def test_depth2_vit_past_224_keys_and_at_head_dim_96_matches_jax(case):
     attention runs past the main paths' bf16 tensor-core route's 224 keys
     (tiny at 256 px: N = 257), at a head dim that is padded to 128 (tiny
     with 2 heads of 96) or at one past 128 (tiny with 1 head of 192, the
-    wide tensor-core route's in bf16 and the FMA route's in float32): the
+    wide tensor-core routes' in bf16 and in float32): the
     port on the CPU against the JAX ViT's XLA path."""
     over = {"image256": dict(depth=2, image=256), "head_dim96": dict(depth=2, heads=2),
             "head_dim192": dict(depth=2, heads=1)}[case]

@@ -3,7 +3,7 @@
 ``shapley_vit_tpu_torch/csrc/attention.cu`` on one NVIDIA GPU.
 
     git show <rev>:shapley_vit_tpu_torch/csrc/attention.cu > exp/other_attention.cu
-    python3 tools/torch_attention_ab.py [--dtype float32 | --long | --wide] exp/other_attention.cu [more.cu ...]
+    python3 tools/torch_attention_ab.py [--long | --wide] [--dtype float32] exp/other_attention.cu [more.cu ...]
 
 Each other source is built and run by ``tools/torch_kernel_ab.py`` with the
 packed layout's strides, as ``fused_attention_packed`` calls it.
@@ -29,10 +29,16 @@ packed layout's strides, as ``fused_attention_packed`` calls it.
   Each line also has the least time the card could take (``bound_ms``:
   the bytes of q, k, v and o over 3.35 TB/s against 4 B H N² d FLOP over
   989 TFLOP/s).
-* ``--dtype float32``: through ``svt_attention_bhnd_tf32x3`` where the
-  source has it, else through the FMA kernel's ``svt_attention_bhnd_f32``
-  (in sources without the tensor-core route that entry takes no head dim),
-  on chip_smoke's inputs.
+* ``--wide --dtype float32``: float32 at every head dim of
+  ``chip_smoke.LONG_ATTENTION`` past 128 (the four above and 1 head of
+  576), each source through its ``svt_attention_bhnd_tf32x3_wide`` entry,
+  or through its FMA entry ``svt_attention_bhnd_fma_f32`` where it has
+  none; ``bound_ms`` counts three TF32 products at 495 TFLOP/s for each
+  float32 one (``chip_smoke.peak_ops``).
+* ``--dtype float32`` alone: through ``svt_attention_bhnd_tf32x3`` where
+  the source has it, else through the FMA kernel's
+  ``svt_attention_bhnd_f32`` (in sources without the tensor-core route that
+  entry takes no head dim), on chip_smoke's inputs.
 
 For each kernel and input, one JSON line (``torch_kernel_ab.measure``:
 error and share differing from the plain version's output, ms per call, ms
@@ -40,7 +46,7 @@ among 20 back to back, host µs, device ms from ``torch.profiler``) and the
 same two errors against the float64 result (``exact_*``: the exact value
 rounded to the dtype), and whether its output is bit-identical to this
 tree's kernel's (``this``: the main paths' kernel, the key-loop one under
-``--long``, the wide one under ``--wide``).
+``--long``, the wide one of the dtype under ``--wide``).
 ``F.scaled_dot_product_attention`` on the same inputs runs first and last
 (float32 products in full float32).
 """
@@ -66,7 +72,8 @@ def inputs(dtype, mode: str):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     if mode in ("long", "wide"):
-        low, high = (0, 128) if mode == "long" else (128, att.WIDE_MAX)
+        widest = att.WIDE_MAX if dtype == torch.bfloat16 else math.inf
+        low, high = (0, 128) if mode == "long" else (128, widest)
         return [(tag, *(torch.randn((ab.chip_smoke.TB, n, h * d), generator=gen, device="cuda")
                         .to(dtype) for _ in range(3)), h)
                 for tag, (n, h, d) in ab.chip_smoke.LONG_ATTENTION.items() if low < d <= high]
@@ -91,11 +98,13 @@ def main() -> int:
 
     argv = sys.argv[1:]
     dname, mode = "bfloat16", "main"
-    if argv[:1] == ["--dtype"]:
-        dname, argv = argv[1], argv[2:]
-    elif argv[:1] in (["--long"], ["--wide"]):
-        mode, argv = argv[0][2:], argv[1:]
-    if not argv or dname not in ("bfloat16", "float32") or not torch.cuda.is_available():
+    while argv[:1] in (["--dtype"], ["--long"], ["--wide"]):
+        if argv[0] == "--dtype":
+            dname, argv = (argv[1] if len(argv) > 1 else ""), argv[2:]
+        else:
+            mode, argv = argv[0][2:], argv[1:]
+    if (not argv or dname not in ("bfloat16", "float32") or (mode == "long" and dname == "float32")
+            or not torch.cuda.is_available()):
         print(__doc__, file=sys.stderr)
         return 2
     dtype = getattr(torch, dname)
@@ -107,6 +116,9 @@ def main() -> int:
 
     def entry(lib):
         """(C entry, whether it takes the head dim)"""
+        if mode == "wide" and dtype == torch.float32:
+            name = "svt_attention_bhnd_tf32x3_wide"
+            return ab.entry(lib, name if hasattr(lib, name) else "svt_attention_bhnd_fma_f32", with_d), True
         if mode != "main":
             name = f"svt_attention_bhnd_bf16_{'kl' if mode == 'long' else 'wide'}"
             return ab.entry(lib, name if hasattr(lib, name) else "svt_attention_bhnd_fma_bf16", with_d), True
@@ -134,8 +146,9 @@ def main() -> int:
         exact_rounded = exact.to(dtype)
         bound = {}
         if mode == "wide":
+            route = "wgmma_wide" if dtype == torch.bfloat16 else "tf32x3_wide"
             bound["bound_ms"] = 1e3 * max(4 * q.numel() * q.element_size() / pk["bytes"],
-                                          4.0 * B * H * N * N * d / pk[dname])
+                                          ab.chip_smoke.peak_ops(pk, dname, route, 4.0 * B * H * N * N * d))
 
         def runner(which):
             fn, takes_d = fns[which]

@@ -28,23 +28,26 @@ def print_card() -> None:
                          capture_output=True, text=True).stdout.strip(), flush=True)
 
 
-def libraries(stem: str, fns: dict, sources) -> dict:
+def libraries(stem: str, fns: dict, sources=(), variants=None) -> dict:
     """{"this": this tree's ``csrc/<stem>.cu`` library, basename: the
-    library of each other source}, the others built in parallel with the
-    port's nvcc flags and this tree's headers."""
+    library of each other source, name: this tree's source built with each
+    variant's extra nvcc flags ({name: flags})}, the others built in
+    parallel with the port's nvcc flags and this tree's headers."""
     from shapley_vit_tpu_torch.ops import _build
 
     libs = {"this": _build.load(stem, fns)}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = [(os.path.basename(src), src, []) for src in sources]
+    builds += [(name, str(_build.CSRC / f"{stem}.cu"), flags) for name, flags in (variants or {}).items()]
     jobs = []
-    for i, src in enumerate(sources):
+    for i, (name, src, flags) in enumerate(builds):
         out = _build.BUILD_DIR / f"lib{stem}-other{i}.so"
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", str(out), src]
-        jobs.append((src, out, subprocess.Popen(cmd)))
-    for src, out, proc in jobs:
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, f"-I{_build.CSRC}", "-o", str(out), src]
+        jobs.append((name, out, subprocess.Popen(cmd)))
+    for name, out, proc in jobs:
         if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed on {src}")
-        libs[os.path.basename(src)] = ctypes.CDLL(str(out))
+            raise RuntimeError(f"nvcc failed on {name}")
+        libs[name] = ctypes.CDLL(str(out))
     return libs
 
 
