@@ -31,9 +31,10 @@ Phases, each printing one JSON line:
    moves most outputs off their bf16 value); ``route``
    is the kernel that ran, as the wrapper recorded it at the launch (its
    ``route`` attribute), and must be the one ``expected_route`` names:
-   ``wgmma`` (the bf16 tensor-core kernels), ``tf32x3`` (the float32 patch
-   embedding, fused MLP and attention on the tensor cores; ``tf32x3_wide``
-   attention past head dim 128) or ``fma`` (the FMA units). The float32
+   ``wgmma`` (the bf16 tensor-core kernels; ``wgmma_kl``, ``wgmma_wide``
+   and ``wgmma_stream`` attention past the main paths' shapes) or
+   ``tf32x3`` (the float32 patch embedding, fused MLP and attention on the
+   tensor cores; ``tf32x3_wide`` attention past head dim 128). The float32
    patch row has a second yardstick beside ``F.conv2d``, its plain
    version's own products (the ``patchify`` copy and one ``torch.addmm``
    with TF32 off: ``library2_ms``). Each row also has the
@@ -42,17 +43,21 @@ Phases, each printing one JSON line:
    ``library_device_ms``; ``device_kernels``: the device time of each
    kernel or copy a call ran). The fused MLP is also held with its
    weights one element past an aligned allocation (``*_unaligned``: copied
-   by the wrapper, then on the dtype's tensor-core route) and at a hidden
-   width of 3,070, which only the ``fma`` kernel takes (``*_fma``). Both
-   attention entries are also
+   by the wrapper, then on the dtype's tensor-core route), at a hidden
+   width of 3,070 (``*_h3070``) and, at the training batch's 12,608 tokens,
+   at widths D of 36 (bf16), 202 and 1030 (float32) with hidden 4 D
+   (``*_d36``, ``*_d202``, ``*_d1030``): widths that are not multiples of
+   8 (bf16) or 4 (float32), which the wrapper zero-pads onto the dtype's
+   tensor-core route. Both attention entries are also
    held past the main paths' shapes, at the training batch: N = 257 (256
    px) and 577 (384 px), and head dim 128 (6 heads of 128), bf16 on
    ``wgmma_kl`` (the key-loop tensor-core kernel) and float32 on
    ``tf32x3``, and head dims 192, 256, 384 and 512 (4, 3, 2 and 1 heads),
    bf16 on ``wgmma_wide`` (the key loop in 128-column output panels), and
-   576 (1 head), bf16 on ``fma``; float32 past 128 on ``tf32x3_wide`` (Q
-   and K streamed in 32-column panels of d), its ``bound_ms`` at the
-   3xTF32 rate.
+   576, 640 and 1024 (1 head), bf16 on ``wgmma_stream`` (Q and K streamed
+   in 64-column panels of d); float32 past 128 on ``tf32x3_wide`` (Q and K
+   streamed in 32-column panels of d), its ``bound_ms`` at the 3xTF32
+   rate.
    ``fused_attention``'s and ``patch_embed``'s
    gradients (each an ``autograd.Function``) are held against autograd
    through the plain version on the same inputs, with the same tolerances
@@ -415,6 +420,10 @@ def phase_kernels(card: str) -> dict:
 
     pk = peaks(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the inputs of the cases added after the first ones (the unaligned MLP
+    # widths, head dims 640 and 1024), so that adding a case moves no other
+    # case's inputs
+    more = torch.Generator(device="cuda").manual_seed(1)
     B, H = IMAGES, HEADS
     summary = {}
     results = []
@@ -462,9 +471,7 @@ def phase_kernels(card: str) -> dict:
 
         mlp_args = tuple(inp[n] for n in ("x", "ls", "lb", "w1", "b1", "w2", "b2"))
         mlp_spec = tvit.make_spec("base", dtype=dname)  # erf GELU in float32, eps 1e-12
-        mlp_blk = {"ln2": {"scale": inp["ls"], "bias": inp["lb"]},
-                   "mlp": {"fc1": {"kernel": inp["w1"], "bias": inp["b1"]},
-                           "fc2": {"kernel": inp["w2"], "bias": inp["b2"]}}}
+        mlp_blk = mlp_block_params(mlp_args)
         mlp_case = dict(
             plain=lambda: mlp.fused_mlp_block_plain(*mlp_args, eps=1e-12),
             library=lambda: tvit.mlp_half_xla(inp["x"], mlp_blk, mlp_spec),
@@ -482,20 +489,18 @@ def phase_kernels(card: str) -> dict:
             mlp_case, wrapper="fused_mlp_block",
             kernel=lambda: mlp.fused_mlp_block(*mlp_args[:3], w1u, mlp_args[4], w2u, mlp_args[6],
                                                eps=1e-12))
-        # the FMA kernel, which takes the hidden widths that are not a
-        # multiple of 8 (bf16) or 4 (float32): 3,070
+        # a hidden width that is not a multiple of 8 (bf16) or 4 (float32):
+        # 3,070, which the wrapper pads with zeros onto the tensor cores
         hf = HID - 2
-        fma_args = (*mlp_args[:3], inp["w1"][:, :hf].contiguous(), inp["b1"][:hf], inp["w2"][:hf],
-                    mlp_args[6])
-        fma_blk = {"ln2": mlp_blk["ln2"],
-                   "mlp": {"fc1": {"kernel": fma_args[3], "bias": fma_args[4]},
-                           "fc2": {"kernel": fma_args[5], "bias": fma_args[6]}}}
-        cases["fused_mlp_block_fma"] = dict(
-            mlp_case, wrapper="fused_mlp_block", route="fma", reps=1, shape=[M, D, hf],
-            kernel=lambda: mlp.fused_mlp_block(*fma_args, eps=1e-12),
-            plain=lambda: mlp.fused_mlp_block_plain(*fma_args, eps=1e-12),
-            library=lambda: tvit.mlp_half_xla(inp["x"], fma_blk, mlp_spec),
+        h3070_args = (*mlp_args[:3], inp["w1"][:, :hf].contiguous(), inp["b1"][:hf], inp["w2"][:hf],
+                      mlp_args[6])
+        cases["fused_mlp_block_h3070"] = dict(
+            mlp_case, wrapper="fused_mlp_block", shape=[M, D, hf],
+            kernel=lambda: mlp.fused_mlp_block(*h3070_args, eps=1e-12),
+            plain=lambda: mlp.fused_mlp_block_plain(*h3070_args, eps=1e-12),
+            library=lambda: tvit.mlp_half_xla(inp["x"], mlp_block_params(h3070_args), mlp_spec),
             flops=4.0 * M * D * hf, bytes=(2 * M * D + 2 * D * hf + hf + 3 * D) * isz)
+        cases.update(unaligned_mlp_cases(more, dtype, isz, mlp_spec))
 
         # the training path's [B, H, N, d] views of packed projections
         tq, tk, tv = inp["tq"], inp["tk"], inp["tv"]
@@ -510,7 +515,7 @@ def phase_kernels(card: str) -> dict:
             reps=10,
         )
         grads += kernel_grad_checks(dtype, tol, img, pw, pb, tqh, tkh, tvh)
-        cases.update(long_attention_cases(gen, dtype, isz))
+        cases.update(long_attention_cases(gen, more, dtype, isz))
 
         wrappers = {"patch_embed": pe.patch_embed, "fused_attention_packed": att.fused_attention_packed,
                     "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention}
@@ -568,7 +573,7 @@ def phase_kernels(card: str) -> dict:
             summary[key, dname] = row
             torch.cuda.empty_cache()
         del (cases, mlp_case, inp, img, pw, pb, q, k, v, qh, kh, vh, mlp_args, mlp_blk, tq, tk, tv, tqh,
-             tkh, tvh, w1u, w2u, fma_args, fma_blk)
+             tkh, tvh, w1u, w2u, h3070_args)
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     emit({"phase": "kernels", "card": card, "cudnn_allow_tf32": False, "cuda_matmul_allow_tf32": False,
@@ -586,45 +591,91 @@ def phase_kernels(card: str) -> dict:
 # Attention past the main paths' shapes, at the training batch: 256 px and
 # 384 px ViT-B (N = 257, 577), ViT-B's 768 columns as 6 heads of 128, 4 of
 # 192, 3 of 256 and 2 of 384, and one head of 512 and one of 576 (case:
-# (N, heads, head dim))
+# (N, heads, head dim)); their inputs come from the phase's generator
 LONG_ATTENTION = {"n257": (257, 12, 64), "n577": (577, 12, 64), "d128": (N, 6, 128),
                   "d192": (N, 4, 192), "d256": (N, 3, 256), "d384": (N, 2, 384), "d512": (N, 1, 512),
                   "d576": (N, 1, 576)}
+# one head of 640 and one of 1024, from the second generator
+STREAM_ATTENTION = {"d640": (N, 1, 640), "d1024": (N, 1, 1024)}
 # The route each of them must take, by dtype: bf16 past the main paths' 224
 # keys and head dim 64 up to 128 on the key-loop tensor-core kernel, from
-# 192 to 512 on the wide one, past 512 on the FMA kernel; float32 on
+# 192 to 512 on the wide one, past 512 on the streamed one; float32 on
 # 3xTF32 up to 128, on the float32 wide tensor-core kernel past it.
 LONG_ROUTES = {"n257": ("wgmma_kl", "tf32x3"), "n577": ("wgmma_kl", "tf32x3"),
                "d128": ("wgmma_kl", "tf32x3"), "d192": ("wgmma_wide", "tf32x3_wide"),
                "d256": ("wgmma_wide", "tf32x3_wide"), "d384": ("wgmma_wide", "tf32x3_wide"),
-               "d512": ("wgmma_wide", "tf32x3_wide"), "d576": ("fma", "tf32x3_wide")}
+               "d512": ("wgmma_wide", "tf32x3_wide"), "d576": ("wgmma_stream", "tf32x3_wide"),
+               "d640": ("wgmma_stream", "tf32x3_wide"), "d1024": ("wgmma_stream", "tf32x3_wide")}
 
 
-def long_attention_cases(gen, dtype, isz: int) -> dict:
+def long_attention_cases(gen, more, dtype, isz: int) -> dict:
     """``kernels`` cases of both attention entries at ``LONG_ATTENTION``'s
-    shapes, each held to the route ``LONG_ROUTES`` names for it."""
+    shapes (inputs from ``gen``) and ``STREAM_ATTENTION``'s (from
+    ``more``), each held to the route ``LONG_ROUTES`` names for it."""
     import torch
     import torch.nn.functional as F
 
     from shapley_vit_tpu_torch.ops import attention as att
 
     cases = {}
-    for tag, (n, h, d) in LONG_ATTENTION.items():
-        route = LONG_ROUTES[tag][dtype != torch.bfloat16]
-        q, k, v = ((torch.randn((TB, n, h * d), generator=gen, device="cuda")).to(dtype)
-                   for _ in range(3))
-        qh, kh, vh = (t.view(TB, n, h, d).transpose(1, 2) for t in (q, k, v))
-        common = dict(route=route, reps=3, flops=4.0 * TB * h * n * n * d, bytes=4 * q.numel() * isz,
-                      library=lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
-                      library_name="F.scaled_dot_product_attention", shape=[TB, h, n, d])
-        cases[f"fused_attention_packed_{tag}"] = dict(
-            common, wrapper="fused_attention_packed",
-            kernel=lambda q=q, k=k, v=v, h=h: att.fused_attention_packed(q, k, v, heads=h),
-            plain=lambda q=q, k=k, v=v, h=h: att.fused_attention_packed_plain(q, k, v, heads=h))
-        cases[f"fused_attention_{tag}"] = dict(
-            common, wrapper="fused_attention",
-            kernel=lambda qh=qh, kh=kh, vh=vh: att.fused_attention(qh, kh, vh),
-            plain=lambda qh=qh, kh=kh, vh=vh: att.fused_attention_plain(qh, kh, vh))
+    for shapes, g in ((LONG_ATTENTION, gen), (STREAM_ATTENTION, more)):
+        for tag, (n, h, d) in shapes.items():
+            route = LONG_ROUTES[tag][dtype != torch.bfloat16]
+            q, k, v = ((torch.randn((TB, n, h * d), generator=g, device="cuda")).to(dtype)
+                       for _ in range(3))
+            qh, kh, vh = (t.view(TB, n, h, d).transpose(1, 2) for t in (q, k, v))
+            common = dict(route=route, reps=3, flops=4.0 * TB * h * n * n * d, bytes=4 * q.numel() * isz,
+                          library=lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
+                          library_name="F.scaled_dot_product_attention", shape=[TB, h, n, d])
+            cases[f"fused_attention_packed_{tag}"] = dict(
+                common, wrapper="fused_attention_packed",
+                kernel=lambda q=q, k=k, v=v, h=h: att.fused_attention_packed(q, k, v, heads=h),
+                plain=lambda q=q, k=k, v=v, h=h: att.fused_attention_packed_plain(q, k, v, heads=h))
+            cases[f"fused_attention_{tag}"] = dict(
+                common, wrapper="fused_attention",
+                kernel=lambda qh=qh, kh=kh, vh=vh: att.fused_attention(qh, kh, vh),
+                plain=lambda qh=qh, kh=kh, vh=vh: att.fused_attention_plain(qh, kh, vh))
+    return cases
+
+
+def mlp_block_params(args) -> dict:
+    """A block's ``ln2`` and ``mlp`` leaves from the fused MLP's x, LN
+    scale and bias, W1, b1, W2, b2, for ``models.vit.mlp_half_xla``."""
+    return {"ln2": {"scale": args[1], "bias": args[2]},
+            "mlp": {"fc1": {"kernel": args[3], "bias": args[4]},
+                    "fc2": {"kernel": args[5], "bias": args[6]}}}
+
+
+# widths D of the fused MLP that are not a multiple of 8 (bf16) or 4
+# (float32), by dtype, at hidden 4 D and the training batch's tokens
+UNALIGNED_MLP = {"bfloat16": (36,), "float32": (202, 1030)}
+
+
+def unaligned_mlp_cases(gen, dtype, isz: int, spec) -> dict:
+    """``kernels`` cases of the fused MLP at ``UNALIGNED_MLP``'s widths
+    (the wrapper zero-pads D and the hidden width onto the dtype's
+    tensor-core route), timed against ``models.vit.mlp_half_xla``."""
+    import torch
+
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import mlp_block as mlp
+
+    def randn(shape, scale=1.0, dt=dtype):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dt)
+
+    cases = {}
+    m = TB * N
+    for d in UNALIGNED_MLP[str(dtype).replace("torch.", "")]:
+        hid = 4 * d
+        args = (randn((m, d)), (1 + randn((d,), 0.1, torch.float32)).to(dtype), randn((d,), 0.1),
+                randn((d, hid), 0.03), randn((hid,), 0.1), randn((hid, d), 0.03), randn((d,), 0.1))
+        cases[f"fused_mlp_block_d{d}"] = dict(
+            wrapper="fused_mlp_block", shape=[m, d, hid], reps=3,
+            kernel=lambda args=args: mlp.fused_mlp_block(*args, eps=1e-12),
+            plain=lambda args=args: mlp.fused_mlp_block_plain(*args, eps=1e-12),
+            library=lambda args=args: tvit.mlp_half_xla(args[0], mlp_block_params(args), spec),
+            library_name="models.vit.mlp_half_xla (torch ops: LN, cuBLAS fc1, GELU, cuBLAS fc2, residual)",
+            flops=4.0 * m * d * hid, bytes=(2 * m * d + 2 * d * hid + hid + 3 * d) * isz)
     return cases
 
 

@@ -5,12 +5,12 @@
 // 224), _bf16_kl the bf16 tensor-core kernel with a key loop (16-byte
 // aligned, head dim 64 or 128, any N), _bf16_wide the bf16 tensor-core
 // kernel past head dim 128 (16-byte aligned, head dim 192, 256, ..., 512,
-// any N), _tf32x3 the float32 tensor-core kernel (16-byte aligned, head dim
-// 64 or 128, any N), _tf32x3_wide the float32 tensor-core kernel past head
-// dim 128 (16-byte aligned, any head dim from 192 that is a multiple of 64,
-// any N), _fma_bf16 the bf16 FMA kernel (any head dim that is a multiple
-// of 64, any N; the caller sends it only head dims past 512). The
-// tensor-core entries refuse other inputs. The caller picks the route
+// any N), _bf16_stream the bf16 tensor-core kernel past head dim 512
+// (16-byte aligned, any head dim past 512 that is a multiple of 64, any N),
+// _tf32x3 the float32 tensor-core kernel (16-byte aligned, head dim 64 or
+// 128, any N), _tf32x3_wide the float32 tensor-core kernel past head dim
+// 128 (16-byte aligned, any head dim from 192 that is a multiple of 64, any
+// N). Each entry refuses other inputs. The caller picks the route
 // (ops/attention.attention_route), pads head dims to 64, to 128 or past 128
 // to a multiple of 64, and copies tensors that the TMA cannot read.
 //
@@ -113,13 +113,15 @@
 // images of N = 197 and 3 heads of 256, 4*B*H*N^2*d = 7.6 GFLOP, three
 // TF32 products each, 0.046 ms at 495 TFLOP/s, against 0.155 GB of q, k, v
 // and o, 0.046 ms over 3.35 TB/s.
-// bf16 past head dim 512: attention_fma_kernel, on the FMA units, one
-// block per (batch, head, 64 query rows, 128 output columns), the keys in
-// chunks and q k^T in slices of 64 columns of d staged in shared memory,
-// with an online softmax; each of the 8 warps takes 4 query rows at a
-// time, lane l owning keys l, l+32 of a chunk, so one float4 of K feeds the
-// 4 rows. No model the repo names has such a head: the kernel is simple,
-// not fast.
+// bf16 past head dim 512: attention_wgmma_stream_kernel, the wide kernel's
+// unit, key blocks, output panels and p split, with Q and K streamed
+// together through a ring in 64-column panels of d (as the float32 wide
+// kernel streams them), so that shared memory does not grow with d and the
+// head dim is a runtime count of panels, with no cap; see the kernel for
+// the design. At 64 images of N = 197 and one head of 576, 4*B*H*N^2*d =
+// 5.7 GFLOP, 0.006 ms at 989 TFLOP/s (with S done once for each of the 5
+// output panels and the p split, 21 GFLOP of tensor-core work, 0.021 ms),
+// against 58 MB of q, k, v and o, 0.017 ms over 3.35 TB/s.
 #include <cuda.h>
 
 #include <algorithm>
@@ -136,178 +138,6 @@ using namespace svt;  // the Hopper primitives (hopper.cuh)
 using bf16 = __nv_bfloat16;
 
 constexpr int HD = 64;  // head dim of the bf16 tensor-core kernel
-
-// ---------------------------------------------------------------------------
-// FMA units: bf16 past head dim 512 (the entry takes any N and any head
-// dim that is a multiple of 64)
-// ---------------------------------------------------------------------------
-
-constexpr int R = 4;            // query rows a warp handles at once
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int QT = 64;          // query rows per block
-constexpr int GROUPS = QT / (WARPS * R);  // the row groups of R that each warp takes
-constexpr int FKC = 64;         // keys staged in shared memory per pass
-constexpr int SL = 64;          // columns of d staged per pass of q k^T
-constexpr int KSTR = SL + 4;    // K rows padded so the lanes' float4 reads hit distinct banks
-constexpr int CP = 128;         // output columns of a block (a panel)
-
-// Q [QT][SL], K [FKC][KSTR], V [FKC][CP] and each warp's p [GROUPS][FKC][R]:
-// 81 KB whatever the head dim, so two blocks share an SM
-constexpr size_t FMA_SMEM =
-    sizeof(float) * ((size_t)QT * SL + (size_t)FKC * KSTR + (size_t)FKC * CP + (size_t)WARPS * GROUPS * FKC * R);
-
-// One block per (batch, head, 64 query rows, 128 output columns c0 ..
-// c0 + 127). The keys come in chunks of FKC. The scores of a chunk sum over
-// the whole head dim, 64 columns of Q and K staged at a time, so shared
-// memory does not grow with D; each block of a row's panels computes the
-// same scores, and only its own panel of p v. For each query row the block
-// keeps the running max m of the scaled scores and each lane its share of
-// the running sum l, and when a chunk moves the max it rescales l and the
-// float32 outputs by exp(m_old - m_new). The outputs are divided by l once,
-// at the end. Lane l owns keys l and l + 32 of a chunk (one float4 of K
-// feeds R rows) and output columns c0 + 4 l ... c0 + 4 l + 3 (V's columns
-// at or past D are staged as zeros and never stored).
-__global__ void __launch_bounds__(THREADS)
-attention_fma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-                     bf16* __restrict__ o, int N, int D, int panels, long long sb, long long sh,
-                     long long row_stride, float scale) {
-  constexpr int NJ = FKC / 32, CW = CP / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                 // [QT][SL]
-  float* Ks = Qs + QT * SL;         // [FKC][KSTR]
-  float* Vs = Ks + FKC * KSTR;      // [FKC][CP]
-  float* Ps = Vs + FKC * CP;        // [WARPS][GROUPS][FKC][R]
-
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = (blockIdx.x / panels) * QT, c0 = (blockIdx.x % panels) * CP;
-  const size_t base = (size_t)b * sb + (size_t)h * sh;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* Pw = Ps + warp * GROUPS * FKC * R;
-
-  float acc[GROUPS][R][CW], m[GROUPS][R], l[GROUPS][R];
-#pragma unroll
-  for (int g = 0; g < GROUPS; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      m[g][r] = -INFINITY;
-      l[g][r] = 0.f;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[g][r][c] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < N; k0 += FKC) {
-    const int kn = min(FKC, N - k0);  // keys of this chunk below N: at least one
-    float s[GROUPS][R][NJ];
-#pragma unroll
-    for (int g = 0; g < GROUPS; ++g)
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-#pragma unroll
-        for (int t = 0; t < NJ; ++t) s[g][r][t] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += SL) {
-      __syncthreads();  // the last pass's Q, K and V are read
-      for (int i = threadIdx.x; i < QT * SL; i += THREADS) {
-        const int r = i / SL, d = i % SL, row = q0 + r;
-        Qs[i] = row < N ? svt::to_f32(q[base + (size_t)row * row_stride + d0 + d]) : 0.f;
-      }
-      for (int i = threadIdx.x; i < FKC * SL; i += THREADS) {
-        const int j = i / SL, d = i % SL;
-        Ks[j * KSTR + d] = j < kn ? svt::to_f32(k[base + (size_t)(k0 + j) * row_stride + d0 + d]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int g = 0; g < GROUPS; ++g) {
-        const int r0 = (g * WARPS + warp) * R;  // the group's first row in the block
-        if (q0 + r0 >= N) continue;
-        const float* Qw = Qs + r0 * SL;
-#pragma unroll
-        for (int t = 0; t < NJ; ++t) {
-          const float* kr = Ks + (lane + 32 * t) * KSTR;
-#pragma unroll 4
-          for (int d = 0; d < SL; d += 4) {
-            const float4 kv = *reinterpret_cast<const float4*>(kr + d);
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float4 qv = *reinterpret_cast<const float4*>(Qw + r * SL + d);
-              float a = s[g][r][t];
-              a = fmaf(qv.x, kv.x, a);
-              a = fmaf(qv.y, kv.y, a);
-              a = fmaf(qv.z, kv.z, a);
-              a = fmaf(qv.w, kv.w, a);
-              s[g][r][t] = a;
-            }
-          }
-        }
-      }
-    }
-
-    // the online softmax; p goes to the warp's rows of Ps
-#pragma unroll
-    for (int g = 0; g < GROUPS; ++g)
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int t = 0; t < NJ; ++t) {
-          // keys at or past N weigh exactly 0: exp(-inf - m) == 0
-          s[g][r][t] = lane + 32 * t < kn ? s[g][r][t] * scale : -INFINITY;
-          mx = fmaxf(mx, s[g][r][t]);
-        }
-        const float mn = fmaxf(m[g][r], svt::warp_max(mx));  // finite
-        const float alpha = expf(m[g][r] - mn);              // 0 for the first chunk
-        m[g][r] = mn;
-        float sum = 0.f;
-#pragma unroll
-        for (int t = 0; t < NJ; ++t) {
-          const float e = expf(s[g][r][t] - mn);
-          Pw[(g * FKC + lane + 32 * t) * R + r] = e;
-          sum += e;
-        }
-        l[g][r] = l[g][r] * alpha + sum;
-#pragma unroll
-        for (int c = 0; c < CW; ++c) acc[g][r][c] *= alpha;
-      }
-
-    // the chunk's V in the block's panel of columns (zeros past D); the
-    // syncs of the passes above ordered the last chunk's reads of Vs before
-    // these writes
-    for (int i = threadIdx.x; i < FKC * CP; i += THREADS) {
-      const int j = i / CP, c = i % CP;
-      Vs[i] = j < kn && c0 + c < D ? svt::to_f32(v[base + (size_t)(k0 + j) * row_stride + c0 + c]) : 0.f;
-    }
-    __syncthreads();  // Vs, and every warp's p, written
-
-#pragma unroll
-    for (int g = 0; g < GROUPS; ++g) {
-      if (q0 + (g * WARPS + warp) * R >= N) continue;
-      for (int j = 0; j < kn; ++j) {
-        const float4 p = *reinterpret_cast<const float4*>(Pw + (g * FKC + j) * R);
-        const float4 x = *reinterpret_cast<const float4*>(Vs + j * CP + CW * lane);
-        const float pr[R] = {p.x, p.y, p.z, p.w}, vv[CW] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c < CW; ++c) acc[g][r][c] = fmaf(pr[r], vv[c], acc[g][r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < GROUPS; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = q0 + (g * WARPS + warp) * R + r;
-      const float inv = 1.f / svt::warp_sum(l[g][r]);
-      if (row < N) {
-        bf16* orow = o + base + (size_t)row * row_stride + c0 + CW * lane;
-#pragma unroll
-        for (int c = 0; c < CW; ++c)
-          if (c0 + CW * lane + c < D) orow[c] = svt::from_f32<bf16>(acc[g][r][c] * inv);
-      }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: TMA loads, wgmma products, one persistent block per SM
@@ -1021,12 +851,13 @@ __device__ __forceinline__ void wgmma_pv_kl(float (&d)[OC / 2], const uint32_t* 
 }
 
 // One key block of a consumer warpgroup: S = Q K^T over the block's first W
-// keys (a multiple of 16) and all of d, the online softmax, and O += P V
-// over the S::OCOLS columns of V at v. W is a template parameter so that
-// every wgmma chain is straight-line code. S holds the kernel's shapes
-// (Kl<D> or Wide<NP>): the 64-column panels of d (PANELS), the rows of a Q
-// buffer (QROWS) and the bytes of one 64-column panel of a K or V block
-// (PANEL_BYTES).
+// keys (a multiple of 16) and all of d (run), the online softmax, and O +=
+// P V over the S::OCOLS columns of V at v (softmax_pv). W is a template
+// parameter so that every wgmma chain is straight-line code. S holds the
+// kernel's shapes (Kl<D>, Wide<NP> or Ts): the 64-column panels of d
+// (PANELS), the rows of a Q buffer (QROWS) and the bytes of one 64-column
+// panel of a K or V block (PANEL_BYTES); Ts, whose S is streamed, calls
+// softmax_pv alone.
 template <class S>
 struct KlBlock {
   uint32_t q;       // shared address of this warpgroup's 64 rows of Q (panel 0)
@@ -1054,9 +885,15 @@ struct KlBlock {
     wgmma_wait_all();
     fence_regs(sc);
     if (s_done) mbar_arrive(s_done);
+    softmax_pv<W>(sc, oc, m, l);
+  }
 
-    // the online softmax; keys at or past N (only in the last block) get
-    // -inf, since their zero-filled rows would score 0
+  // the online softmax of the block's scores sc, and O += P V
+  template <int W>
+  __device__ __forceinline__ void softmax_pv(float (&sc)[W / 2], float (&oc)[S::OCOLS / 2], float (&m)[2],
+                                             float (&l)[2]) const {
+    // keys at or past N (only in the last block) get -inf, since their
+    // zero-filled rows would score 0
     if (rem < W) {
 #pragma unroll
       for (int e = 0; e < W / 2; ++e)
@@ -1433,6 +1270,230 @@ attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __gr
 }
 
 // ---------------------------------------------------------------------------
+// bf16 past head dim 512: the wide kernel's key loop and output panels, with
+// Q and K streamed in 64-column panels of d
+// ---------------------------------------------------------------------------
+
+constexpr int STREAM_DP = 64;  // columns of d in a streamed panel (ops/attention.WIDE_STEP)
+
+// The shapes of attention_wgmma_stream_kernel, the same at every head dim.
+// A resident Q of 128 rows grows with d (144 KB at 576, 256 KB at 1024,
+// past a block's 227 KB), so nothing of a unit stays in shared memory for
+// all of d: Q and K come together in panels of 64 columns of d
+// (one 128-byte swizzle row of bf16), one panel of each a stage, through a
+// ring of RING stages, and V's block in the output panel's 128 columns
+// (two 64-column panels) into one of VBUF buffers, loaded before the key
+// block's first stage. Every region is a multiple of 1,024 bytes (the
+// swizzle atom):
+//   ring   RING x (Q [128][64], K [64 keys][64])   8 x 24 KB
+//   V      VBUF x V [64 keys][128] as 2 x [64][64]  2 x 16 KB
+// 224 KB and 20 mbarriers, pinned below.
+struct Ts {
+  static constexpr int BK = 64;                        // keys per block
+  static constexpr int QROWS = 128;                    // query rows of a unit: 64 per consumer warpgroup
+  static constexpr int DP = STREAM_DP;                 // columns of d in a panel
+  static constexpr int OCOLS = 128;                    // columns of an output panel
+  static constexpr int PANEL_BYTES = BK * DP * 2;      // a panel of K, or a 64-column half of V's block
+  static constexpr int Q_BYTES = QROWS * DP * 2;       // a panel of Q
+  static constexpr int STAGE_BYTES = Q_BYTES + PANEL_BYTES;
+  static constexpr int V_BYTES = 2 * PANEL_BYTES;      // V's block in an output panel
+  static constexpr int RING = 8;                       // stages of the ring
+  static constexpr int VBUF = 2;                       // V buffers
+  static constexpr int CONSUMERS = 256;                // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 128;      // and the producer warpgroup
+  static constexpr int V0 = RING * STAGE_BYTES;        // offsets from the 1,024-aligned base
+  static constexpr int BYTES = V0 + VBUF * V_BYTES;
+  // mbarriers: full[RING], empty[RING], V full[VBUF], V empty[VBUF]
+  static constexpr int FULL = BYTES, EMPTY = FULL + 8 * RING, VFULL = EMPTY + 8 * RING,
+                       VEMPTY = VFULL + 8 * VBUF;
+  static constexpr size_t SMEM = 1024 + (size_t)VEMPTY + 8 * VBUF;
+};
+static_assert(Ts::BYTES == 8 * (16384 + 8192) + 2 * 16384, "ring 8 x 24 KB, V 2 x 16 KB");
+static_assert(Ts::STAGE_BYTES % 1024 == 0 && Ts::Q_BYTES % 1024 == 0 && Ts::V_BYTES % 1024 == 0,
+              "every tile starts on a swizzle atom");
+static_assert(Ts::SMEM == 1024 + 229376 + 8 * 20 && Ts::SMEM <= 232448,
+              "a block's 227 KB of shared memory, whatever the head dim");
+static_assert(Ts::DP * 2 == 128, "a panel row is one 128-byte swizzle row");
+
+// One key block of a consumer warpgroup in one output panel: S = Q K^T over
+// the block's first W keys (a multiple of 16) and all of d, a panel at a
+// time, then KlBlock's online softmax and O += P V with the p split. it and
+// jv count the stages and V blocks this thread has taken, over the block's
+// units; every barrier's phase follows from them. W is a template parameter
+// so that every wgmma chain is straight-line code.
+struct TsBlock {
+  uint32_t base;  // shared address of the aligned base
+  uint32_t qoff;  // this warpgroup's 64 rows of a Q panel, from the panel
+  int qd;         // lane % 4
+  int rem;        // keys of the block below N
+  int panels;     // 64-column panels of d
+  float l2;       // scale log2 e
+
+  template <int W>
+  __device__ __forceinline__ void run(float (&oc)[Ts::OCOLS / 2], float (&m)[2], float (&l)[2], int& it,
+                                      int& jv) const {
+    // S [64, W] = Q K^T: one chain of 4 k16 steps a panel, each panel's
+    // stage handed back once its products are done; bf16 products are
+    // exact in float32, summed in the accumulator over all of d, as the
+    // wide kernel's one chain sums them. Element e is row 16 warp + lane /
+    // 4 + 8 ((e % 4) / 2), key 8 (e / 4) + 2 qd + e % 2.
+    float sc[W / 2];
+#pragma unroll 1
+    for (int p = 0; p < panels; ++p, ++it) {
+      const int s = it % Ts::RING;
+      mbar_wait(base + Ts::FULL + 8 * s, (it / Ts::RING) & 1);
+      const uint32_t q = base + s * Ts::STAGE_BYTES + qoff, k = base + s * Ts::STAGE_BYTES + Ts::Q_BYTES;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < 4; ++kd)
+        wgmma_qk<W>(sc, sw128_desc(q + 32 * kd), sw128_desc(k + 32 * kd), p > 0 || kd > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      mbar_arrive(base + Ts::EMPTY + 8 * s);  // this thread's products of the stage are done
+    }
+    const int vb = jv % Ts::VBUF;
+    mbar_wait(base + Ts::VFULL + 8 * vb, (jv / Ts::VBUF) & 1);
+    const KlBlock<Ts> blk{0u, 0u, base + Ts::V0 + vb * Ts::V_BYTES, qd, rem, l2, 0u};
+    blk.template softmax_pv<W>(sc, oc, m, l);
+    mbar_arrive(base + Ts::VEMPTY + 8 * vb);  // this thread's products of the V block are done
+    ++jv;
+  }
+};
+
+// A unit is (image b, head h, query rows q0 .. q0 + 127); a persistent grid
+// of one block per SM walks the units u = blockIdx.x, blockIdx.x +
+// gridDim.x, ... (unit u: query tile u % qtiles of (image, head) u /
+// qtiles), as the key-loop and wide kernels do. Warps 0-7 are two consumer
+// warpgroups of 64 query rows each (setmaxnreg gives them 240 registers a
+// thread), warps 8-11 the producer warpgroup, whose one thread loads by TMA.
+// For each 128-column panel c of O (the last one 64 wide where d is an odd
+// multiple of 64) and each key block (64 keys), in this order:
+//   V's block in the panel's columns, into a V buffer (columns past d
+//     arrive as zeros without a read of memory);
+//   the panels of d: Q's 128 rows and K's 64 keys of each 64-column panel
+//     into a stage of the ring; each consumer warpgroup adds its 64 rows of
+//     Q times K^T, 4 wgmma k16 steps, to S (TsBlock);
+//   the online softmax and O_c += P V_c with the p_hi + p_lo split
+//     (KlBlock::softmax_pv), m and l in float32.
+// O_c / l goes from registers to global memory in bf16, rows at or past N
+// and columns at or past d dropped, and m and l start again for the next
+// panel: every panel computes the same S, so they come out the same. The
+// ring and the V buffers run on across key blocks, panels and units.
+// Shared memory is the same at every d (Ts). Q is read from L2 again for
+// every key block and output panel: at 1 head of 576 and N = 197, 4 key
+// blocks x 5 panels = 20 reads of each unit's Q, 20 x 144 KB a unit. The
+// tensor maps' d extent is d and their N extent N, so nothing past either
+// is read: a packed layout's next head and the next image never are. Every
+// wgmma chain is straight-line code.
+__global__ void __launch_bounds__(Ts::THREADS, 1)
+attention_wgmma_stream_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int N, int H, int d,
+                              int qtiles, int units, long long sb, long long sh, long long sn, int pos,
+                              float scale) {
+  constexpr int BK = Ts::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzle atoms: 1024 bytes
+  const int tid = threadIdx.x, blocks = (N + BK - 1) / BK;
+  const int panels = d / Ts::DP, opanels = (d + Ts::OCOLS - 1) / Ts::OCOLS;
+
+  if (tid == 0) {
+    for (int s = 0; s < Ts::RING; ++s) {
+      mbar_init(base + Ts::FULL + 8 * s, 1);                // the producer's expect_tx
+      mbar_init(base + Ts::EMPTY + 8 * s, Ts::CONSUMERS);   // each consumer thread, its products done
+    }
+    for (int x = 0; x < Ts::VBUF; ++x) {
+      mbar_init(base + Ts::VFULL + 8 * x, 1);
+      mbar_init(base + Ts::VEMPTY + 8 * x, Ts::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= Ts::CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid != Ts::CONSUMERS) return;
+    int it = 0, jv = 0;  // stages and V blocks loaded so far, over all of the block's units and panels
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int bh = u / qtiles, b = bh / H, h = bh % H;
+      const Coords cq = unit_coords(pos, b, h, (u % qtiles) * Ts::QROWS);
+      for (int c = 0; c < opanels; ++c) {
+        for (int kb = 0; kb < blocks; ++kb) {
+          const Coords ck = unit_coords(pos, b, h, kb * BK);
+          const int vb = jv % Ts::VBUF;
+          if (jv >= Ts::VBUF) mbar_wait(base + Ts::VEMPTY + 8 * vb, (jv / Ts::VBUF - 1) & 1);
+          const uint32_t vbar = base + Ts::VFULL + 8 * vb, vs = base + Ts::V0 + vb * Ts::V_BYTES;
+          mbar_expect_tx(vbar, Ts::V_BYTES);  // columns past d and rows past N arrive zero-filled and count
+          tma_load(vs, &vmap, vbar, ck, Ts::OCOLS * c);
+          tma_load(vs + Ts::PANEL_BYTES, &vmap, vbar, ck, Ts::OCOLS * c + Ts::DP);
+          ++jv;
+          for (int p = 0; p < panels; ++p, ++it) {
+            const int s = it % Ts::RING;
+            if (it >= Ts::RING) mbar_wait(base + Ts::EMPTY + 8 * s, (it / Ts::RING - 1) & 1);
+            const uint32_t bar = base + Ts::FULL + 8 * s, dst = base + s * Ts::STAGE_BYTES;
+            mbar_expect_tx(bar, Ts::STAGE_BYTES);  // rows at or past N arrive zero-filled and count
+            tma_load(dst, &qmap, bar, cq, Ts::DP * p);
+            tma_load(dst + Ts::Q_BYTES, &kmap, bar, ck, Ts::DP * p);
+          }
+        }
+      }
+    }
+    // stay until the consumers are done with the last loads: every load
+    // has landed before the thread that issued it exits
+    for (int j = max(it - Ts::RING, 0); j < it; ++j)
+      mbar_wait(base + Ts::EMPTY + 8 * (j % Ts::RING), (j / Ts::RING) & 1);
+    for (int j = max(jv - Ts::VBUF, 0); j < jv; ++j)
+      mbar_wait(base + Ts::VEMPTY + 8 * (j % Ts::VBUF), (j / Ts::VBUF) & 1);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32, g = lane / 4, qd = lane % 4;
+  const float l2 = scale * 1.4426950408889634f;  // exp(x scale) = 2^(x scale log2 e)
+  int it = 0, jv = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int bh = u / qtiles, b = bh / H, h = bh % H, q0 = (u % qtiles) * Ts::QROWS;
+#pragma unroll 1
+    for (int c = 0; c < opanels; ++c) {
+      float oc[Ts::OCOLS / 2];
+#pragma unroll
+      for (int e = 0; e < Ts::OCOLS / 2; ++e) oc[e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // rows g and g + 8
+      for (int kb = 0; kb < blocks; ++kb) {
+        // the products span the block's keys below N, rounded up to 16
+        const int rem = N - kb * BK;
+        const TsBlock blk{base, static_cast<uint32_t>(wg * 64 * 128), qd, rem, panels, l2};
+        if (rem > 48) blk.run<64>(oc, m, l, it, jv);
+        else if (rem > 32) blk.run<48>(oc, m, l, it, jv);
+        else if (rem > 16) blk.run<32>(oc, m, l, it, jv);
+        else blk.run<16>(oc, m, l, it, jv);
+      }
+
+      // O_c / l in bf16, pairs of columns 128 c + 8 j + 2 qd, + 1 below d
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = 1.f / l[r];
+      }
+      const int cols = min(Ts::OCOLS, d - Ts::OCOLS * c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + wg * 64 + 16 * warp + g + 8 * r;
+        if (row >= N) continue;
+        bf16* orow = o + (size_t)b * sb + (size_t)h * sh + (size_t)row * sn + Ts::OCOLS * c + 2 * qd;
+#pragma unroll
+        for (int j = 0; j < Ts::OCOLS / 8; ++j)
+          if (8 * j < cols)
+            *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+                pack_bf16(oc[4 * j + 2 * r] * l[r], oc[4 * j + 2 * r + 1] * l[r]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 past head dim 128: 3xTF32 on wgmma, Q and K streamed in 32-column
 // panels of d, the output in 128-column panels
 // ---------------------------------------------------------------------------
@@ -1797,12 +1858,12 @@ attention_tf32x3_wide_kernel(const __grid_constant__ CUtensorMap qmap, const __g
 
 // Kernel slots of prepare_launch (hopper.cuh), each allowed the dynamic
 // shared memory of its largest instance: attention_hopper_kernel<nch> is
-// nch - 1; then attention_fma_kernel, attention_tf32x3_kernel<64 | 128>,
-// attention_wgmma_kl_kernel<64 | 128>, attention_wgmma_wide_kernel<3 .. 8>
-// and attention_tf32x3_wide_kernel.
-constexpr int SLOT_FMA = MAX_KC, SLOT_TF32 = MAX_KC + 1, SLOT_KL = MAX_KC + 3, SLOT_WIDE = MAX_KC + 5;
-constexpr int SLOT_TF32_WIDE = SLOT_WIDE + WIDE_NP;
-constexpr int SLOTS = SLOT_TF32_WIDE + 1;
+// nch - 1; then attention_tf32x3_kernel<64 | 128>,
+// attention_wgmma_kl_kernel<64 | 128>, attention_wgmma_wide_kernel<3 .. 8>,
+// attention_tf32x3_wide_kernel and attention_wgmma_stream_kernel.
+constexpr int SLOT_TF32 = MAX_KC, SLOT_KL = MAX_KC + 2, SLOT_WIDE = MAX_KC + 4;
+constexpr int SLOT_TF32_WIDE = SLOT_WIDE + WIDE_NP, SLOT_STREAM = SLOT_TF32_WIDE + 1;
+constexpr int SLOTS = SLOT_STREAM + 1;
 
 // The [B, H, N, d] view as a 4-D tensor map: d innermost, then the row,
 // head and image axes in order of stride. An axis of extent 1 other than
@@ -1997,23 +2058,27 @@ WideLaunch wide_launch(int np, std::integer_sequence<int, I...>) {
   return launches[np - WIDE_MIN_NP];
 }
 
-// q, k, v and o share the strides (in elements) sb of the batch, sh of the
-// head and sn of the row; the head dim D (a multiple of 64) is contiguous.
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int N, int H, int D,
-               long long sb, long long sh, long long sn, float scale, cudaStream_t st) {
-  if (B <= 0 || H <= 0 || N <= 0 || D <= 0 || D % SL != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = attention_fma_kernel;
+int launch_stream(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int N, int H, int d, long long sb,
+                  long long sh, long long sn, float scale, cudaStream_t st) {
+  // boxes of one 128-byte row of d (64 bf16) by QROWS query rows or BK keys
+  CUtensorMap maps[3];
+  int pos[3] = {0, 0, 0};
+  const void* const ptrs[3] = {q, k, v};
+  const int rows[3] = {Ts::QROWS, Ts::BK, Ts::BK};
+  const int enc = encode_bhnd_maps(ptrs, rows, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, N, H, sb, sh, sn, d,
+                                   maps, pos);
+  if (enc != cudaSuccess) return enc;
+  const auto kernel = attention_wgmma_stream_kernel;
   int sms = 0;
   const cudaError_t err =
-      prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), SLOT_FMA, FMA_SMEM, &sms);
+      prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), SLOT_STREAM, Ts::SMEM, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int panels = (D + CP - 1) / CP;
-  const long long blocks = (long long)((N + QT - 1) / QT) * panels;
-  if (H > 65535 || B > 65535 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  dim3 grid(static_cast<unsigned>(blocks), H, B);
-  kernel<<<grid, THREADS, FMA_SMEM, st>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                          static_cast<const bf16*>(v), static_cast<bf16*>(o), N, D, panels, sb,
-                                          sh, sn, scale);
+  const int qtiles = (N + Ts::QROWS - 1) / Ts::QROWS;
+  const long long units = (long long)B * H * qtiles;
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  kernel<<<static_cast<unsigned>(std::min<long long>(units, sms)), Ts::THREADS, Ts::SMEM, st>>>(
+      maps[0], maps[1], maps[2], o, N, H, d, qtiles, static_cast<int>(units), sb, sh, sn,
+      pos[1] | (pos[2] << 2), scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2033,14 +2098,6 @@ extern "C" {
 
 // [B, H, N, d] views with the given strides (elements); the packed
 // [B, N, H*d] layout is batch stride N*H*d, head stride d, row stride H*d.
-// The bf16 FMA entry takes any N and any head dim d that is a multiple of
-// 64, with no alignment asked of the pointers or strides; the caller sends
-// it head dims past 512 only.
-int svt_attention_bhnd_fma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                                int N, int d, long long sb, long long sh, long long sn, float scale,
-                                void* stream) {
-  return launch_fma(q, k, v, o, B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
-}
 
 // The float32 tensor-core route: head dim d = 64 or 128, any N. The TMA
 // needs 16-byte aligned addresses and strides that are multiples of 4
@@ -2117,6 +2174,26 @@ int svt_attention_bhnd_bf16_wide(const void* q, const void* k, const void* v, vo
   return wide_launch(d / 64, std::make_integer_sequence<int, WIDE_NP>{})(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), B, N, H, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 tensor-core route past WIDE_MAX: any head dim d past 512 that is
+// a multiple of 64, any N. The same TMA requirements as
+// svt_attention_bhnd_bf16; other inputs are refused, not sent to another
+// kernel. Built with -DSVT_STREAM_FROM_192 it also takes the wide kernel's
+// head dims, from 192 (tools/torch_attention_ab.py --wide times the two
+// kernels there).
+int svt_attention_bhnd_bf16_stream(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+                                   int d, long long sb, long long sh, long long sn, float scale, void* stream) {
+#ifdef SVT_STREAM_FROM_192
+  const int narrowest = 64 * WIDE_MIN_NP;
+#else
+  const int narrowest = WIDE_MAX + STREAM_DP;
+#endif
+  if (!aligned16(q, k, v, o) || !strides_of(B, H, sb, sh, sn, 8) || B <= 0 || H <= 0 || N <= 0 ||
+      d % STREAM_DP != 0 || d < narrowest)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stream(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                       static_cast<bf16*>(o), B, N, H, d, sb, sh, sn, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -19,6 +19,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// round_to and warp_max: no kernel of this tree calls them, but
+// tools/torch_kernel_ab.py builds other versions of the sources against
+// these headers, and older ones do.
+
 // x rounded through T: what a cast to T and back to float32 gives
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));

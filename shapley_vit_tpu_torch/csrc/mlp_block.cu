@@ -65,18 +65,16 @@
 //    their own that is added to a float32 sum in registers.
 //    h is stored in float32, unrounded, as the Pallas kernel's
 //    h.astype(float32) leaves it.
-// The FMA units take the hidden widths the TMA routes do not take (not a
-// multiple of 8 in bf16 or 4 in float32; weights that are not 16-byte
-// aligned are copied by the caller and stay on the TMA routes): one kernel
-// that keeps the hidden on chip. A block of 256 threads takes 32 tokens, applies LN once into
-// shared memory, and for each chunk of 64 hidden units computes
-// gelu(y W1[:, c] + b1[c]) (rounded through the storage type) and
-// accumulates it times W2[c, :] into a float32 [32, D] accumulator in
-// registers, from W1/W2 tiles staged in shared memory. It takes D a
-// multiple of 32 up to 1024 (NC = ceil(D / 128) a template parameter) and
-// any hidden width.
+// Widths: TMA reads rows of 16 bytes, so both routes take D and Hd that are
+// multiples of 8 (bf16) or 4 (float32) and 16-byte aligned weights. The
+// caller (ops/mlp_block.fused_mlp_block) zero-pads other widths up to that
+// multiple (x, the LN scale and bias and b2 past D; W1's rows past D and
+// columns past Hd; b1 past Hd; W2's rows past Hd and columns past D) and
+// passes the true D as Dn: the LN statistics are taken over the first Dn
+// columns of each row, y past Dn is (x - mean) rstd 0 + 0 = 0, the padded
+// hidden units add GELU(0 + 0) 0 = 0 to fc2, and the caller cuts the output
+// back to [M, Dn]. So every width runs on the tensor cores.
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -94,186 +92,25 @@ __device__ __forceinline__ float gelu(float x, int approximate) {
   return 0.5f * x * erfcf(-x * 0.7071067811865476f);  // jax.nn.gelu's exact form
 }
 
-// LayerNorm of one row of D values by one warp: float32 statistics, y
-// rounded through T, stored as Y
-template <typename T, typename Y>
+// LayerNorm of one row by one warp: float32 statistics over its first Dn
+// values, y of its first D values (D >= Dn; past Dn the caller's LN scale
+// and bias are 0) stored in T
+template <typename T>
 __device__ __forceinline__ void layer_norm_row(const T* __restrict__ xrow, const T* __restrict__ ln_s,
-                                               const T* __restrict__ ln_b, Y* yrow, int D, float eps) {
+                                               const T* __restrict__ ln_b, T* yrow, int D, int Dn, float eps) {
   const int lane = threadIdx.x % 32;
   float sum = 0.f;
-  for (int d = lane; d < D; d += 32) sum += to_f32(xrow[d]);
-  const float mean = warp_sum(sum) / D;
+  for (int d = lane; d < Dn; d += 32) sum += to_f32(xrow[d]);
+  const float mean = warp_sum(sum) / Dn;
   float sq = 0.f;
-  for (int d = lane; d < D; d += 32) {
+  for (int d = lane; d < Dn; d += 32) {
     const float c = to_f32(xrow[d]) - mean;
     sq = fmaf(c, c, sq);
   }
-  const float rstd = rsqrtf(warp_sum(sq) / D + eps);
+  const float rstd = rsqrtf(warp_sum(sq) / Dn + eps);
   for (int d = lane; d < D; d += 32) {
     const float y = (to_f32(xrow[d]) - mean) * rstd * to_f32(ln_s[d]) + to_f32(ln_b[d]);
-    yrow[d] = from_f32<Y>(round_to<T>(y));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// FMA units: the hidden widths the TMA routes do not take
-// ---------------------------------------------------------------------------
-
-constexpr int TT = 32;        // tokens per block
-constexpr int HC = 64;        // hidden units per chunk
-constexpr int KS = 32;        // k slice of the staged W1 tile
-constexpr int JS = 16;        // hidden rows of the staged W2 tile
-constexpr int THREADS = 256;
-constexpr int YPAD = 4;       // ys row padding (floats): keeps 16-byte rows, spreads banks
-constexpr int MAX_NC = 8;     // D up to 1024
-
-// shared memory of the instance that pads D to DP = 128 NC columns
-size_t smem_bytes(int DP) {
-  return sizeof(float) * ((size_t)TT * (DP + YPAD) + KS * HC + HC * TT + (size_t)JS * DP);
-}
-
-// NC = ceil(D / 128): each thread owns NC groups of 4 output columns,
-// 4 lane + 128 i; D a multiple of 32. The shared tiles are laid out for
-// DP = 128 NC columns, W2's zero past D, so that the product loops keep
-// compile-time strides and no per-column test; columns past D are not stored.
-template <typename T, int NC>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
-                 const T* __restrict__ ln_b, const T* __restrict__ w1,
-                 const T* __restrict__ b1, const T* __restrict__ w2,
-                 const T* __restrict__ b2, T* __restrict__ out, int M, int D, int Hd,
-                 float eps, int approximate) {
-  constexpr int DP = 128 * NC;
-  constexpr int YS = DP + YPAD;
-  extern __shared__ __align__(16) float smem[];
-  float* ys = smem;              // [TT][YS]  LN(x), rounded through T
-  float* w1s = ys + TT * YS;     // [KS][HC]
-  float* hs = w1s + KS * HC;     // [HC][TT]  gelu(h), rounded through T
-  float* w2s = hs + HC * TT;     // [JS][DP]
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * TT;
-
-  // 1. LN(x) into ys: warp w normalizes rows 4w .. 4w+3 (rows past M are 0)
-  for (int rr = 0; rr < TT / 8; ++rr) {
-    const int r = warp * (TT / 8) + rr;
-    if (m0 + r < M) {
-      layer_norm_row<T>(x + (size_t)(m0 + r) * D, ln_s, ln_b, ys + r * YS, D, eps);
-    } else {
-      for (int d = lane; d < D; d += 32) ys[r * YS + d] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  // second-product mapping: warp = 4 rows, lane = column groups
-  float acc[4][NC][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < NC; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][i][e] = 0.f;
-
-  // first-product mapping: rows 2*ty, 2*ty+1; hidden units 4*tx .. 4*tx+3
-  const int ty = tid / 16, tx = tid % 16;
-
-  for (int c0 = 0; c0 < Hd; c0 += HC) {
-    // 2. h = y W1[:, c0:c0+HC]
-    float hacc[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) hacc[r][j] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += KS) {
-      for (int i = tid; i < KS * HC; i += THREADS) {
-        const int kk = i / HC, n = i % HC;
-        const int col = c0 + n;
-        w1s[i] = col < Hd ? to_f32(w1[(size_t)(k0 + kk) * Hd + col]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KS; ++kk) {
-        const float a0 = ys[(2 * ty) * YS + k0 + kk];
-        const float a1 = ys[(2 * ty + 1) * YS + k0 + kk];
-        const float4 bv = *reinterpret_cast<const float4*>(w1s + kk * HC + 4 * tx);
-        hacc[0][0] = fmaf(a0, bv.x, hacc[0][0]);
-        hacc[0][1] = fmaf(a0, bv.y, hacc[0][1]);
-        hacc[0][2] = fmaf(a0, bv.z, hacc[0][2]);
-        hacc[0][3] = fmaf(a0, bv.w, hacc[0][3]);
-        hacc[1][0] = fmaf(a1, bv.x, hacc[1][0]);
-        hacc[1][1] = fmaf(a1, bv.y, hacc[1][1]);
-        hacc[1][2] = fmaf(a1, bv.z, hacc[1][2]);
-        hacc[1][3] = fmaf(a1, bv.w, hacc[1][3]);
-      }
-      __syncthreads();
-    }
-    // 3. gelu(h + b1), rounded through T, into hs[unit][row]
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + 4 * tx + j;
-      const float bias = col < Hd ? to_f32(b1[col]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float hv = col < Hd ? round_to<T>(gelu(hacc[r][j] + bias, approximate)) : 0.f;
-        hs[(4 * tx + j) * TT + 2 * ty + r] = hv;
-      }
-    }
-    __syncthreads();
-
-    // 4. acc += gelu(h) W2[c0:c0+HC, :], W2 staged JS rows at a time
-    for (int j0 = 0; j0 < HC; j0 += JS) {
-      for (int i = tid; i < JS * DP; i += THREADS) {
-        const int jj = i / DP, d = i % DP;
-        const int unit = c0 + j0 + jj;
-        w2s[i] = unit < Hd && d < D ? to_f32(w2[(size_t)unit * D + d]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int jj = 0; jj < JS; ++jj) {
-        const float4 hv = *reinterpret_cast<const float4*>(hs + (j0 + jj) * TT + 4 * warp);
-        const float* wrow = w2s + jj * DP + 4 * lane;
-#pragma unroll
-        for (int i = 0; i < NC; ++i) {
-          const float4 wv = *reinterpret_cast<const float4*>(wrow + 128 * i);
-          acc[0][i][0] = fmaf(hv.x, wv.x, acc[0][i][0]);
-          acc[0][i][1] = fmaf(hv.x, wv.y, acc[0][i][1]);
-          acc[0][i][2] = fmaf(hv.x, wv.z, acc[0][i][2]);
-          acc[0][i][3] = fmaf(hv.x, wv.w, acc[0][i][3]);
-          acc[1][i][0] = fmaf(hv.y, wv.x, acc[1][i][0]);
-          acc[1][i][1] = fmaf(hv.y, wv.y, acc[1][i][1]);
-          acc[1][i][2] = fmaf(hv.y, wv.z, acc[1][i][2]);
-          acc[1][i][3] = fmaf(hv.y, wv.w, acc[1][i][3]);
-          acc[2][i][0] = fmaf(hv.z, wv.x, acc[2][i][0]);
-          acc[2][i][1] = fmaf(hv.z, wv.y, acc[2][i][1]);
-          acc[2][i][2] = fmaf(hv.z, wv.z, acc[2][i][2]);
-          acc[2][i][3] = fmaf(hv.z, wv.w, acc[2][i][3]);
-          acc[3][i][0] = fmaf(hv.w, wv.x, acc[3][i][0]);
-          acc[3][i][1] = fmaf(hv.w, wv.y, acc[3][i][1]);
-          acc[3][i][2] = fmaf(hv.w, wv.z, acc[3][i][2]);
-          acc[3][i][3] = fmaf(hv.w, wv.w, acc[3][i][3]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  // 5. out = x + (acc + b2), in float32, stored in T
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + 4 * warp + r;
-    if (m >= M) continue;
-    const T* xrow = x + (size_t)m * D;
-    T* orow = out + (size_t)m * D;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      if (4 * lane + 128 * i >= D) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 128 * i + 4 * lane + e;
-        orow[d] = from_f32<T>(to_f32(xrow[d]) + (acc[r][i][e] + to_f32(b2[d])));
-      }
-    }
+    yrow[d] = from_f32<T>(y);
   }
 }
 
@@ -283,12 +120,13 @@ mlp_block_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
 
 constexpr int LN_ROWS = 8;                   // rows (one warp each) per block of the LN kernel
 
+// rows of D values (the row stride of x and y), statistics over the first Dn
 template <typename T>
 __global__ void __launch_bounds__(32 * LN_ROWS)
 mlp_block_ln_kernel(const T* __restrict__ x, const T* __restrict__ ln_s,
-                    const T* __restrict__ ln_b, T* __restrict__ y, int M, int D, float eps) {
+                    const T* __restrict__ ln_b, T* __restrict__ y, int M, int D, int Dn, float eps) {
   const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
-  if (row < M) layer_norm_row<T>(x + (size_t)row * D, ln_s, ln_b, y + (size_t)row * D, D, eps);
+  if (row < M) layer_norm_row<T>(x + (size_t)row * D, ln_s, ln_b, y + (size_t)row * D, D, Dn, eps);
 }
 
 constexpr int BM = 128;                      // rows of a block tile
@@ -576,10 +414,10 @@ mlp_block_tf32x3_kernel(const __grid_constant__ CUtensorMap amap, const __grid_c
   store_tile(c, sum, m0 + wg * 64, n0, M, N, epilogue);
 }
 
-// Kernel slots of prepare_launch (hopper.cuh): the two bf16 GEMMs, the two
-// TF32 GEMMs, then the FMA kernel's instances, MAX_NC for each storage type.
-constexpr int SLOT_FC1 = 0, SLOT_FC2 = 1, SLOT_TF_FC1 = 2, SLOT_TF_FC2 = 3, SLOT_FMA = 4;
-constexpr int SLOTS = SLOT_FMA + 2 * MAX_NC;
+// Kernel slots of prepare_launch (hopper.cuh): the two bf16 GEMMs, then the
+// two TF32 GEMMs.
+constexpr int SLOT_FC1 = 0, SLOT_FC2 = 1, SLOT_TF_FC1 = 2, SLOT_TF_FC2 = 3;
+constexpr int SLOTS = 4;
 
 // a 2-D tensor map of a row-major [rows, cols] matrix of `type` (elements
 // of `bytes` bytes), boxes of box_rows x one 128-byte row with the 128-byte
@@ -621,13 +459,13 @@ bool is_aligned(const void* p, int bytes) { return reinterpret_cast<std::uintptr
 
 int launch_wgmma(const bf16* x, const bf16* ln_s, const bf16* ln_b, const bf16* w1, const bf16* b1,
                  const bf16* w2, const bf16* b2, bf16* out, bf16* y, bf16* h, int M, int D, int Hd,
-                 float eps, int approximate, cudaStream_t st) {
+                 int Dn, float eps, int approximate, cudaStream_t st) {
   // TMA: 16-byte strides and bases for y, h, W1 and W2; pair stores into
   // h and out
-  if (D % 8 || Hd % 8 || !is_aligned(w1, 16) || !is_aligned(w2, 16) || !is_aligned(y, 16) || !is_aligned(h, 16) ||
-      !is_aligned(out, 4))
+  if (D % 8 || Hd % 8 || Dn <= 0 || Dn > D || !is_aligned(w1, 16) || !is_aligned(w2, 16) || !is_aligned(y, 16) ||
+      !is_aligned(h, 16) || !is_aligned(out, 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  mlp_block_ln_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(x, ln_s, ln_b, y, M, D, eps);
+  mlp_block_ln_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(x, ln_s, ln_b, y, M, D, Dn, eps);
   int err = static_cast<int>(cudaGetLastError());
   if (err == 0) err = launch_gemm(y, w1, h, M, Hd, D, Fc1<bf16>{b1, approximate}, SLOT_FC1, st);
   if (err == 0) err = launch_gemm(h, w2, out, M, D, Hd, Fc2<bf16>{x, b2}, SLOT_FC2, st);
@@ -657,11 +495,11 @@ int launch_tf32x3_gemm(const float* a, const float* b_hi, const float* b_lo, flo
 
 int launch_tf32x3(const float* x, const float* ln_s, const float* ln_b, const float* w1, const float* b1,
                   const float* w2, const float* b2, float* out, float* y, float* h, float* wt, int M, int D,
-                  int Hd, float eps, int approximate, cudaStream_t st) {
+                  int Hd, int Dn, float eps, int approximate, cudaStream_t st) {
   // float4 loads of W1 and W2; TMA: 16-byte strides and bases for y, h and
   // wt's four [D, Hd] parts; pair stores into h and out
-  if (D % 4 || Hd % 4 || !is_aligned(w1, 16) || !is_aligned(w2, 16) || !is_aligned(y, 16) || !is_aligned(h, 16) ||
-      !is_aligned(wt, 16) || !is_aligned(out, 8))
+  if (D % 4 || Hd % 4 || Dn <= 0 || Dn > D || !is_aligned(w1, 16) || !is_aligned(w2, 16) || !is_aligned(y, 16) ||
+      !is_aligned(h, 16) || !is_aligned(wt, 16) || !is_aligned(out, 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t part = (size_t)D * Hd;
   float* w1_hi = wt;           // [Hd, D]
@@ -673,94 +511,44 @@ int launch_tf32x3(const float* x, const float* ln_s, const float* ln_b, const fl
                            split_block, 0, st>>>(w1, w1_hi, w1_lo, D, Hd);
   mlp_block_split_kernel<<<dim3((D + SPLIT_TILE - 1) / SPLIT_TILE, (Hd + SPLIT_TILE - 1) / SPLIT_TILE),
                            split_block, 0, st>>>(w2, w2_hi, w2_lo, Hd, D);
-  mlp_block_ln_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(x, ln_s, ln_b, y, M, D, eps);
+  mlp_block_ln_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, 32 * LN_ROWS, 0, st>>>(x, ln_s, ln_b, y, M, D, Dn, eps);
   int err = static_cast<int>(cudaGetLastError());
   if (err == 0) err = launch_tf32x3_gemm(y, w1_hi, w1_lo, h, M, Hd, D, Fc1<float>{b1, approximate}, SLOT_TF_FC1, st);
   if (err == 0) err = launch_tf32x3_gemm(h, w2_hi, w2_lo, out, M, D, Hd, Fc2<float>{x, b2}, SLOT_TF_FC2, st);
   return err;
 }
 
-template <typename T, int NC>
-int launch_fma_nc(const T* x, const T* ln_s, const T* ln_b, const T* w1, const T* b1, const T* w2,
-                  const T* b2, T* out, int M, int D, int Hd, float eps, int approximate, cudaStream_t st) {
-  const auto kernel = mlp_block_kernel<T, NC>;
-  const int slot = SLOT_FMA + (std::is_same_v<T, bf16> ? MAX_NC : 0) + NC - 1;
-  int sms = 0;
-  const size_t smem = smem_bytes(128 * NC);
-  const cudaError_t set = prepare_launch<SLOTS>(reinterpret_cast<const void*>(kernel), slot, smem, &sms);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  kernel<<<(M + TT - 1) / TT, THREADS, smem, st>>>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd,
-                                                             eps, approximate);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_fma(const void* x, const void* ln_s, const void* ln_b, const void* w1, const void* b1,
-               const void* w2, const void* b2, void* out, int M, int D, int Hd, float eps,
-               int approximate, void* stream) {
-  if (D % 32 || D <= 0 || D > 128 * MAX_NC) return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = [&](auto nc) {
-    return launch_fma_nc<T, decltype(nc)::value>(
-        static_cast<const T*>(x), static_cast<const T*>(ln_s), static_cast<const T*>(ln_b),
-        static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-        static_cast<const T*>(b2), static_cast<T*>(out), M, D, Hd, eps, approximate,
-        static_cast<cudaStream_t>(stream));
-  };
-  switch ((D + 127) / 128) {
-    case 1: return run(std::integral_constant<int, 1>{});
-    case 2: return run(std::integral_constant<int, 2>{});
-    case 3: return run(std::integral_constant<int, 3>{});
-    case 4: return run(std::integral_constant<int, 4>{});
-    case 5: return run(std::integral_constant<int, 5>{});
-    case 6: return run(std::integral_constant<int, 6>{});
-    case 7: return run(std::integral_constant<int, 7>{});
-    default: return run(std::integral_constant<int, 8>{});
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// the FMA kernel: float32, D a multiple of 32 up to 1024, any hidden width
-int svt_mlp_block_fma_f32(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-                      const void* b1, const void* w2, const void* b2, void* out, int M,
-                      int D, int Hd, float eps, int approximate, void* stream) {
-  return launch_fma<float>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd, eps, approximate, stream);
-}
-
-// the FMA kernel on bf16 storage: for shapes the TMA route does not take
-int svt_mlp_block_fma_bf16(const void* x, const void* ln_s, const void* ln_b, const void* w1,
-                           const void* b1, const void* w2, const void* b2, void* out, int M,
-                           int D, int Hd, float eps, int approximate, void* stream) {
-  return launch_fma<bf16>(x, ln_s, ln_b, w1, b1, w2, b2, out, M, D, Hd, eps, approximate, stream);
-}
-
-// the bf16 route: LN into the workspace y [M, D], fc1 into the workspace
-// h [M, Hd], fc2 into out; D and Hd multiples of 8, W1, W2, y and h
-// 16-byte aligned (else cudaErrorInvalidValue, before any launch)
+// the bf16 route: LN into the workspace y [M, D] (statistics over the first
+// Dn columns of a row, Dn <= D), fc1 into the workspace h [M, Hd], fc2 into
+// out; D and Hd multiples of 8, W1, W2, y and h 16-byte aligned (else
+// cudaErrorInvalidValue, before any launch)
 int svt_mlp_block_bf16(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                        const void* b1, const void* w2, const void* b2, void* out, void* y, void* h,
-                       int M, int D, int Hd, float eps, int approximate, void* stream) {
+                       int M, int D, int Hd, int Dn, float eps, int approximate, void* stream) {
   return launch_wgmma(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_s),
                       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w1),
                       static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
                       static_cast<const bf16*>(b2), static_cast<bf16*>(out), static_cast<bf16*>(y),
-                      static_cast<bf16*>(h), M, D, Hd, eps, approximate, static_cast<cudaStream_t>(stream));
+                      static_cast<bf16*>(h), M, D, Hd, Dn, eps, approximate, static_cast<cudaStream_t>(stream));
 }
 
 // the float32 route: W1 and W2's transposed TF32 pairs into the workspace
-// wt [4, D, Hd], LN into the workspace y [M, D], fc1 into the workspace
-// h [M, Hd], fc2 into out, in 3xTF32; D and Hd multiples of 4, W1, W2, y, h
-// and wt 16-byte aligned (else cudaErrorInvalidValue, before any launch)
+// wt [4, D, Hd], LN into the workspace y [M, D] (statistics over the first
+// Dn columns of a row, Dn <= D), fc1 into the workspace h [M, Hd], fc2 into
+// out, in 3xTF32; D and Hd multiples of 4, W1, W2, y, h and wt 16-byte
+// aligned (else cudaErrorInvalidValue, before any launch)
 int svt_mlp_block_tf32x3(const void* x, const void* ln_s, const void* ln_b, const void* w1,
                          const void* b1, const void* w2, const void* b2, void* out, void* y, void* h,
-                         void* wt, int M, int D, int Hd, float eps, int approximate, void* stream) {
+                         void* wt, int M, int D, int Hd, int Dn, float eps, int approximate, void* stream) {
   return launch_tf32x3(static_cast<const float*>(x), static_cast<const float*>(ln_s),
                        static_cast<const float*>(ln_b), static_cast<const float*>(w1),
                        static_cast<const float*>(b1), static_cast<const float*>(w2),
                        static_cast<const float*>(b2), static_cast<float*>(out), static_cast<float*>(y),
-                       static_cast<float*>(h), static_cast<float*>(wt), M, D, Hd, eps, approximate,
+                       static_cast<float*>(h), static_cast<float*>(wt), M, D, Hd, Dn, eps, approximate,
                        static_cast<cudaStream_t>(stream));
 }
 

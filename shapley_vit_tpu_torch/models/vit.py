@@ -26,8 +26,9 @@ What changed in the port:
   ops (the JAX default path, vit.py:353-362). LoRA training uses
   ``spec.replace(attention_impl="pallas", mlp_impl="xla")``; the forward-only
   kernels raise when autograd would need their gradient. The patch
-  embedding always runs ``patch_embed``, whose backward (torch ops) gives
-  the adversarial attacks their image gradient.
+  embedding runs ``patch_embed`` (except under int8 with ``"patch"`` in
+  the targets, below), whose backward (torch ops) gives the adversarial
+  attacks their image gradient.
   The kernels' numerics follow the Pallas kernels (f32 softmax and
   accumulation in attention; LN -> fc1 -> GELU in f32 in the MLP, ``h``
   cast to the weight dtype before fc2, the residual added in f32), so at
@@ -43,10 +44,11 @@ What changed in the port:
   (``mlp_impl="pallas"``) bypasses int8 on fc1 and fc2, as the JAX Pallas
   MLP does (vit.py:64-65), so only ``mlp_impl="xla"`` quantizes them; the
   merged q/v kernels quantize per coalition from the kernel already cast to
-  the compute dtype, the shared kernels from their float32 base. The port's
-  patch embedding is always the kernel (the JAX ``patch_impl="pallas"``
-  path), which never quantizes, so ``"patch"`` in ``quant_targets`` has no
-  effect here.
+  the compute dtype, the shared kernels from their float32 base. With
+  ``"patch"`` in ``quant_targets`` the patch projection is ``patchify`` and
+  an int8 dense product (the JAX default ``patch_impl="xla"`` path,
+  vit.py:396-397); otherwise it is the ``patch_embed`` kernel, which never
+  quantizes.
 """
 
 from __future__ import annotations
@@ -349,12 +351,11 @@ def _block(x, blk_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
 def _embed(base, images, spec: ViTSpec):
     """Patch tokens + CLS + positions, ``[B, N, D]`` in the compute dtype."""
     dt = spec.compute_dtype
-    x = patch_embed(
-        images.to(dt),
-        base["patch_embed"]["kernel"].to(dt),
-        base["patch_embed"]["bias"].to(dt),
-        spec.patch,
-    )
+    kernel, bias = base["patch_embed"]["kernel"], base["patch_embed"]["bias"]
+    if spec.quant == "int8" and "patch" in spec.quant_targets:
+        x = _dense(_patchify(images.to(dt), spec.patch), kernel, bias, spec, "patch")
+    else:
+        x = patch_embed(images.to(dt), kernel.to(dt), bias.to(dt), spec.patch)
     B = x.shape[0]
     cls = base["cls_token"].to(dt).expand(B, 1, spec.hidden)
     x = torch.cat([cls, x], dim=1)

@@ -18,7 +18,8 @@ the graph.
 
 The key-loop tensor-core kernels are built for head dims 64 and 128
 (``HEAD_DIMS``), the bf16 wide one for multiples of 64 from 192 to
-``WIDE_MAX``, the float32 wide one for every multiple of 64 from 192.
+``WIDE_MAX``, the bf16 streamed one for every multiple of 64 past it, the
+float32 wide one for every multiple of 64 from 192.
 On the card a head dim under 64 is zero-padded to 64, one of 65 to 127 to
 128, and one past 128 to a multiple of 64 (:func:`kernel_head_dim`), before
 the launch and the output cut back (:func:`resize_heads`), with the true
@@ -33,13 +34,14 @@ online softmax, as the JAX kernels pad N with no cap.
 at head dim 128 or past 224 keys), ``"wgmma_wide"`` (bf16 at head dims 192
 to 512, any N), ``"tf32x3"`` (float32 at head dim 64 or 128, any N),
 ``"tf32x3_wide"`` (float32 past head dim 128, any head dim and N: Q and K
-streamed in 32-column panels of d) or ``"fma"`` (bf16 past 512, the only
-route on the FMA units). The tensor-core kernels read through the TMA:
-the wrappers first copy tensors that it cannot read (pointers not 16-byte
-aligned, strides not multiples of 16 bytes) to fresh contiguous ones. Each wrapper keeps the route of its
-last launch in its ``route`` attribute, counts its launches in
-``launches`` and, by kernel and shape, in ``launches_by`` (``"<route>
-<dtype> d<padded head dim> n<N>"``).
+streamed in 32-column panels of d) or ``"wgmma_stream"`` (bf16 past 512,
+any head dim and N: Q and K streamed in 64-column panels of d). Every
+kernel runs on the tensor cores and reads through the TMA: the wrappers
+first copy tensors that it cannot read (pointers not 16-byte aligned,
+strides not multiples of 16 bytes) to fresh contiguous ones. Each wrapper
+keeps the route of its last launch in its ``route`` attribute, counts its
+launches in ``launches`` and, by kernel and shape, in ``launches_by``
+(``"<route> <dtype> d<padded head dim> n<N>"``).
 """
 
 from __future__ import annotations
@@ -59,10 +61,10 @@ _SIG = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
 _SIG_END = [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
 # entry -> argtypes: (q, k, v, o, B, H, N, [d,] sb, sh, sn, scale, stream)
 _FNS = {f"svt_attention_bhnd_{t}": _SIG + [ctypes.c_int] + _SIG_END
-        for t in ("fma_bf16", "tf32x3", "tf32x3_wide", "bf16_kl", "bf16_wide")}
+        for t in ("tf32x3", "tf32x3_wide", "bf16_kl", "bf16_wide", "bf16_stream")}
 _FNS["svt_attention_bhnd_bf16"] = _SIG + _SIG_END  # head dim 64 only
 HEAD_DIMS = (64, 128)  # the head dims the key-loop tensor-core kernels are built for
-WIDE_STEP = 64         # head dims past 128 are padded to a multiple of this (the wide and FMA kernels')
+WIDE_STEP = 64         # head dims past 128 are padded to a multiple of this (STREAM_DP in csrc/attention.cu)
 WIDE_MAX = 512         # the bf16 wide tensor-core kernel's widest head dim (WIDE_MAX in csrc/attention.cu)
 WGMMA_MAX_SEQ = 224    # the bf16 tensor-core kernel's longest N (MAX_KC * KC in csrc/attention.cu)
 
@@ -107,8 +109,8 @@ def attention_route(dtype: torch.dtype, N: int, head_dim: int) -> str:
     ``head_dim`` take: up to head dim 128 ``"tf32x3"`` for float32,
     ``"wgmma"`` for bf16 at head dim 64 and N <= 224 and ``"wgmma_kl"`` for
     other bf16; past 128 ``"tf32x3_wide"`` for float32 (no cap),
-    ``"wgmma_wide"`` for bf16 up to ``WIDE_MAX`` and ``"fma"`` for bf16
-    past it. Every route but ``"fma"`` reads what the TMA can read
+    ``"wgmma_wide"`` for bf16 up to ``WIDE_MAX`` and ``"wgmma_stream"``
+    for bf16 past it (no cap). Every route reads what the TMA can read
     (:func:`tma_readable`): the wrappers copy other tensors first."""
     if head_dim in HEAD_DIMS:
         if dtype == torch.float32:
@@ -116,11 +118,11 @@ def attention_route(dtype: torch.dtype, N: int, head_dim: int) -> str:
         return "wgmma" if head_dim == 64 and N <= WGMMA_MAX_SEQ else "wgmma_kl"
     if dtype == torch.float32:
         return "tf32x3_wide"
-    return "wgmma_wide" if head_dim <= WIDE_MAX else "fma"
+    return "wgmma_wide" if head_dim <= WIDE_MAX else "wgmma_stream"
 
 
 _ENTRY = {"wgmma": "bf16", "wgmma_kl": "bf16_kl", "wgmma_wide": "bf16_wide", "tf32x3": "tf32x3",
-          "tf32x3_wide": "tf32x3_wide", "fma": "fma_bf16"}
+          "tf32x3_wide": "tf32x3_wide", "wgmma_stream": "bf16_stream"}
 
 
 def _count(wrapper, route: str, q: torch.Tensor, d: int, N: int) -> None:
@@ -193,8 +195,8 @@ def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = kernel_head_dim(d)
     if dk != d:
         q, k, v = (resize_heads(t, heads, dk) for t in (q, k, v))
-    if attention_route(q.dtype, N, dk) != "fma":  # the TMA reads 16-byte aligned tensors only
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    # the TMA reads 16-byte aligned tensors only
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     out = torch.empty_like(q)
     # the packed layout as [B, H, N, d] strides: batch N·H·d, head d, row H·d
     route = _launch("fused_attention_packed", q, k, v, out, B, heads, N, dk,
@@ -249,10 +251,10 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
     """The kernel on CUDA tensors ``[B, H, N, d]``. q/k/v are read in
     place when they share their strides with a contiguous head dim (the
     views a head split makes of packed [B, N, H·d] projections); other
-    layouts, and those of the tensor-core routes that the TMA cannot read,
-    are copied to contiguous first. The output keeps q's strides. A head dim
-    that the kernels do not take is zero-padded first (:func:`kernel_head_dim`;
-    contiguous copies) and the output cut back."""
+    layouts, and those that the TMA cannot read, are copied to contiguous
+    first. The output keeps q's strides. A head dim that the kernels do not
+    take is zero-padded first (:func:`kernel_head_dim`; contiguous copies)
+    and the output cut back."""
     B, H, N, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} differ")
@@ -261,8 +263,7 @@ def _attention_bhnd_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) ->
         q, k, v = (resize_heads(t, 1, dk) for t in (q, k, v))
     out = torch.empty_like(q)
     if not (q.stride() == k.stride() == v.stride() == out.stride() and q.stride(-1) == 1
-            and (attention_route(q.dtype, N, dk) == "fma"
-                 or tma_readable((q, k, v), B, H, q.stride()[:3]))):
+            and tma_readable((q, k, v), B, H, q.stride()[:3])):
         q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
         out = torch.empty_like(q)
     _build.check_tensors("fused_attention", q, k, v, contiguous=False)

@@ -8,38 +8,43 @@ kernels (``csrc/mlp_block.cu``) for a CUDA tensor and runs
 package: where autograd would need a gradient it raises (train with
 ``mlp_impl="xla"``).
 
-On the card, :func:`mlp_route` picks the kernel from shape and dtype
-before the launch:
+On the card, :func:`mlp_route` picks the kernel from the dtype before the
+launch:
 
-* ``"wgmma"`` (bf16, D and the hidden width multiples of 8; the main
-  path): LN into a bf16 workspace ``y [M, D]``, then two tensor-core
-  GEMMs, fc1 (+ b1, GELU) into a bf16 workspace ``h [M, Hd]`` and fc2
-  (+ b2, residual) into the output. Both workspaces come from PyTorch's
-  caching allocator; y and h are rounded to bf16 where the Pallas kernel
-  casts them to the weights' dtype, so the numerics are the fused
-  kernel's.
-* ``"tf32x3"`` (float32, D and the hidden width multiples of 4): the same
-  LN and two GEMMs on the tensor cores in 3xTF32, each float32 operand
-  split into a TF32 pair hi + lo and each product taken as hi·hi + hi·lo +
-  lo·hi, which keeps float32's accuracy. Workspaces ``y [M, D]`` and
-  ``h [M, Hd]`` in float32, and ``wt`` for W1's and W2's transposed TF32
-  pairs (``4·D·Hd`` floats).
-* ``"fma"`` (a hidden width that is not such a multiple, D a multiple of
-  32 up to 1024): one kernel on the FMA units that keeps the hidden on
-  chip.
+* ``"wgmma"`` (bf16; the main path): LN into a bf16 workspace ``y [M, D]``,
+  then two tensor-core GEMMs, fc1 (+ b1, GELU) into a bf16 workspace
+  ``h [M, Hd]`` and fc2 (+ b2, residual) into the output. Both workspaces
+  come from PyTorch's caching allocator; y and h are rounded to bf16 where
+  the Pallas kernel casts them to the weights' dtype, so the numerics are
+  the fused kernel's.
+* ``"tf32x3"`` (float32): the same LN and two GEMMs on the tensor cores in
+  3xTF32, each float32 operand split into a TF32 pair hi + lo and each
+  product taken as hi·hi + hi·lo + lo·hi, which keeps float32's accuracy.
+  Workspaces ``y [M, D]`` and ``h [M, Hd]`` in float32, and ``wt`` for W1's
+  and W2's transposed TF32 pairs (``4·D·Hd`` floats).
 
-The tensor-core routes read W1 and W2 by TMA, from 16-byte aligned
-addresses: the wrapper first copies a weight that is not aligned to a
-fresh allocation, so alignment never changes the route. Any other shape
-raises a ``ValueError`` before any launch. The wrapper keeps the route of
-its last launch in its ``route`` attribute, counts its launches in
-``launches`` and, by kernel, in ``launches_by`` (``"<route> <dtype>"``).
+Both read their operands by TMA, which needs 16-byte rows: D and the
+hidden width multiples of 8 (bf16) or 4 (float32). The wrapper zero-pads
+any other width up to that multiple (:func:`pad_widths`): x, the LN scale
+and bias and b2 get zero columns past D, W1 zero rows past D and zero
+columns past the hidden width, b1 zeros past the hidden width, W2 zero rows
+past the hidden width and zero columns past D. The LN statistics stay over
+the true D (the kernels take it beside the padded row width), the zero LN
+scale and bias make y 0 past D, GELU(h)·0 adds nothing, and the output is
+cut back to ``[M, D]``: the result is the unpadded one. Aligned shapes (the
+ViTs' 768 / 3072) are launched as they are, with no copy. The TMA also
+reads W1 and W2 from 16-byte aligned addresses: the wrapper copies a
+weight that is not aligned to a fresh allocation. So every shape runs on
+the tensor cores. The wrapper keeps the route of its last launch in its
+``route`` attribute, counts its launches in ``launches`` and, by kernel,
+in ``launches_by`` (``"<route> <dtype>"``).
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -47,30 +52,32 @@ import torch.nn.functional as F
 from shapley_vit_tpu_torch.ops import _build
 
 _ARGS = [ctypes.c_void_p] * 8
-_TAIL = [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# (M, D, Hd, the width LN normalises over), eps, approximate, stream
+_TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _FNS = {
-    "svt_mlp_block_fma_f32": _ARGS + _TAIL,
-    "svt_mlp_block_fma_bf16": _ARGS + _TAIL,
     "svt_mlp_block_bf16": _ARGS + [ctypes.c_void_p] * 2 + _TAIL,  # + the y and h workspaces
     "svt_mlp_block_tf32x3": _ARGS + [ctypes.c_void_p] * 3 + _TAIL,  # + y, h and wt
 }
-# the element multiple of D and the hidden width each tensor-core route needs
-# (16-byte rows for TMA)
+# the element multiple of D and the hidden width each route needs (16-byte
+# rows for TMA)
 _TMA_MULTIPLE = {torch.bfloat16: 8, torch.float32: 4}
 _TMA_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
-FMA_MAX_WIDTH = 1024  # the FMA kernel's widest D (a multiple of 32)
 
 
 def fused_mlp_block_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
                           w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                           b2: torch.Tensor, eps: float = 1e-12,
-                          approximate_gelu: bool = False) -> torch.Tensor:
+                          approximate_gelu: bool = False,
+                          ln_width: Optional[int] = None) -> torch.Tensor:
     """The Pallas kernel's arithmetic in torch ops: LN with float32
     statistics, y cast to W1's dtype, float32 accumulation and GELU, h cast
-    to W2's dtype, float32 bias and residual, output in x's dtype."""
+    to W2's dtype, float32 bias and residual, output in x's dtype. The LN
+    statistics are taken over the first ``ln_width`` columns (all by
+    default), as the kernels take them over the true D of padded rows."""
     xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    xs = xf if ln_width is None else xf[..., :ln_width]
+    mean = xs.mean(dim=-1, keepdim=True)
+    var = ((xs - mean) ** 2).mean(dim=-1, keepdim=True)
     y = (xf - mean) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()
     h = torch.matmul(y.to(w1.dtype).float(), w1.float()) + b1.float()
     h = F.gelu(h, approximate="tanh" if approximate_gelu else "none")
@@ -79,18 +86,26 @@ def fused_mlp_block_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torc
 
 
 def mlp_route(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> str:
-    """The kernel a call with these tensors takes on the card: ``"wgmma"``,
-    ``"tf32x3"`` or ``"fma"`` (module docstring). Raises ``ValueError`` for
-    a shape that none takes."""
+    """The kernel a call with these tensors takes on the card: ``"wgmma"``
+    for bf16 and ``"tf32x3"`` for float32, at every width and alignment
+    (module docstring)."""
+    return _TMA_ROUTE[x.dtype]
+
+
+def pad_widths(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+               multiple: int) -> tuple:
+    """The seven tensors with D and the hidden width zero-padded up to
+    ``multiple`` (module docstring); a tensor that needs no padding is
+    returned as it is."""
     D, Hd = w1.shape
-    mult = _TMA_MULTIPLE.get(x.dtype)
-    if mult and D % mult == 0 and Hd % mult == 0:
-        return _TMA_ROUTE[x.dtype]
-    if D % 32 == 0 and 0 < D <= FMA_MAX_WIDTH:
-        return "fma"
-    raise ValueError(f"width {D} (hidden {Hd}, {x.dtype}) is taken by no kernel: the tensor cores "
-                     f"need D and the hidden width multiples of 8 (bf16) or 4 (float32), else D "
-                     f"must be a multiple of 32 up to {FMA_MAX_WIDTH}")
+    pd, ph = -D % multiple, -Hd % multiple
+
+    def pad(t, cols, rows=0):
+        return F.pad(t, (0, cols, 0, rows)[:2 * t.dim()]) if cols or rows else t
+
+    return (pad(x, pd), pad(ln_scale, pd), pad(ln_bias, pd), pad(w1, ph, pd), pad(b1, ph),
+            pad(w2, pd, ph), pad(b2, pd))
 
 
 def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -112,33 +127,32 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
         raise ValueError("LN/fc1/fc2 shapes do not fit x [M, D]")
     _build.check_tensors("fused_mlp_block", x, ln_scale, ln_bias, w1, b1, w2, b2)
     route = mlp_route(x, w1, w2)
-    if route != "fma":  # the TMA reads W1 and W2 from 16-byte aligned addresses
-        w1, w2 = (w if w.data_ptr() % 16 == 0 else w.clone() for w in (w1, w2))
+    x_p, ls, lb, w1, b1, w2, b2 = pad_widths(x, ln_scale, ln_bias, w1, b1, w2, b2,
+                                             _TMA_MULTIPLE[x.dtype])
+    Dp, Hp = w1.shape
+    # the TMA reads W1 and W2 from 16-byte aligned addresses
+    w1, w2 = (w if w.data_ptr() % 16 == 0 else w.clone() for w in (w1, w2))
     lib = _build.load("mlp_block", _FNS)
-    out = torch.empty_like(x)
-    args = [t.data_ptr() for t in (x, ln_scale, ln_bias, w1, b1, w2, b2, out)]
-    tail = (M, D, Hd, float(eps), int(approximate_gelu))
+    out = torch.empty_like(x_p)
+    args = [t.data_ptr() for t in (x_p, ls, lb, w1, b1, w2, b2, out)]
+    tail = (M, Dp, Hp, D, float(eps), int(approximate_gelu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "fma":
-            fn = lib.svt_mlp_block_fma_f32 if x.dtype == torch.float32 else lib.svt_mlp_block_fma_bf16
-            err = fn(*args, *tail, stream)
+        # freed on return: the caching allocator hands their blocks only to
+        # work queued after these kernels on this stream
+        y = torch.empty((M, Dp), dtype=x.dtype, device=x.device)
+        h = torch.empty((M, Hp), dtype=x.dtype, device=x.device)
+        if route == "wgmma":
+            err = lib.svt_mlp_block_bf16(*args, y.data_ptr(), h.data_ptr(), *tail, stream)
         else:
-            # freed on return: the caching allocator hands their blocks only
-            # to work queued after these kernels on this stream
-            y = torch.empty((M, D), dtype=x.dtype, device=x.device)
-            h = torch.empty((M, Hd), dtype=x.dtype, device=x.device)
-            if route == "wgmma":
-                err = lib.svt_mlp_block_bf16(*args, y.data_ptr(), h.data_ptr(), *tail, stream)
-            else:
-                wt = torch.empty((4, D, Hd), dtype=x.dtype, device=x.device)
-                err = lib.svt_mlp_block_tf32x3(*args, y.data_ptr(), h.data_ptr(), wt.data_ptr(),
-                                               *tail, stream)
+            wt = torch.empty((4, Dp, Hp), dtype=x.dtype, device=x.device)
+            err = lib.svt_mlp_block_tf32x3(*args, y.data_ptr(), h.data_ptr(), wt.data_ptr(),
+                                           *tail, stream)
     _build.check(err, "fused_mlp_block")
     fused_mlp_block.route = route
     fused_mlp_block.launches += 1
     fused_mlp_block.launches_by[f"{route} {str(x.dtype).replace('torch.', '')}"] += 1
-    return out
+    return out if Dp == D else out[:, :D].contiguous()
 
 
 fused_mlp_block.launches = 0

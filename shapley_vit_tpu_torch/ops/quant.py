@@ -19,8 +19,9 @@ more than 16 rows and K and N that are multiples of 8, so:
     (the JAX package ``vmap``s the coalition axis);
   * calls with fewer than 17 rows are padded with zero rows, which quantize
     to zero codes and add nothing;
-  * K or N that is not a multiple of 8 raises, on both devices: nothing falls
-    back to a float product.
+  * K and N that are not multiples of 8 are padded with zero codes up to
+    the next multiple, and N is cut back after the product: zero codes add
+    nothing to the int32 sums, so the result is exact at any K and N.
 
 The scales, the rounding (``torch.round`` rounds half to even, as
 ``jnp.round`` does) and the float32 rescale are elementwise torch ops.
@@ -31,6 +32,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 _MIN_ROWS = 17        # _int_mm on the card needs more than 16 rows
 _INT32_MAX = 2**31 - 1
@@ -51,22 +53,24 @@ def quantize_symmetric(x: torch.Tensor, dim, bound: float = 127.0):
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """``xq [M, K] @ wq [K, N]`` in int8 with int32 accumulation through
-    ``torch._int_mm``; rows past the 16 the card refuses are padded with
-    zeros and cut off again. Raises when K or N is not a multiple of 8 or
+    ``torch._int_mm``; rows up to the 17 the card needs, and K and N up to
+    multiples of 8, are padded with zero codes and cut off again. Raises
     when K·127² could overflow int32."""
     M, K = xq.shape
     N = wq.shape[1]
-    if K % 8 or N % 8:
-        raise ValueError(f"int8 matmul needs K and N that are multiples of 8, got K={K}, N={N}")
     if K * 127 * 127 > _INT32_MAX:
         raise ValueError(f"int8 matmul with K={K} could overflow its int32 accumulator")
-    if M < _MIN_ROWS:
-        xq = torch.cat([xq, xq.new_zeros((_MIN_ROWS - M, K))])
+    pad_k, pad_n, pad_m = -K % 8, -N % 8, max(_MIN_ROWS - M, 0)
+    # (columns, rows): aligned operands are passed on as they are
+    if pad_k or pad_m:
+        xq = F.pad(xq, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        wq = F.pad(wq, (0, pad_n, 0, pad_k))
     # the weight column-major ([N, K] row-major, transposed): cuBLASLt's
     # int8 layout
     acc = torch._int_mm(xq.contiguous(), wq.t().contiguous().t())
     int8_matmul.calls += 1
-    return acc[:M]
+    return acc[:M, :N]
 
 
 int8_matmul.calls = 0  # products launched (a count, as the kernels' ``launches``)

@@ -203,7 +203,7 @@ def _share_bound(n: int) -> float:
 
 def _attention_route(dtype, N, d=64):
     """The route of a head dim d (padded as the wrappers pad it): past 128
-    bf16 on the wide tensor-core kernel up to 512 and the FMA units past
+    bf16 on the wide tensor-core kernel up to 512 and the streamed one past
     it, float32 on the float32 wide tensor-core kernel at any head dim;
     bf16 on the main paths' tensor-core kernel up to 224 keys at head dim
     64 (padded), else on the key-loop one; float32 on the tensor cores
@@ -211,7 +211,7 @@ def _attention_route(dtype, N, d=64):
     if d > 128:
         if dtype == torch.float32:
             return "tf32x3_wide"
-        return "wgmma_wide" if d <= 512 else "fma"
+        return "wgmma_wide" if d <= 512 else "wgmma_stream"
     if dtype == torch.float32:
         return "tf32x3"
     return "wgmma" if N <= 224 and d <= 64 else "wgmma_kl"
@@ -243,11 +243,11 @@ def test_attention_kernel_matches_plain(dtype, B, N, H):
 # 128-column tile or the 64-wide k stage
 MLP_SHAPES = [(591, 768, 3072), (100, 384, 1536), (33, 1024, 4096), (70, 768, 3000),
               (985, 192, 768), (33, 32, 64), (1, 768, 3072), (129, 768, 3000)]
-# each dtype on each kernel that takes it: both take the FMA kernel where the
-# hidden width is not a multiple of 8 (bf16) or 4 (float32): MLP_SHAPES'
-# hidden + 2
-MLP_ROUTES = [(torch.float32, "tf32x3"), (torch.float32, "fma"), (torch.bfloat16, "wgmma"),
-              (torch.bfloat16, "fma")]
+# each dtype on its kernel, at MLP_SHAPES' hidden width and at hidden + 2,
+# which is not a multiple of 8 (bf16) or 4 (float32): the wrapper pads it
+# with zeros to the next multiple
+MLP_ROUTES = [(torch.float32, "tf32x3", 0), (torch.float32, "tf32x3", 2), (torch.bfloat16, "wgmma", 0),
+              (torch.bfloat16, "wgmma", 2)]
 
 
 def _unaligned(t):
@@ -269,12 +269,12 @@ def _mlp_inputs(rng, M, D, Hd, dtype):
     return [x, ls, lb, w1, b1, w2, b2]
 
 
-@pytest.mark.parametrize("dtype,route", MLP_ROUTES)
+@pytest.mark.parametrize("dtype,route,extra", MLP_ROUTES)
 @pytest.mark.parametrize("approximate", [False, True])
 @pytest.mark.parametrize("M,D,Hd", MLP_SHAPES)
-def test_mlp_kernel_matches_plain(dtype, route, approximate, M, D, Hd):
+def test_mlp_kernel_matches_plain(dtype, route, extra, approximate, M, D, Hd):
     rng = np.random.default_rng(2)
-    args = _mlp_inputs(rng, M, D, Hd + 2 if route == "fma" else Hd, dtype)
+    args = _mlp_inputs(rng, M, D, Hd + extra, dtype)
     assert mlp.mlp_route(args[0], args[3], args[5]) == route
     before = mlp.fused_mlp_block.launches
     got = mlp.fused_mlp_block(*args, eps=1e-12, approximate_gelu=approximate)
@@ -322,7 +322,7 @@ def test_mlp_reads_nothing_past_its_inputs(M, D, Hd, dtype, route):
 def test_mlp_unaligned_weights_are_copied_to_the_tensor_cores(dtype, M, D, Hd):
     """W1 and W2 one element past an aligned allocation, which the TMA
     cannot read, are copied to aligned ones and take the dtype's
-    tensor-core route (wgmma, tf32x3), not the FMA kernel; the output
+    tensor-core route (wgmma, tf32x3); the output
     matches the plain version and the caller's weights are unchanged."""
     rng = np.random.default_rng(15)
     args = _mlp_inputs(rng, M, D, Hd, dtype)
@@ -449,10 +449,22 @@ def test_attention_wide_head_dims(dtype, d, B, N, H):
     with the true head dim's scale and cut back, the others run as they
     are: bf16 on the wide tensor-core route up to 512 (an odd number of
     64-column panels at 192 and 448, 32-key blocks at 448 and 512) and on
-    the FMA route at 576 and 1024, float32 on the float32 wide
+    the streamed one at 576 and 1024, float32 on the float32 wide
     tensor-core route at every one (a last output panel 64 columns wide at
     192, 448 and 576; 32 streamed panels of d at 1024)."""
     _check_head_dim(dtype, d, B, N, H)
+
+
+@pytest.mark.parametrize("N", [17, 197, 577])
+@pytest.mark.parametrize("H,d", [(1, 576), (1, 640), (2, 576), (1, 1024)])
+def test_attention_stream_head_dims(H, d, N):
+    """bf16 past head dim 512 on the streamed tensor-core route (Q and K in
+    64-column panels of d through a ring; 5, 5, 5 and 8 output panels, the
+    last 64 wide at 576), both entries against their plain versions and
+    within ``_share_bound``, at one and two heads and N of one, two and
+    five query units."""
+    assert _attention_route(torch.bfloat16, N, d) == "wgmma_stream"
+    _check_head_dim(torch.bfloat16, d, 2, N, H)
 
 
 def _check_head_dim(dtype, d, B, N, H):
@@ -469,7 +481,7 @@ def _check_head_dim(dtype, d, B, N, H):
     assert got.dtype == dtype and got.shape == q.shape
     want = att.fused_attention_packed_plain(q, k, v, heads=H)
     _close(got, want, dtype)
-    if att.fused_attention_packed.route in ("wgmma_kl", "wgmma_wide"):
+    if att.fused_attention_packed.route in ("wgmma_kl", "wgmma_wide", "wgmma_stream"):
         assert _share_differing(got, want) <= _share_bound(got.numel())
     qh, kh, vh = (t.view(B, N, H, d).transpose(1, 2) for t in (q, k, v))
     before = att.fused_attention.launches
@@ -480,7 +492,7 @@ def _check_head_dim(dtype, d, B, N, H):
     assert got.dtype == dtype and got.shape == (B, H, N, d)
     want = att.fused_attention_plain(qh, kh, vh)
     _close(got, want, dtype)
-    if att.fused_attention.route in ("wgmma_kl", "wgmma_wide"):
+    if att.fused_attention.route in ("wgmma_kl", "wgmma_wide", "wgmma_stream"):
         assert _share_differing(got, want) <= _share_bound(got.numel())
 
 
@@ -676,10 +688,10 @@ def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
     """The tensor-core entries refuse unaligned tensors, strides that are not
     multiples of 16 bytes and head dims other than 64 and 128 (the bf16 main
     paths' entry, which takes no head dim, N past 224; the bf16 wide entry
-    head dims other than 192, 256, ..., 512; the float32 wide entry head
-    dims under 192 or off the multiples of 64), and the FMA entry head
-    dims that are not multiples of 64: each with an error and no launch,
-    rather than running another kernel."""
+    head dims other than 192, 256, ..., 512; the bf16 streamed entry head
+    dims up to 512 or off the multiples of 64; the float32 wide entry head
+    dims under 192 or off the multiples of 64): each with an error and no
+    launch, rather than running another kernel."""
     from shapley_vit_tpu_torch.ops import _build
 
     lib = _build.load("attention", att._FNS)
@@ -698,7 +710,10 @@ def test_attention_tensor_core_entries_refuse_what_they_do_not_take():
                                             (torch.bfloat16, "bf16_wide", 128, N, 0, 0),
                                             (torch.bfloat16, "bf16_wide", 576, N, 0, 0),
                                             (torch.bfloat16, "bf16_wide", 200, N, 0, 0),
-                                            (torch.bfloat16, "fma_bf16", 80, N, 0, 0),
+                                            (torch.bfloat16, "bf16_stream", 576, N, 1, 0),
+                                            (torch.bfloat16, "bf16_stream", 576, N, 0, 4),
+                                            (torch.bfloat16, "bf16_stream", 512, N, 0, 0),
+                                            (torch.bfloat16, "bf16_stream", 600, N, 0, 0),
                                             (torch.float32, "tf32x3_wide", 256, N, 1, 0),
                                             (torch.float32, "tf32x3_wide", 256, N, 0, 2),
                                             (torch.float32, "tf32x3_wide", 128, N, 0, 0),
@@ -741,7 +756,8 @@ def test_attention_reads_no_row_past_the_last_image(entry, N, H, d):
     route: the main paths' (N = 197), the key-loop one (N = 257, head dim
     128), the wide one (head dims 256 and 192; at 192 the second output
     panel's columns past d are, packed, the next head's, and on the last
-    head the NaN image's) and the FMA one (head dim 576)."""
+    head the NaN image's) and the streamed one (head dim 576, whose last
+    output panel reaches past d)."""
     rng = np.random.default_rng(8)
     B = 3
     bufs = []
@@ -833,6 +849,29 @@ def test_attention_bf16_error_at_the_round_shape(route):
     assert share <= _share_bound(got.numel())
 
 
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 202), (torch.float32, 1030),
+                                     (torch.bfloat16, 36), (torch.bfloat16, 202)])
+@pytest.mark.parametrize("Hd", [128, 3070])
+def test_mlp_pads_widths_onto_the_tensor_cores(dtype, D, Hd):
+    """D and hidden widths that are not multiples of 8 (bf16) or 4
+    (float32), which the TMA cannot read as they are, are zero-padded by
+    the wrapper and run on the dtype's tensor-core route, the LN statistics
+    over the true D: the output, cut back to D, matches the plain version
+    and the caller's tensors are unchanged."""
+    rng = np.random.default_rng(D + Hd)
+    args = _mlp_inputs(rng, 197, D, Hd, dtype)
+    kept = [t.clone() for t in args]
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    before = mlp.fused_mlp_block.launches
+    got = mlp.fused_mlp_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert mlp.fused_mlp_block.launches == before + 1
+    assert mlp.fused_mlp_block.route == route
+    assert got.shape == (197, D) and got.is_contiguous()
+    assert all(torch.equal(a, b) for a, b in zip(args, kept))
+    _close(got, mlp.fused_mlp_block_plain(*args, eps=1e-12), dtype)
+
+
 def test_kernels_reject_what_they_do_not_take():
     rng = np.random.default_rng(3)
     q = _randn(rng, (2, 10, 0))  # head dim 0
@@ -841,11 +880,6 @@ def test_kernels_reject_what_they_do_not_take():
     qh = q.view(2, 10, 4, 0).transpose(1, 2)
     with pytest.raises(ValueError, match="head dim"):
         att.fused_attention(qh, qh, qh)
-    for dtype, D in ((torch.float32, 202), (torch.float32, 1030), (torch.bfloat16, 36)):
-        x = _randn(rng, (4, D), dtype=dtype)
-        w = _randn(rng, (D, 128), dtype=dtype)
-        with pytest.raises(ValueError, match="taken by no kernel"):
-            mlp.fused_mlp_block(x, x[0], x[0], w, w[0], w.T.contiguous(), x[0])
     x = _randn(rng, (4, 64))
     w = _randn(rng, (64, 128))
     with pytest.raises(ValueError, match="shapes"):
@@ -895,9 +929,12 @@ from shapley_vit_tpu_torch.ops import quant  # noqa: E402
 
 
 # rows: fewer than the 17 cuBLASLt takes (padded), exactly 17, a row count
-# that is no multiple of any tile; K and N the ViT-B widths and narrow ones
+# that is no multiple of any tile; K and N the ViT-B widths and narrow ones;
+# K and N off the multiples of 8 (padded with zero codes; K = 588: a patch of
+# 14 at 3 channels)
 @pytest.mark.parametrize("M,K,N", [(1, 768, 768), (16, 64, 32), (17, 768, 3072),
-                                   (985, 192, 768), (197, 768, 768)])
+                                   (985, 192, 768), (197, 768, 768), (20, 12, 8),
+                                   (20, 16, 6), (985, 588, 762)])
 def test_int8_matmul_matches_the_cpu(M, K, N):
     gen = torch.Generator().manual_seed(M)
     a = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8)
@@ -927,6 +964,6 @@ def test_dynamic_int8_dense_matches_the_cpu(C):
 
 
 def test_int8_refuses_on_the_card_what_it_refuses_on_the_cpu():
-    with pytest.raises(ValueError, match="multiples of 8"):
-        quant.dynamic_int8_dense(torch.ones((20, 12), device="cuda"),
-                                 torch.ones((12, 8), device="cuda"))
+    with pytest.raises(ValueError, match="overflow"):
+        quant.int8_matmul(torch.ones((20, 133_152), dtype=torch.int8, device="cuda"),
+                          torch.ones((133_152, 8), dtype=torch.int8, device="cuda"))

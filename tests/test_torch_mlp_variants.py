@@ -1,9 +1,9 @@
 """The port at the widths of the tiny and micro ViTs, against the JAX package.
 
-The card's kernels take these widths (the MLP's wgmma route any D and hidden
-width that are multiples of 8, its FMA route any D that is a multiple of 32;
-attention head dims under 64 zero-padded to 64), so the CPU checks what the
-card's wrappers do around the kernels at those widths:
+The card's kernels take these widths (the MLP's tensor-core routes any D and
+hidden width, zero-padded to multiples of 8 (bf16) or 4 (float32); attention
+head dims under 64 zero-padded to 64), so the CPU checks what the card's
+wrappers do around the kernels at those widths:
 
 * the plain fused MLP (what a CPU tensor runs and what the card holds the
   kernels against) against the JAX Pallas kernel run by the interpreter, at
@@ -17,6 +17,10 @@ card's wrappers do around the kernels at those widths:
   128) and N up to 257, and at d = 136, 256, 384 and 512 (136 padded to
   192, the others run as they are; the JAX wrappers pad to a multiple of
   128) (float32, atol 1e-5);
+* the MLP wrapper's zero padding of D and the hidden width
+  (``pad_widths``), run through the plain MLP with the LN statistics over
+  the true D and cut back, against the unpadded plain MLP (float32, atol
+  1e-6);
 * which MLP kernel a call would take on the card (``mlp_route``), which
   attention kernel (``attention_route``), which patch-embedding kernel
   (``ROUTE``), and which head dims the attention wrappers take;
@@ -151,8 +155,8 @@ def _offset(t, elements):
     (200, 808, torch.bfloat16, 0, "wgmma"),    # any multiple of 8
     (768, 3000, torch.bfloat16, 0, "wgmma"),
     (192, 768, torch.bfloat16, 1, "wgmma"),    # weights not 16-byte aligned: copied first
-    (64, 100, torch.bfloat16, 0, "fma"),       # hidden width not a multiple of 8
-    (768, 3070, torch.bfloat16, 0, "fma"),
+    (64, 100, torch.bfloat16, 0, "wgmma"),     # hidden width not a multiple of 8: padded
+    (768, 3070, torch.bfloat16, 0, "wgmma"),
     (32, 64, torch.float32, 0, "tf32x3"),      # micro
     (192, 768, torch.float32, 0, "tf32x3"),    # tiny
     (768, 3072, torch.float32, 0, "tf32x3"),   # base
@@ -161,19 +165,46 @@ def _offset(t, elements):
     (1056, 64, torch.float32, 0, "tf32x3"),    # the GEMMs have no cap on D
     (192, 768, torch.float32, 1, "tf32x3"),    # weights not 16-byte aligned: copied first
     (200, 808, torch.float32, 1, "tf32x3"),    # ... whatever D
-    (768, 3070, torch.float32, 0, "fma"),      # hidden width not a multiple of 4
-    (36, 64, torch.bfloat16, 0, None),         # no route
-    (36, 66, torch.float32, 0, None),
+    (768, 3070, torch.float32, 0, "tf32x3"),   # hidden width not a multiple of 4: padded
+    (36, 64, torch.bfloat16, 0, "wgmma"),      # D not a multiple of 8: padded
+    (36, 66, torch.float32, 0, "tf32x3"),      # neither a multiple of 4: both padded
 ])
 def test_mlp_route(D, Hd, dtype, offset, route):
+    """Every width and alignment takes the dtype's tensor-core route: the
+    wrapper pads widths (``pad_widths``) and copies unaligned weights."""
     x = torch.zeros((3, D), dtype=dtype)
     w1 = _offset(torch.zeros((D, Hd), dtype=dtype), offset)
     w2 = _offset(torch.zeros((Hd, D), dtype=dtype), offset)
-    if route is None:
-        with pytest.raises(ValueError, match="taken by no kernel"):
-            tmlp.mlp_route(x, w1, w2)
-    else:
-        assert tmlp.mlp_route(x, w1, w2) == route
+    assert tmlp.mlp_route(x, w1, w2) == route
+
+
+@pytest.mark.parametrize("D", [36, 202, 1030])
+@pytest.mark.parametrize("Hd", [66, 3070])
+@pytest.mark.parametrize("multiple", [4, 8])
+def test_mlp_padding_is_exact(D, Hd, multiple):
+    """The card wrapper's zero padding of D and the hidden width, run
+    through the plain MLP with the LN statistics over the true D and cut
+    back to D, gives the unpadded plain MLP's output (float32, atol and
+    rtol 1e-6: the padded columns add exact zeros, so only the order in
+    which the CPU's BLAS takes the float32 sums over up to 3,070 terms at
+    the padded shapes can move the outputs, whose magnitudes reach about 4,
+    by a few of their last bits)."""
+    rng = np.random.default_rng(D + Hd)
+    x = torch.tensor(rng.normal(size=(5, D)), dtype=torch.float32)
+    ls = torch.tensor(1 + 0.1 * rng.normal(size=D), dtype=torch.float32)
+    lb, b2 = (torch.tensor(0.1 * rng.normal(size=D), dtype=torch.float32) for _ in range(2))
+    w1 = torch.tensor(0.03 * rng.normal(size=(D, Hd)), dtype=torch.float32)
+    b1 = torch.tensor(0.1 * rng.normal(size=Hd), dtype=torch.float32)
+    w2 = torch.tensor(0.03 * rng.normal(size=(Hd, D)), dtype=torch.float32)
+    args = (x, ls, lb, w1, b1, w2, b2)
+    padded = tmlp.pad_widths(*args, multiple)
+    Dp, Hp = padded[3].shape
+    assert Dp % multiple == 0 and Hp % multiple == 0 and Dp - D < multiple and Hp - Hd < multiple
+    assert padded[0].shape == (5, Dp) and padded[5].shape == (Hp, Dp)
+    got = tmlp.fused_mlp_block_plain(*padded, ln_width=D)
+    assert torch.equal(got[:, D:], x.new_zeros((5, Dp - D)))  # x + 0 past D, x being 0 there
+    want = tmlp.fused_mlp_block_plain(*args)
+    torch.testing.assert_close(got[:, :D], want, atol=1e-6, rtol=1e-6)
 
 
 def test_patch_embed_runs_on_the_tensor_cores_in_both_dtypes():
@@ -197,7 +228,8 @@ def test_patch_embed_runs_on_the_tensor_cores_in_both_dtypes():
     (torch.bfloat16, 577, 192, "wgmma_wide"),
     (torch.bfloat16, 17, 512, "wgmma_wide"),   # the widest it takes
     (torch.bfloat16, 65, 320, "wgmma_wide"),
-    (torch.bfloat16, 197, 576, "fma"),         # past WIDE_MAX
+    (torch.bfloat16, 197, 576, "wgmma_stream"),  # past WIDE_MAX
+    (torch.bfloat16, 17, 1024, "wgmma_stream"),  # no cap
     (torch.float32, 197, 64, "tf32x3"),      # the float32 round and training views
     (torch.float32, 17, 64, "tf32x3"),
     (torch.float32, 577, 64, "tf32x3"),      # 384 px: any N
@@ -213,12 +245,12 @@ def test_attention_route(dtype, N, d, route):
     dim d: for bf16 the main paths' tensor-core one at head dim 64 and
     N <= 224, the key-loop tensor-core one at any other N or head dim 128,
     the wide tensor-core one (128-column output panels) at head dims 192 to
-    512 and any N, and the FMA one past 512; for float32 the float32
-    tensor-core one (3xTF32) up to head dim 128 at any N and the float32
-    wide tensor-core one (Q and K streamed in panels of d) at every head
-    dim past 128. Where the tensors lie does not change the route: the
-    wrappers copy what the TMA cannot read (``test_tma_readable``) before a
-    tensor-core launch, and the FMA kernel reads any."""
+    512 and any N, and the streamed one (Q and K streamed in panels of d)
+    past 512; for float32 the float32 tensor-core one (3xTF32) up to head
+    dim 128 at any N and the float32 wide tensor-core one (Q and K
+    streamed in panels of d) at every head dim past 128. Where the tensors
+    lie does not change the route: the wrappers copy what the TMA cannot
+    read (``test_tma_readable``) before every launch."""
     assert tatt.attention_route(dtype, N, d) == route
 
 
@@ -259,13 +291,13 @@ def test_wide_route_limit_is_the_kernel_s():
     assert int(re.search(r"constexpr int WIDE_MAX = (\d+);", src).group(1)) == tatt.WIDE_MAX
     for d in range(192, tatt.WIDE_MAX + 1, tatt.WIDE_STEP):
         assert tatt.attention_route(torch.bfloat16, 197, d) == "wgmma_wide"
-    assert tatt.attention_route(torch.bfloat16, 197, tatt.WIDE_MAX + tatt.WIDE_STEP) == "fma"
+    assert tatt.attention_route(torch.bfloat16, 197, tatt.WIDE_MAX + tatt.WIDE_STEP) == "wgmma_stream"
 
 
 def test_float32_wide_route_has_no_cap():
     """Every float32 head dim past 128 that the wrappers pad to (each
     multiple of ``WIDE_STEP`` from 192 to 2048) goes to the float32 wide
-    tensor-core route, never to the FMA one, and that route's entry in
+    tensor-core route, never to a bf16 one, and that route's entry in
     ``_FNS`` is defined in ``csrc/attention.cu`` (the card tests run it at
     head dim 1024)."""
     src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
@@ -277,14 +309,15 @@ def test_float32_wide_route_has_no_cap():
     assert f"int {entry}(" in src
 
 
-def test_wide_head_dim_step_is_the_fma_kernel_s():
+def test_wide_head_dim_step_is_the_stream_kernel_s():
     """``WIDE_STEP``, the multiple that head dims past 128 are padded to, is
-    the FMA kernel's: the SL columns of d it stages per pass in
-    ``csrc/attention.cu``, whose entries refuse other head dims (both wide
-    tensor-core entries take the same multiples: 64-column panels of the
-    bf16 kernel, 64-column halves of the float32 one's output panels)."""
+    the bf16 streamed kernel's panel: the ``STREAM_DP`` columns of d it
+    streams per stage in ``csrc/attention.cu``, whose entries refuse other
+    head dims (the other wide tensor-core entries take the same multiples:
+    64-column panels of the bf16 wide kernel, 64-column halves of the
+    float32 one's output panels)."""
     src = (Path(tatt.__file__).resolve().parent.parent / "csrc" / "attention.cu").read_text()
-    assert int(re.search(r"constexpr int SL = (\d+);", src).group(1)) == tatt.WIDE_STEP
+    assert int(re.search(r"constexpr int STREAM_DP = (\d+);", src).group(1)) == tatt.WIDE_STEP
 
 
 @pytest.mark.parametrize("jax_path", ["xla", "pallas"])

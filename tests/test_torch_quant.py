@@ -100,11 +100,22 @@ def test_dense_zero_rows_no_nan():
     assert torch.isfinite(out).all() and torch.equal(out, torch.zeros((3, 8)))
 
 
+@pytest.mark.parametrize("rows,K,N", [(20, 12, 8), (20, 16, 6), (5, 588, 24)])
+def test_int8_dense_at_any_k_and_n_matches_jax(rows, K, N):
+    """K and N off the multiples of 8 that ``_int_mm`` needs are padded with
+    zero codes (K = 588: a patch of 14 at 3 channels), bit-identical to
+    JAX's ``dot_general``."""
+    rng = np.random.default_rng(K + N)
+    x = rng.normal(size=(rows, K)).astype(np.float32)
+    w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
+    b = rng.normal(size=N).astype(np.float32)
+    want = np.asarray(jquant.dynamic_int8_dense(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    got = tquant.dynamic_int8_dense(torch.tensor(x), torch.tensor(w), torch.tensor(b)).numpy()
+    assert got.shape == (rows, N)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_int8_refuses_what_it_cannot_run():
-    with pytest.raises(ValueError, match="multiples of 8"):
-        tquant.dynamic_int8_dense(torch.ones((20, 12)), torch.ones((12, 8)))
-    with pytest.raises(ValueError, match="multiples of 8"):
-        tquant.dynamic_int8_dense(torch.ones((20, 16)), torch.ones((16, 6)))
     with pytest.raises(ValueError, match="overflow"):
         tquant.int8_matmul(torch.ones((20, 133_152), dtype=torch.int8),
                            torch.ones((133_152, 8), dtype=torch.int8))
@@ -114,7 +125,8 @@ def test_int8_refuses_what_it_cannot_run():
 # the quantized ViT
 # ---------------------------------------------------------------------------
 
-TARGETS = {"int8_targets": jvit.INT8_TARGETS, "all_but_patch": ("q", "k", "v", "out", "fc1", "fc2")}
+TARGETS = {"int8_targets": jvit.INT8_TARGETS, "all_but_patch": ("q", "k", "v", "out", "fc1", "fc2"),
+           "jax_default": jvit.ViTSpec().quant_targets}
 
 
 @pytest.fixture(scope="module")
@@ -143,8 +155,11 @@ def test_quantized_forward_matches_jax(micro, targets):
     calls = tquant.int8_matmul.calls
     got = tvit.vit_forward(tree_from_numpy(base), tree_from_numpy(lora), torch.tensor(images),
                            spec_t).numpy()
-    # one product per quantized dense layer per block (q and v per coalition: C = 1)
-    assert tquant.int8_matmul.calls - calls == spec_t.depth * len(TARGETS[targets])
+    # one product per quantized dense layer per block (q and v per coalition:
+    # C = 1), and one for the patch projection
+    blocks = [t for t in TARGETS[targets] if t != "patch"]
+    patch = len(TARGETS[targets]) - len(blocks)
+    assert tquant.int8_matmul.calls - calls == spec_t.depth * len(blocks) + patch
     np.testing.assert_allclose(got, want, atol=LOGITS_ATOL, rtol=0)
     exact = np.asarray(jvit.vit_forward(base, lora, images, spec_j.replace(quant="none")))
     assert np.abs(got - exact).max() > 1e-5  # int8 really ran

@@ -3,7 +3,7 @@
 ``shapley_vit_tpu_torch/csrc/attention.cu`` on one NVIDIA GPU.
 
     git show <rev>:shapley_vit_tpu_torch/csrc/attention.cu > exp/other_attention.cu
-    python3 tools/torch_attention_ab.py [--long | --wide] [--dtype float32] exp/other_attention.cu [more.cu ...]
+    python3 tools/torch_attention_ab.py [--long | --wide | --stream] [--dtype float32] exp/other_attention.cu [more.cu ...]
 
 Each other source is built and run by ``tools/torch_kernel_ab.py`` with the
 packed layout's strides, as ``fused_attention_packed`` calls it.
@@ -25,10 +25,19 @@ packed layout's strides, as ``fused_attention_packed`` calls it.
 * ``--wide``: bf16 at ``chip_smoke.LONG_ATTENTION``'s head dims from 192
   to 512 (64 images, N = 197: 4 heads of 192, 3 of 256, 2 of 384, 1 of
   512), each source through its ``svt_attention_bhnd_bf16_wide`` entry, or
-  through its FMA entry ``svt_attention_bhnd_fma_bf16`` where it has none.
+  through its FMA entry ``svt_attention_bhnd_fma_bf16`` where it has none,
+  and this tree's streamed kernel beside them as ``this_stream`` (a build
+  of this tree's source with ``-DSVT_STREAM_FROM_192``, whose
+  ``svt_attention_bhnd_bf16_stream`` entry also takes these head dims).
   Each line also has the least time the card could take (``bound_ms``:
   the bytes of q, k, v and o over 3.35 TB/s against 4 B H N² d FLOP over
   989 TFLOP/s).
+* ``--stream``: bf16 at the head dims past 512 of
+  ``chip_smoke.LONG_ATTENTION`` and ``chip_smoke.STREAM_ATTENTION`` (64
+  images, N = 197: 1 head of 576, 640 and 1024), each source through its
+  ``svt_attention_bhnd_bf16_stream`` entry, or through its FMA entry
+  ``svt_attention_bhnd_fma_bf16`` where it has none; ``bound_ms`` as
+  under ``--wide``.
 * ``--wide --dtype float32``: float32 at every head dim of
   ``chip_smoke.LONG_ATTENTION`` past 128 (the four above and 1 head of
   576), each source through its ``svt_attention_bhnd_tf32x3_wide`` entry,
@@ -46,7 +55,8 @@ among 20 back to back, host µs, device ms from ``torch.profiler``) and the
 same two errors against the float64 result (``exact_*``: the exact value
 rounded to the dtype), and whether its output is bit-identical to this
 tree's kernel's (``this``: the main paths' kernel, the key-loop one under
-``--long``, the wide one of the dtype under ``--wide``).
+``--long``, the wide one of the dtype under ``--wide``, the streamed one
+under ``--stream``).
 ``F.scaled_dot_product_attention`` on the same inputs runs first and last
 (float32 products in full float32).
 """
@@ -71,12 +81,13 @@ def inputs(dtype, mode: str):
     from shapley_vit_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if mode in ("long", "wide"):
+    if mode in ("long", "wide", "stream"):
         widest = att.WIDE_MAX if dtype == torch.bfloat16 else math.inf
-        low, high = (0, 128) if mode == "long" else (128, widest)
+        low, high = {"long": (0, 128), "wide": (128, widest), "stream": (att.WIDE_MAX, math.inf)}[mode]
+        shapes = {**ab.chip_smoke.LONG_ATTENTION, **ab.chip_smoke.STREAM_ATTENTION}
         return [(tag, *(torch.randn((ab.chip_smoke.TB, n, h * d), generator=gen, device="cuda")
                         .to(dtype) for _ in range(3)), h)
-                for tag, (n, h, d) in ab.chip_smoke.LONG_ATTENTION.items() if low < d <= high]
+                for tag, (n, h, d) in shapes.items() if low < d <= high]
     path = os.path.join(ab.ROOT, "tests", "test_torch_kernels.py")
     spec = importlib.util.spec_from_file_location("test_torch_kernels", path)
     tests = importlib.util.module_from_spec(spec)
@@ -98,29 +109,32 @@ def main() -> int:
 
     argv = sys.argv[1:]
     dname, mode = "bfloat16", "main"
-    while argv[:1] in (["--dtype"], ["--long"], ["--wide"]):
+    while argv[:1] in (["--dtype"], ["--long"], ["--wide"], ["--stream"]):
         if argv[0] == "--dtype":
             dname, argv = (argv[1] if len(argv) > 1 else ""), argv[2:]
         else:
             mode, argv = argv[0][2:], argv[1:]
-    if (not argv or dname not in ("bfloat16", "float32") or (mode == "long" and dname == "float32")
-            or not torch.cuda.is_available()):
+    if (not argv or dname not in ("bfloat16", "float32")
+            or (mode in ("long", "stream") and dname == "float32") or not torch.cuda.is_available()):
         print(__doc__, file=sys.stderr)
         return 2
     dtype = getattr(torch, dname)
     assert not torch.backends.cuda.matmul.allow_tf32  # the yardstick in full float32
     ab.print_card()
-    libs = ab.libraries("attention", att._FNS, argv)
+    stream_variant = mode == "wide" and dtype == torch.bfloat16
+    libs = ab.libraries("attention", att._FNS, argv,
+                        variants={"this_stream": ["-DSVT_STREAM_FROM_192"]} if stream_variant else None)
     stream = torch.cuda.current_stream().cuda_stream
     with_d = att._FNS["svt_attention_bhnd_tf32x3"]
 
-    def entry(lib):
+    def entry(which, lib):
         """(C entry, whether it takes the head dim)"""
         if mode == "wide" and dtype == torch.float32:
             name = "svt_attention_bhnd_tf32x3_wide"
             return ab.entry(lib, name if hasattr(lib, name) else "svt_attention_bhnd_fma_f32", with_d), True
         if mode != "main":
-            name = f"svt_attention_bhnd_bf16_{'kl' if mode == 'long' else 'wide'}"
+            kind = {"long": "kl", "wide": "wide", "stream": "stream"}[mode]
+            name = "svt_attention_bhnd_bf16_" + ("stream" if which == "this_stream" else kind)
             return ab.entry(lib, name if hasattr(lib, name) else "svt_attention_bhnd_fma_bf16", with_d), True
         if dtype == torch.bfloat16:
             return ab.entry(lib, "svt_attention_bhnd_bf16", att._FNS["svt_attention_bhnd_bf16"]), False
@@ -128,7 +142,7 @@ def main() -> int:
             return ab.entry(lib, "svt_attention_bhnd_tf32x3", with_d), True
         return ab.entry(lib, "svt_attention_bhnd_f32", att._FNS["svt_attention_bhnd_bf16"]), False
 
-    fns = {name: entry(lib) for name, lib in libs.items()}
+    fns = {name: entry(name, lib) for name, lib in libs.items()}
     if dtype == torch.bfloat16 and mode == "main":
         fns["this_kl"] = ab.entry(libs["this"], "svt_attention_bhnd_bf16_kl", with_d), True
     pk = ab.chip_smoke.peaks(torch.cuda.get_device_name(0))
@@ -145,8 +159,8 @@ def main() -> int:
         del qd, kd, vd
         exact_rounded = exact.to(dtype)
         bound = {}
-        if mode == "wide":
-            route = "wgmma_wide" if dtype == torch.bfloat16 else "tf32x3_wide"
+        if mode in ("wide", "stream"):
+            route = "tf32x3_wide" if dtype == torch.float32 else f"wgmma_{mode}"
             bound["bound_ms"] = 1e3 * max(4 * q.numel() * q.element_size() / pk["bytes"],
                                           ab.chip_smoke.peak_ops(pk, dname, route, 4.0 * B * H * N * N * d))
 
