@@ -846,7 +846,8 @@ def phase_round(counted, dtype: str = "bfloat16", route: str | None = None) -> t
     """One Shapley round through the port's entry point at ``dtype`` (the
     default ``Config``'s bf16, or float32, the reference's numerics); returns
     each kernel's launches by kernel during the round (``counts_by_kernel``),
-    and the round's seconds. ``route``: the route every launch of each
+    the round's seconds, and what the ``mesh`` phase holds its rounds
+    against (``round_result``). ``route``: the route every launch of each
     wrapper in ``counted`` (the patch embedding, the fused MLP, the packed
     attention) must take (None: any). The float32 round's drops and outputs
     go to their own directory."""
@@ -918,7 +919,19 @@ def phase_round(counted, dtype: str = "bfloat16", route: str | None = None) -> t
     })
     if not ok:
         raise SystemExit("the Shapley round failed its checks")
-    return by_kernel, round_s
+    return by_kernel, round_s, round_result(cfg, all_rounds, launches)
+
+
+def round_result(cfg, all_rounds, launches) -> dict:
+    """What a round through ``start()`` gave: its Shapley values (the
+    round-0 seed and round 1, per utility dimension), the per-coalition
+    utilities of its persisted table, and each wrapper's launches."""
+    from shapley_vit_tpu_torch.fl import checkpoint as ckpt
+
+    table, _ = ckpt.load_utility_table(os.path.join(cfg.output_dir, "utility_table.npz"))
+    n = cfg.shapley.num_clients
+    return {"sv": [[[all_rounds[d][r][c] for c in range(n)] for r in (0, 1)] for d in (0, 1)],
+            "table": table, "launches": launches}
 
 
 def round_dir(dtype: str) -> str:
@@ -1521,7 +1534,7 @@ def phase_rounds(counted, cfg=None, device="cuda") -> None:
     cfg = cfg or Config()  # ViT-B/16, bf16, merged, synthetic OCT at scale 1.0
     fns = rounds.build_round_fns(cfg, device=device, local_steps=4)  # Adam 5e-3, batch 64
     spec, base, init_lora = fns["spec"], fns["base"], fns["init_lora"]
-    valid, data, train = fns["valid"], fns["data"], fns.pop("train")
+    valid, train = fns["valid"], fns.pop("train")
     order = np.random.default_rng(5).permutation(len(train))
     ends = np.cumsum((0,) + ROUNDS_CLIENTS)
     clients = [rounds.client_tensors(train.images[order[a:b]], train.labels[order[a:b]],
@@ -1653,6 +1666,12 @@ def phase_rounds(counted, cfg=None, device="cuda") -> None:
         return tvit.vit_forward_merged(base, tvit.merge_coalition_weights(base, stacked, spec),
                                        images, spec)[0]
 
+    # the reference evaluates one model at a time on plain (images, labels)
+    # batches, apart from the backend's mesh layout
+    bs = cfg.data.eval_batch_size
+    pairs = [(torch.as_tensor(valid.images[i:i + bs], dtype=torch.float32).to(device),
+              torch.as_tensor(np.asarray(valid.labels[i:i + bs]), dtype=torch.long).to(device))
+             for i in range(0, len(valid), bs)]
     lazy_err = {"accuracy": 0.0, "loss": 0.0}
     for subset in all_subsets:
         overlay = init_lora
@@ -1662,7 +1681,7 @@ def phase_rounds(counted, cfg=None, device="cuda") -> None:
                 ratio = tm.fedavg_ratio([ROUNDS_CLIENTS[j] for j in members])
                 overlay = tm.apply_deltas(overlay, tm.aggregate_deltas(
                     tm.tree_stack([rec.deltas[j] for j in members]), ratio))
-        acc, loss = ev.evaluate_model(merged_forward, overlay, data, dataset_size=len(valid))
+        acc, loss = ev.evaluate_model(merged_forward, overlay, pairs, dataset_size=len(valid))
         for d, (name, got) in enumerate((("accuracy", acc), ("loss", loss))):
             lazy_err[name] = max(lazy_err[name], abs(lazy[d][subset] + init_utility[d] - got))
     lazy_ok = (calls == [(7, n_rounds * n)] and lazy_err["loss"] <= 1e-3
@@ -2201,6 +2220,99 @@ def phase_variants(counted) -> None:
         raise SystemExit("a variant's ViT failed its checks on the card")
 
 
+# The mesh phase's rounds: (name, dtype, devices, coalition-axis size).
+# One card: a 1x1 mesh, and a 2x2 grid of the same card (the sharding's
+# overhead, not a speed-up).
+MESH_RUNS = (("1x1", "bfloat16", ("cuda:0",), 1),
+             ("2x2", "bfloat16", ("cuda:0",) * 4, 2),
+             ("2x2", "float32", ("cuda:0",) * 4, 2))
+
+
+def phase_mesh(counted, single: dict) -> None:
+    """Coalition evaluation sharded over a ``(coalition, data)`` mesh.
+
+    ``make_eval_backend`` on the machine's own device list must give the
+    single-device backend (a 1x1 mesh) on one card, a larger mesh on more. Then, inside a
+    ``torch.distributed`` world of one on ``nccl`` (the evaluator's
+    ``all_reduce`` runs, an identity), the round of the ``round`` phase
+    (ViT-B/16, 7 coalitions, 400 validation images, the same drops) runs
+    through ``start()`` over each grid of ``MESH_RUNS``, and is held
+    against the single-device round of its dtype (``single``: dtype ->
+    (``round_result``, round seconds)): the same correct counts (every
+    coalition's accuracy utility and the initial accuracy equal), losses
+    within 1e-5 relative, Shapley values within 1e-4, and each wrapper in
+    ``counted`` launched once a cell for each of its single-device
+    launches (every cell ran the patch, packed-attention and MLP kernels)."""
+    import socket
+
+    import torch
+    import torch.distributed as tdist
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.parallel import mesh as pmesh
+    from shapley_vit_tpu_torch.parallel.coalition_eval import make_eval_backend
+
+    local = pmesh.local_devices("cuda")
+    gate = make_eval_backend(lambda b, m, x: None, dist_cfg=Config().dist, device="cuda",
+                             typical_coalitions=7, eval_batch=128)
+    gate_single = gate.mesh.devices.size == 1
+    gate_ok = gate_single == (len(local) == 1)
+
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    rows = []
+    try:
+        for name, dtype, devices, n_c in MESH_RUNS:
+            cfg = Config()
+            cfg.model.compute_dtype = dtype
+            cfg.obs.exp_dir = os.path.join(round_dir(dtype), f"mesh_{name}")
+            shutil.rmtree(cfg.obs.exp_dir, ignore_errors=True)
+            cfg.dist.mesh, cfg.dist.mesh_coalition_shards = "auto", n_c
+            paths = [os.path.join(round_dir(dtype), f"client_{i + 1}_model", "ViT_epoch_9.npz")
+                     for i in range(3)]
+            zero_counts(counted)
+            t0 = time.perf_counter()
+            all_rounds, _ = drv.start(cfg, checkpoint_paths=paths, device="cuda",
+                                      devices=list(devices))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counted}
+            got = round_result(cfg, all_rounds, launches)
+            want, single_s = single[dtype]
+            metrics = os.path.join(cfg.output_dir,
+                                   f"party0_{cfg.obs.exp_id}_{cfg.data.mode}_metrics.csv")
+            round_s = _metric(metrics, "time/shapley_round")
+            cells = len(devices)
+            # the loss utilities are differences from the initial loss: hold
+            # them within 1e-5 of the losses themselves
+            loss0 = abs(want["sv"][1][0][0]) * 3
+            acc_equal = (got["sv"][0][0] == want["sv"][0][0]
+                         and all(got["table"][k][0] == want["table"][k][0] for k in want["table"]))
+            loss_err = max(abs(got["table"][k][1] - want["table"][k][1]) for k in want["table"])
+            sv_err = max(abs(a - b) for d in (0, 1) for r in (0, 1)
+                         for a, b in zip(got["sv"][d][r], want["sv"][d][r]))
+            launches_ok = all(launches[k] == cells * want["launches"][k] > 0 for k in launches)
+            ok = (sorted(got["table"]) == sorted(want["table"]) and acc_equal
+                  and loss_err <= 1e-5 * loss0 and sv_err <= 1e-4 and launches_ok)
+            rows.append({"grid": name, "dtype": dtype, "cells": cells, "ok": ok,
+                         "round_s": round_s, "single_device_round_s": single_s, "wall_s": wall,
+                         "coalitions": len(got["table"]), "correct_counts_equal": acc_equal,
+                         "max_loss_err": loss_err, "loss_scale": loss0, "max_sv_err": sv_err,
+                         "launches": launches, "single_device_launches": want["launches"]})
+    finally:
+        tdist.destroy_process_group()
+    emit({"phase": "mesh", "variant": "base", "validation_images": 400, "clients": 3,
+          "devices": [str(d) for d in local], "gate_single_device": gate_single,
+          "note": "grids of one card repeated: the sharding's overhead, not a speed-up",
+          "runs": rows, "ok": gate_ok and all(r["ok"] for r in rows)})
+    if not (gate_ok and all(r["ok"] for r in rows)):
+        raise SystemExit("the mesh phase failed its checks")
+
+
 def main() -> int:
     import torch
 
@@ -2226,12 +2338,12 @@ def main() -> int:
     summary = phase_kernels(card)
     phase_model()
     round_kernels = (patch_embed, fused_attention_packed, fused_mlp_block)
-    bf16_by, bf16_round_s = phase_round(round_kernels, route="wgmma")
+    bf16_by, bf16_round_s, bf16_round = phase_round(round_kernels, route="wgmma")
     phase_profile(round_dir("bfloat16"), attention_kernel="attention_hopper_kernel",
                   patch_kernels=("patch_embed_hopper_kernel",))
     # the float32 round, the reference's numerics: the same kernels, all
     # three on the tensor cores in 3xTF32
-    f32_by, _ = phase_round(round_kernels, dtype="float32", route="tf32x3")
+    f32_by, f32_round_s, f32_round = phase_round(round_kernels, dtype="float32", route="tf32x3")
     phase_profile(round_dir("float32"), dtype="float32", mlp_kernel="mlp_block_tf32x3_kernel",
                   attention_kernel="attention_tf32x3_kernel",
                   patch_kernels=("patch_embed_tf32x3_kernel", "patch_embed_split_kernel"))
@@ -2244,6 +2356,8 @@ def main() -> int:
     phase_serve(counted)
     phase_rounds(counted)
     phase_robust(counted)
+    phase_mesh(round_kernels, {"bfloat16": (bf16_round, bf16_round_s),
+                               "float32": (f32_round, f32_round_s)})
 
     # the main paths' launches of each wrapper by kernel: the two rounds'
     # (patch embedding, packed attention, fused MLP), the train phase's

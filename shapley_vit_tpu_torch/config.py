@@ -59,20 +59,22 @@ class PathsConfig:
 @dataclass
 class DistConfig:
     """Multi-party / multi-host topology (reference opts.py:22-25 — flags only
-    there; here they actually drive ``jax.distributed`` + mesh construction)."""
+    there; here they drive ``torch.distributed`` (``parallel.distributed``)
+    and the coalition-evaluation mesh)."""
 
     dist_num: int = 3          # number of parties (FL clients)
     dist_rank: int = 0
     master_addr: str = "127.0.0.1"
     master_port: int = 29500
-    # TPU mesh axes for coalition-sharded evaluation. n_coalition_shards *
+    # mesh axes for coalition-sharded evaluation. n_coalition_shards *
     # n_data_shards must divide the device count when a mesh is built.
     mesh_coalition_axis: str = "coalition"
     mesh_data_axis: str = "data"
     # Driver sharding gate (parallel.coalition_eval.make_eval_backend):
-    # "auto" = shard coalition evaluation over ALL visible devices whenever
-    # more than one is present (the reference's always-on nn.DataParallel,
-    # start.py:283, done TPU-right); "off" = force the single-chip evaluator.
+    # "auto" = shard coalition evaluation over ALL the devices whenever more
+    # than one is given (the reference's always-on nn.DataParallel,
+    # start.py:283; a device may repeat); "off" = a 1x1 mesh of the
+    # driver's device, as with one device.
     mesh: str = "auto"
     # coalition-axis size of the driver mesh; 0 = auto-select from the
     # workload (parallel.autoshape: minimal padded work, then largest

@@ -46,9 +46,13 @@ def get_dataset(
     synthetic_ok: bool = True,
     synthetic_scale: float = 0.02,
     seed: int = 42,
+    train: bool = True,
 ) -> Tuple[Dict[str, ArrayDataset], Dict]:
     """Load the OCT dataset (``"oct"``, or its aliases ``"x-ray"`` and
-    ``"cell"``). ``synthetic_scale`` shrinks the synthetic set sizes."""
+    ``"cell"``). ``synthetic_scale`` shrinks the synthetic set sizes.
+    ``train=False`` leaves the synthetic training split out (no ``"train"``
+    key; the validation split is the same array either way): the drivers
+    that only evaluate skip its 2000 images at scale 1."""
     name = name.lower()
     if name not in ("oct", "x-ray", "cell"):
         raise ValueError(f"unknown dataset {name!r} (this package carries the OCT entry only)")
@@ -64,7 +68,9 @@ def get_dataset(
     num_classes, h, w, c, train_n, test_n = _OCT_SPEC
     train_n = max(num_classes * 10, int(train_n * synthetic_scale))
     test_n = max(num_classes * 10, int(test_n * synthetic_scale))
-    train = _synthetic_images("oct", train_n, num_classes, h, w, c, seed)
     test = _synthetic_images("oct", test_n, num_classes, h, w, c, seed + 1)
     info = dict(num_classes=num_classes, im_size=(h, w), channels=c)
-    return dict(train=train, val=test, test=test), info
+    out = dict(val=test, test=test)
+    if train:
+        out["train"] = _synthetic_images("oct", train_n, num_classes, h, w, c, seed)
+    return out, info

@@ -1,7 +1,6 @@
 """Continuous Shapley service.
 
-The port of ``shapley_vit_tpu/driver/serve.py`` on one card. What changed in
-the port:
+The port of ``shapley_vit_tpu/driver/serve.py``. What changed in the port:
 
 * the jitted tree helpers (row gather, overlay subtract, overlay advance)
   are plain tensor ops;
@@ -12,9 +11,13 @@ the port:
 * prewarm is the kernels' nvcc build plus one full-powerset evaluation at
   zero deltas (the JAX compile cache has no counterpart: the builds are
   cached by digest, ``ops/_build.py``);
-* one process: the cross-rank decisions raise ``NotImplementedError`` when
-  ``torch.distributed`` runs more than one rank (the mesh-sharded service
-  is not ported), and this process writes every artifact;
+* coalition evaluation shards over the ``(coalition, data)`` mesh of
+  ``parallel.coalition_eval.make_eval_backend`` (every CUDA device by
+  default); in a ``torch.distributed`` world (``parallel.distributed``)
+  the mesh spans every rank's devices, each cross-rank decision (stop,
+  drain, fast-path ingest, recycle) is an ``all_reduce`` MAX that every
+  rank takes at the same point, and rank 0 alone writes the artifacts
+  (utility table, report, TensorBoard, global export, cursor, overlay);
 * the round chain persists beside the restart cursor: each completed
   round saves its global overlay (``service_overlay.pt``) and the cursor
   keeps that overlay's digest and the chained ``previous_utility``, so a
@@ -54,6 +57,7 @@ from shapley_vit_tpu_torch.fl import checkpoint as ckpt
 from shapley_vit_tpu_torch.fl import ingestion
 from shapley_vit_tpu_torch.models import convert
 from shapley_vit_tpu_torch.ops import tree_math as tm
+from shapley_vit_tpu_torch.parallel import distributed as pdist
 from shapley_vit_tpu_torch.shapley import Game, run_configured_comp_contrib
 from shapley_vit_tpu_torch.utils.logging import TensorBoardWriter, get_logger
 from shapley_vit_tpu_torch.utils.profiling import StepTimer, process_rss_mb, trace
@@ -147,21 +151,17 @@ def _write_service_state(out_dir: str, state: Dict) -> None:
     os.replace(tmp, path)
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
-def _max_across_ranks(value: int) -> int:
-    """Cross-rank max at a fixed point in the round sequence: stop decisions
-    (drain/timeout/no-checkpoints/recycle) must be identical on every rank
-    of a multi-process service. The port serves from one process; the
-    multi-GPU service is not ported, so more than one rank raises."""
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "the multi-process service is not ported; run serve() in one process"
-        )
-    return int(value)
+def _max_across_ranks(value):
+    """Cross-rank max at a fixed point in the round sequence. Stop
+    decisions (drain/timeout/no-checkpoints/recycle) must be IDENTICAL on
+    every rank (the sharded evaluator's next collective would otherwise
+    hang on the ranks that kept going), so local observations (a signal
+    that landed on one rank, a DRAIN file seen a poll earlier on one host,
+    a wait that raced past its deadline) are only acted on through this
+    ``all_reduce`` MAX. Returns ``value``'s type."""
+    if pdist.world_size() <= 1:
+        return value
+    return type(value)(pdist.all_reduce_host(np.array([value], np.float64), "max")[0])
 
 
 def _any_across_ranks(flag: bool) -> bool:
@@ -310,6 +310,7 @@ def serve(
     max_rss_mb: Optional[float] = None,
     pipeline_ingest: Optional[bool] = None,
     device=None,
+    devices=None,
 ) -> "RoundRecords":
     """Run Shapley rounds as checkpoint sets arrive; returns round records.
 
@@ -341,7 +342,16 @@ def serve(
     Default: on (``SVT_PIPELINE_INGEST=0`` disables). Every round records
     ``pipelined_ingest`` — whether the fast path actually fired.
 
-    ``device``: the card unless ``"cpu"`` is passed.
+    ``device``: the card unless ``"cpu"`` is passed. ``devices``: what
+    coalition evaluation shards over (``driver.start.build_eval_backend``;
+    default every CUDA device, or the rank's own card in a world of several
+    ranks; with ``cfg.dist.mesh="auto"`` a mesh whenever they are more than
+    one device).
+
+    Multi-process: every rank of a ``torch.distributed`` world calls
+    ``serve()`` with the same configuration over a shared output directory
+    and runs the same sequence of evaluations; rank 0 alone writes the
+    artifacts, and non-zero ranks' records carry no artifacts.
 
     Graceful drain: ``request_drain()`` (what the CLI's SIGTERM/SIGINT
     handler calls) or touching ``<out_dir>/DRAIN`` stops the service at the
@@ -352,8 +362,6 @@ def serve(
     """
     cfg = cfg or Config.from_env()
     device = start_mod.resolve_device(device)
-    if _world_size() > 1:
-        _max_across_ranks(0)  # raises: one process serves
     logger = get_logger()
     out_dir = cfg.ensure_output_dir()
     n = cfg.shapley.num_clients
@@ -362,15 +370,19 @@ def serve(
     # request_drain()): a fresh service consumes any stale request first —
     # unless the process entry already installed signal handlers (which
     # consumed stale state itself; clearing again here would swallow a
-    # signal that landed during startup)
+    # signal that landed during startup). Rank 0 deletes the shared DRAIN
+    # file before the first collective below, so no other rank can observe
+    # the stale file during this service's lifetime
+    rank0 = pdist.rank() == 0
     drain_path = os.path.join(out_dir, DRAIN_FILENAME)
     if not _SIGNALS_INSTALLED:
         _DRAIN.clear()
-        try:
-            os.remove(drain_path)
-            logger.info(f"cleared stale {DRAIN_FILENAME} file")
-        except OSError:
-            pass
+        if rank0:
+            try:
+                os.remove(drain_path)
+                logger.info(f"cleared stale {DRAIN_FILENAME} file")
+            except OSError:
+                pass
 
     def drain_requested() -> bool:
         # this rank's local view; decisions are taken via _max_across_ranks.
@@ -432,7 +444,7 @@ def serve(
                     pass
         prune_floor = max(prune_floor, new_floor)
 
-    if cfg.shapley.persist_utility_table and keep_tables > 0:
+    if cfg.shapley.persist_utility_table and keep_tables > 0 and rank0:
         # one startup sweep clears any backlog below the initial floor
         # (epoch jumps, retention newly enabled, long-dead services); the
         # half-finished current epoch's table is kept for resume, plus the
@@ -454,9 +466,9 @@ def serve(
     if valid is None:
         valid = start_mod.load_validation_dataset(cfg, target_size=spec.image, device=device)
 
-    # eval_mode selection (merged LoRA folding by default)
+    # the mesh gate and eval_mode selection (merged LoRA folding by default)
     backend, eval_coalitions, chunk = start_mod.build_eval_backend(
-        cfg, spec, base, init_lora, device=device, log_fn=logger.info
+        cfg, spec, base, init_lora, device=device, log_fn=logger.info, devices=devices
     )
     data = backend.device_batches(valid, cfg.data.eval_batch_size)
 
@@ -518,10 +530,11 @@ def serve(
         if rem and rem != C:
             warm_counts.append(rem)
         zero_stack = tm.tree_stack([tm.tree_zeros_like(init_lora)] * n)
+
         # a remainder batch has its own shape — warm it too
         warm_batches = data[:1] + (data[-1:] if len(data) > 1
-                                   and data[-1][1].shape != data[0][1].shape else [])
-        warm_n = max(1, sum(int(b[1].shape[0]) for b in warm_batches))
+                                   and data[-1].rows != data[0].rows else [])
+        warm_n = max(1, sum(b.rows for b in warm_batches))
         for c in warm_counts:
             W0 = np.full((c, n), 1.0 / n, dtype=np.float32)
             eval_coalitions(init_lora, zero_stack, W0, warm_batches,
@@ -537,7 +550,7 @@ def serve(
     # scalars under <exp_dir>/<exp_id>/tensorboard
     tb = (
         TensorBoardWriter(os.path.join(out_dir, "tensorboard"))
-        if cfg.obs.use_tensorboard
+        if cfg.obs.use_tensorboard and rank0
         else None
     )
     records = RoundRecords()
@@ -636,6 +649,10 @@ def serve(
                 # (a client re-upload between prefetch and wait falls back)
                 files_digest = ckpt.fingerprint_files(watch.paths)
                 use_pre = files_digest == pre["digest"]
+            if pdist.world_size() > 1:
+                # all ranks take the fast path or none (values are identical
+                # either way; aligned ranks run the same sequence of ops)
+                use_pre = not _any_across_ranks(not use_pre)
             if use_pre:
                 selection = [True] * n
                 sizes = list(pre["sizes"])
@@ -672,13 +689,14 @@ def serve(
                 break
             logger.info(f"no readable checkpoints for epoch {epoch}; skipping round")
             epoch += 1
-            # a skipped epoch is consumed: a recycled/restarted process
-            # must not re-wait on it
-            _write_service_state(
-                out_dir,
-                _cursor(epoch, skipped=True, rss_mb=process_rss_mb()),
-            )
-            if cfg.shapley.persist_utility_table and keep_tables > 0:
+            if rank0:
+                # a skipped epoch is consumed: a recycled/restarted process
+                # must not re-wait on it
+                _write_service_state(
+                    out_dir,
+                    _cursor(epoch, skipped=True, rss_mb=process_rss_mb()),
+                )
+            if cfg.shapley.persist_utility_table and keep_tables > 0 and rank0:
                 # the skip advanced the cursor past this epoch: move the
                 # retention floor with it, or the tables the skip jumped
                 # over would be stranded until the next restart
@@ -764,8 +782,11 @@ def serve(
                             "(stale round inputs, or an empty/torn block "
                             "log) — evaluating from scratch"
                         )
+                # all ranks split precompute identically (collective
+                # alignment); only rank 0 writes the shared table
                 ckpt.checkpointed_game(
                     game, table_path, fingerprint=fp, block=chunk or 8,
+                    save=rank0,
                 )
         # kick the NEXT epoch's prefetch now: its files typically land while
         # this round's shapley span (the dominant phase) runs, so the parse
@@ -832,7 +853,7 @@ def serve(
                             base, current_overlay, data, dataset_size=len(valid)
                         )
                     )
-                if cfg.paths.global_model_path:
+                if cfg.paths.global_model_path and rank0:
                     # exported on the artifact worker thread: the external
                     # FL loop reads the file, nothing in this loop does, and
                     # the atomic-rename protocol means readers never see a
@@ -854,8 +875,8 @@ def serve(
             out_dir, sv, game=game, round_idx=epoch, timer=timer, se=sv_se,
             render_plots=cfg.obs.render_plots,
             plots_async=cfg.obs.render_plots_async,
-        )
-        if cfg.obs.use_grad_cam:
+        ) if rank0 else []
+        if rank0 and cfg.obs.use_grad_cam:
             # Grad-CAM overlays of the round's global model. Synchronous:
             # the saliency runs on this thread, the matplotlib render on the
             # artifact worker, after the plots queued there (report.py)
@@ -866,7 +887,7 @@ def serve(
                     round_idx=epoch, tb=tb,
                 )
             )
-        if cfg.obs.render_plots and records:
+        if rank0 and cfg.obs.render_plots and records:
             # cumulative per-client SV trajectory across the service's
             # rounds (reference: the offline nice_plot* family), rendered on
             # the artifact worker. Refresh cadence decimates as the service
@@ -912,18 +933,20 @@ def serve(
         logger.info(f"round done: epoch {epoch}, new utility {prev_utility}")
         epoch += 1
         if participating:
-            # the overlay first, then the cursor that names its digest
-            ckpt.save_pytree(overlay_path, current_overlay)
             overlay_fp = ckpt.overlay_digest(current_overlay)
-        # restart cursor: a recycled/crashed process resumes at next_epoch
-        # via start_epoch="auto" (the CLI's default)
-        _write_service_state(out_dir, _cursor(epoch, rss_mb=rss_mb))
-        if cfg.shapley.persist_utility_table and keep_tables > 0:
-            # the completed round's table will never be resumed again:
-            # advance the retention floor (epoch was already incremented —
-            # the just-completed epoch is epoch-1; retain it and the K-1
-            # before it, delete everything older)
-            prune_tables(epoch - keep_tables)
+        if rank0:
+            if participating:
+                # the overlay first, then the cursor that names its digest
+                ckpt.save_pytree(overlay_path, current_overlay)
+            # restart cursor: a recycled/crashed process resumes at
+            # next_epoch via start_epoch="auto" (the CLI's default)
+            _write_service_state(out_dir, _cursor(epoch, rss_mb=rss_mb))
+            if cfg.shapley.persist_utility_table and keep_tables > 0:
+                # the completed round's table will never be resumed again:
+                # advance the retention floor (epoch was already
+                # incremented — the just-completed epoch is epoch-1; retain
+                # it and the K-1 before it, delete everything older)
+                prune_tables(epoch - keep_tables)
         if _any_across_ranks(drain_requested()):
             logger.info(
                 f"drain requested; stopping after epoch {epoch - 1} "
@@ -932,7 +955,9 @@ def serve(
             records.stop_reason = "drain"
             break
         if max_rss_mb is not None:
-            peak = rss_mb
+            # the recycle decision must be identical on every rank: gate on
+            # the world's largest RSS
+            peak = _max_across_ranks(float(rss_mb))
             if peak >= max_rss_mb:
                 logger.info(
                     f"RSS {peak:.0f} MB >= ceiling {max_rss_mb:.0f} MB after "
@@ -946,7 +971,8 @@ def serve(
         prefetcher.cancel()
     if tb is not None:
         tb.close()
-    if cfg.obs.render_plots and len(records) > 1 and traj_rendered != len(records):
+    if rank0 and cfg.obs.render_plots and len(records) > 1 \
+            and traj_rendered != len(records):
         # the decimated refresh skipped the final round(s): leave the
         # on-disk trajectory complete at shutdown
         report_mod.submit_async_artifact(
@@ -963,14 +989,15 @@ def serve(
     # (on a pre-round stop — timeout / nothing arrived / drain — next_epoch
     # must keep pointing at the epoch that never processed; a zero-round
     # run synthesizes the same cursor it started from)
-    state = read_service_state(out_dir) or _cursor(epoch)
-    state["stop_reason"] = records.stop_reason
-    # generation always reflects THIS incarnation, even when the rest of
-    # the cursor was inherited from a previous run untouched; a legacy
-    # (pre-lineage) cursor gets total_rounds backfilled
-    state["generation"] = generation
-    state.setdefault("total_rounds", prior_rounds + len(records))
-    _write_service_state(out_dir, state)
+    if rank0:
+        state = read_service_state(out_dir) or _cursor(epoch)
+        state["stop_reason"] = records.stop_reason
+        # generation always reflects THIS incarnation, even when the rest
+        # of the cursor was inherited from a previous run untouched; a
+        # legacy (pre-lineage) cursor gets total_rounds backfilled
+        state["generation"] = generation
+        state.setdefault("total_rounds", prior_rounds + len(records))
+        _write_service_state(out_dir, state)
     if records.stop_reason == "drain":
         # the request was honored — a later serve() in this same process
         # (embedder loops, sequential tests) starts fresh instead of

@@ -47,6 +47,11 @@ from shapley_vit_tpu_torch.fl.client import EvalClient
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import tree_math as tm
+from shapley_vit_tpu_torch.parallel.autoshape import (
+    coalition_residency_bytes,
+    powerset_dominant_coalitions,
+)
+from shapley_vit_tpu_torch.parallel.coalition_eval import make_eval_backend
 from shapley_vit_tpu_torch.shapley import Game, run_configured_comp_contrib
 from shapley_vit_tpu_torch.utils.logging import CSVLogger, TensorBoardWriter, get_logger
 from shapley_vit_tpu_torch.utils.profiling import StepTimer, trace
@@ -103,8 +108,9 @@ def build_model(cfg: Config, generator: Optional[torch.Generator] = None, device
     return spec, base, lora
 
 
-def build_eval_backend(cfg: Config, spec, base, init_lora, device="cuda", log_fn=None):
-    """Mode-dependent evaluation surface.
+def build_eval_backend(cfg: Config, spec, base, init_lora, device="cuda", log_fn=None,
+                       devices=None):
+    """Mode-dependent evaluation surface shared by the drivers.
 
     ``cfg.model.eval_mode``:
       * ``"merged"`` (default) — fold each coalition's LoRA into dense q/v
@@ -113,12 +119,21 @@ def build_eval_backend(cfg: Config, spec, base, init_lora, device="cuda", log_fn
         C=1 stack.
       * ``"overlay"`` — the rank-16 two-matmul LoRA path.
 
+    The backend comes from ``parallel.coalition_eval.make_eval_backend``:
+    with ``cfg.dist.mesh="auto"`` it shards coalition evaluation over a
+    ``(coalition, data)`` mesh when ``devices`` (default: every device of
+    ``device``'s type, or the rank's own card in a world of several ranks;
+    in a ``torch.distributed`` world, every rank's) are more than one, with
+    the workload hints of ``parallel.autoshape``; on one device the mesh is
+    1x1, the single-device evaluator's arithmetic.
+
     Returns ``(backend, eval_coalitions, chunk)`` where
     ``eval_coalitions(overlay, stacked_deltas, W, batches, dataset_size)``
     evaluates the weight matrix's coalitions, materializing (and, in merged
     mode, folding ~2·L·D² compute-dtype bytes per coalition) ``chunk``
     coalitions at a time, so a large batch never materializes all at once.
     """
+    n = cfg.shapley.num_clients
     chunk = cfg.shapley.coalition_chunk or ev.suggest_coalition_chunk(
         spec.seq_len, spec.hidden, cfg.data.eval_batch_size, device=device
     )
@@ -140,8 +155,22 @@ def build_eval_backend(cfg: Config, spec, base, init_lora, device="cuda", log_fn
         stack_single = None
     if log_fn is not None:
         log_fn(f"coalition eval on {torch.device(device)}: {mode} mode, chunk {chunk}")
-    backend = ev.EvalBackend(fwd, coalition_chunk=chunk, device=device,
-                             stack_single=stack_single)
+    # workload hints for the mesh's split: the dominant per-call coalition
+    # count and the per-coalition residency (merged mode folds dense q/v
+    # kernels on top of the overlay)
+    backend = make_eval_backend(
+        fwd,
+        coalition_chunk=chunk,
+        dist_cfg=cfg.dist,
+        devices=devices,
+        log_fn=log_fn,
+        stack_single=stack_single,
+        typical_coalitions=powerset_dominant_coalitions(n, chunk),
+        eval_batch=cfg.data.eval_batch_size,
+        coalition_bytes=coalition_residency_bytes(init_lora, eval_mode=mode, spec=spec) or 0,
+        model_bytes=coalition_residency_bytes(base) or 0,
+        device=device,
+    )
 
     def eval_coalitions(overlay, stacked_deltas, W, batches, dataset_size=None):
         C = int(np.shape(W)[0])
@@ -174,14 +203,14 @@ def resize_images(images: np.ndarray, target: int, device="cpu", block: int = 25
     return np.concatenate(out, axis=0)
 
 
-def load_oct_splits(cfg: Config) -> Dict[str, ArrayDataset]:
+def load_oct_splits(cfg: Config, train: bool = True) -> Dict[str, ArrayDataset]:
     """The OCT splits via the .env path (reference getOCTData2,
     start.py:51-56) with the synthetic fallback for offline runs, at the
-    images' own size."""
+    images' own size; ``train=False`` skips the synthetic training split."""
     root = cfg.paths.validation_dataset or cfg.data.data_dir
     splits, _ = get_dataset(
         "oct", data_dir=root, synthetic_ok=True, seed=cfg.shapley.seed,
-        synthetic_scale=cfg.data.synthetic_scale,
+        synthetic_scale=cfg.data.synthetic_scale, train=train,
     )
     return splits
 
@@ -192,7 +221,7 @@ def load_validation_dataset(cfg: Config, target_size: Optional[int] = None,
     """OCT validation data (:func:`load_oct_splits`, or ``splits`` when a
     caller has them already). Images are resized once (on ``device``) to
     the model's input size."""
-    ds = (splits or load_oct_splits(cfg))["val"]
+    ds = (splits or load_oct_splits(cfg, train=False))["val"]
     target = target_size or cfg.data.image_size
     if ds.images.shape[1] != target:
         ds = ArrayDataset(
@@ -213,16 +242,19 @@ def get_initial_shapley_value(
     checkpoint_paths: Optional[List] = None,
     csv_logger: Optional[CSVLogger] = None,
     device="cuda",
+    devices=None,
 ) -> Tuple[List[List[Dict[int, float]]], List[Dict[int, float]]]:
     """Round bootstrap + first Shapley round (reference start.py:82-222).
-    Returns (per-round SVs, summed SVs), one dict per utility dimension."""
+    Returns (per-round SVs, summed SVs), one dict per utility dimension.
+    ``devices``: what coalition evaluation may shard over
+    (:func:`build_eval_backend`)."""
     device = resolve_device(device)
     logger = get_logger()
     n = cfg.shapley.num_clients
     utility_dim = cfg.shapley.utility_dim
 
     backend, eval_coalitions, chunk = build_eval_backend(
-        cfg, spec, base, init_lora, device=device, log_fn=logger.info
+        cfg, spec, base, init_lora, device=device, log_fn=logger.info, devices=devices
     )
     data = backend.device_batches(valid, cfg.data.eval_batch_size)
 
@@ -382,9 +414,12 @@ def main(argv: Optional[List[str]] = None):
     return 0
 
 
-def start(cfg: Optional[Config] = None, checkpoint_paths: Optional[List] = None, device=None):
+def start(cfg: Optional[Config] = None, checkpoint_paths: Optional[List] = None, device=None,
+          devices=None):
     """Entry point (reference mainShapley.py -> start.py:248-331); runs on
-    the card unless ``device="cpu"`` is passed."""
+    the card unless ``device="cpu"`` is passed. Coalition evaluation shards
+    over ``devices`` (default: every CUDA device; see
+    :func:`build_eval_backend` and ``cfg.dist``)."""
     cfg = cfg or Config.from_env()
     device = resolve_device(device)
     logger = get_logger()
@@ -404,6 +439,7 @@ def start(cfg: Optional[Config] = None, checkpoint_paths: Optional[List] = None,
         return get_initial_shapley_value(
             cfg, valid, spec, base, init_lora,
             checkpoint_paths=checkpoint_paths, csv_logger=csv_logger, device=device,
+            devices=devices,
         )
     finally:
         csv_logger.close()

@@ -164,37 +164,11 @@ def make_coalition_evaluator(
     return evaluate
 
 
-class EvalBackend:
-    """The drivers' evaluation surface on one device: the coalition
-    evaluator, the upload of a validation set, and single-model evaluation
-    through the same path (the single-device form of the JAX package's
-    ``parallel.coalition_eval.EvalBackend``; the mesh-sharded form is a
-    later slice).
+def __getattr__(name):
+    # the drivers' evaluation surface lives with its mesh-sharded form in
+    # parallel.coalition_eval (imported lazily: that module imports this one)
+    if name == "EvalBackend":
+        from shapley_vit_tpu_torch.parallel.coalition_eval import EvalBackend
 
-    ``stack_single`` maps one model's overlay to a C=1 stacked varying tree
-    for ``forward_fn`` (merged mode folds the overlay into q/v kernels, so
-    the overlay cannot be fed directly); None stacks the overlay itself.
-    """
-
-    def __init__(self, forward_fn, coalition_chunk: int = 0, device="cuda",
-                 stack_single: Optional[Callable[[Tree], Tree]] = None):
-        self.device = torch.device(device)
-        self.evaluate = make_coalition_evaluator(forward_fn, coalition_chunk=coalition_chunk)
-        self._stack_single = stack_single or (lambda overlay: tree_map(lambda a: a[None], overlay))
-
-    def device_batches(self, ds, batch_size: int) -> list:
-        """Upload the validation set once; device-resident (images, labels)
-        slices of at most ``batch_size``."""
-        images = torch.as_tensor(ds.images, dtype=torch.float32).to(self.device)
-        labels = torch.as_tensor(np.asarray(ds.labels), dtype=torch.long).to(self.device)
-        return [
-            (images[i : i + batch_size], labels[i : i + batch_size])
-            for i in range(0, len(ds), batch_size)
-        ]
-
-    def evaluate_single(self, shared: Tree, varying: Tree, batches,
-                        dataset_size: Optional[int] = None) -> Tuple[float, float]:
-        """Single-model (accuracy, mean_loss) as a C=1 coalition stack."""
-        row = self.evaluate(shared, self._stack_single(varying), batches,
-                            dataset_size=dataset_size)[0]
-        return float(row[0]), float(row[1])
+        return EvalBackend
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

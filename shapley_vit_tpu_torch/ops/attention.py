@@ -155,25 +155,28 @@ def fused_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                                  heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """The Pallas kernel's arithmetic in torch ops: keys padded to a multiple
     of 128 and masked to -1e30, scores, softmax and both products in
-    float32, the output in q's dtype. ``scale`` defaults to 1/√d."""
+    float32, the output in q's dtype. ``scale`` defaults to 1/√d. (The
+    Pallas kernel pads the query rows too; each output row depends on its
+    own query row alone, so the padded rows, which it drops, are not
+    computed here.)"""
     B, N, HD = q.shape
     d = HD // heads
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     n_pad = _round_up(N, 128)
 
-    def heads_f32(t):
-        t = torch.nn.functional.pad(t.float(), (0, 0, 0, n_pad - N))
-        return t.reshape(B, n_pad, heads, d).transpose(1, 2)  # [B, H, n_pad, d]
+    def heads_f32(t, rows):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, rows - N))
+        return t.reshape(B, rows, heads, d).transpose(1, 2)  # [B, H, rows, d]
 
-    qh, kh, vh = heads_f32(q), heads_f32(k), heads_f32(v)
+    qh, kh, vh = heads_f32(q, N), heads_f32(k, n_pad), heads_f32(v, n_pad)
     s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     keep = torch.arange(n_pad, device=q.device) < N
     s = torch.where(keep, s, torch.tensor(MASK, dtype=s.dtype, device=s.device))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, vh)  # [B, H, n_pad, d]
-    return o.transpose(1, 2).reshape(B, n_pad, HD)[:, :N].to(q.dtype)
+    o = torch.matmul(p, vh)  # [B, H, N, d]
+    return o.transpose(1, 2).reshape(B, N, HD).to(q.dtype)
 
 
 def fused_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -220,7 +223,8 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     keys padded to a multiple of 128 and masked to -inf, scores, softmax and
     both products in float32, the output in q's dtype; ``scale`` defaults
     to 1/√d. (The Pallas kernel also pads d to 128 with zeros, which adds
-    exact zeros to every sum.)"""
+    exact zeros to every sum; its padded query rows, which it drops, are not
+    computed here.)"""
     N = q.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
     n_pad = _round_up(N, 128)
@@ -228,14 +232,14 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def padded(t):
         return torch.nn.functional.pad(t.float(), (0, 0, 0, n_pad - N))
 
-    qp, kp, vp = padded(q), padded(k), padded(v)
-    s = torch.matmul(qp, kp.transpose(-1, -2)) * scale
+    kp, vp = padded(k), padded(v)
+    s = torch.matmul(q.float(), kp.transpose(-1, -2)) * scale
     keep = torch.arange(n_pad, device=q.device) < N
     s = s.masked_fill(~keep, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True)
-    return torch.matmul(p, vp)[:, :, :N].to(q.dtype)
+    return torch.matmul(p, vp).to(q.dtype)
 
 
 def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

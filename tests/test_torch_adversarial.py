@@ -25,6 +25,7 @@ from shapley_vit_tpu_torch.fl import adversarial as tadv
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops.tree_math import tree_map
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TRAIN = dict(attention_impl="pallas", mlp_impl="xla")
 EPS = 8 / 255

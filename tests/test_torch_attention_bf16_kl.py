@@ -31,6 +31,7 @@ import pytest
 import torch
 
 from shapley_vit_tpu_torch.ops import attention as tatt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOG2E = 1.4426950408889634
 SHAPES = [(197, 64), (257, 64), (577, 64), (197, 128), (577, 128)]

@@ -24,6 +24,7 @@ from shapley_vit_tpu.ops import attention as jatt
 from shapley_vit_tpu_torch.ops import attention as tatt
 from shapley_vit_tpu_torch.ops import mlp_block as tmlp
 from shapley_vit_tpu_torch.ops import patch_embed as tpe
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SEQ_LENS = [197, 128, 100, 17]
 

@@ -12,6 +12,7 @@ float32 torch ops on the CPU, against p v in float32: the split stays within
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 N, D, ROWS = 197, 64, 256
 

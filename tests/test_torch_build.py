@@ -10,6 +10,7 @@ import shutil
 import pytest
 
 from shapley_vit_tpu_torch.ops import _build
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 HEADERS = ("common.cuh", "hopper.cuh")
 

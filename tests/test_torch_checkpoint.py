@@ -20,6 +20,7 @@ from shapley_vit_tpu_torch.fl import checkpoint as tckpt
 from shapley_vit_tpu_torch.fl import ingestion as ting
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy, tree_to_numpy
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _overlay(seed=0):

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 from shapley_vit_tpu.fl import torch_ckpt as tc
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from shapley_vit_tpu_torch.driver import start as tstart
 from shapley_vit_tpu_torch.fl import ingestion as ting
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.utils.profiling import StepTimer
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 jstart = importlib.import_module("shapley_vit_tpu.driver.start")
 

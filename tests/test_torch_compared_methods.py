@@ -27,6 +27,7 @@ from shapley_vit_tpu_torch.shapley import TabularGame as TGame
 from shapley_vit_tpu_torch.shapley import compared_methods as tcm
 from shapley_vit_tpu_torch.shapley import fed_shapley as tfs
 from shapley_vit_tpu_torch.shapley import milp as tmilp
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ATOL = 1e-12
 

@@ -25,6 +25,7 @@ from shapley_vit_tpu_torch.fl import checkpoint as tckpt
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.shapley import Game as TGame
 from shapley_vit_tpu_torch.shapley import shapley_exact as t_exact
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SIZES = (120, 300, 580)
 
@@ -143,3 +144,19 @@ def test_start_runs_on_the_cpu_only_when_asked(tmp_path, rounds):
     np.testing.assert_array_equal(_svs(again), _svs(result))
     assert os.path.getsize(os.path.join(cam.obs.sal_image_dir, cam.obs.exp_id,
                                         "saliency_r1.png")) > 0
+
+
+def test_validation_split_alone_matches_jax():
+    """The drivers load the validation split without synthesizing the
+    training split: the same arrays as the JAX registry's validation split."""
+    from shapley_vit_tpu.data.registry import get_dataset as j_get
+    from shapley_vit_tpu_torch.data.registry import get_dataset as t_get
+
+    want, _ = j_get("oct", synthetic_ok=True, synthetic_scale=0.02, seed=3)
+    alone, _ = t_get("oct", synthetic_ok=True, synthetic_scale=0.02, seed=3, train=False)
+    both, _ = t_get("oct", synthetic_ok=True, synthetic_scale=0.02, seed=3)
+    assert "train" not in alone and alone["test"] is alone["val"]
+    for got in (alone["val"], both["val"]):
+        np.testing.assert_array_equal(got.images, want["val"].images)
+        np.testing.assert_array_equal(got.labels, want["val"].labels)
+    np.testing.assert_array_equal(both["train"].images, want["train"].images)

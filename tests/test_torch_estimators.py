@@ -16,6 +16,7 @@ from shapley_vit_tpu.shapley import TabularGame as JGame
 from shapley_vit_tpu.shapley import estimators as jest
 from shapley_vit_tpu_torch.shapley import TabularGame as TGame
 from shapley_vit_tpu_torch.shapley import estimators as test_
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ATOL = 1e-12
 SIZES = (3, 5, 8)

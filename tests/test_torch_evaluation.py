@@ -18,6 +18,7 @@ from shapley_vit_tpu_torch.fl import evaluation as tev
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import tree_math as ttm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _coalition_setup():
@@ -76,7 +77,8 @@ def test_single_model_paths_agree():
     from shapley_vit_tpu_torch.data.arrays import ArrayDataset
 
     data = backend.device_batches(ArrayDataset(images=images, labels=labels), 16)
-    assert [len(y) for _, y in data] == [16, 16, 8] and data[0][1].dtype == torch.long
+    assert [b.rows for b in data] == [16, 16, 8] and data.real_examples == 40
+    assert data[0][1][(0, 0)].dtype == torch.long
     np.testing.assert_allclose(backend.evaluate_single(tb, tc, data), want, atol=1e-5, rtol=0)
 
 

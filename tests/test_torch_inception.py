@@ -30,6 +30,7 @@ from shapley_vit_tpu_torch.models import inception as tinc
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from tests.test_inception import _reference_style_state_dict
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SMALL_DENOISE = dict(fwd_out=(8, 16), num_fwd=(1, 1), back_out=(8,), num_back=(1,))
 

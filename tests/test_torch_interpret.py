@@ -26,6 +26,7 @@ from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.utils import tb_events
 from shapley_vit_tpu_torch.utils.logging import TensorBoardWriter
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

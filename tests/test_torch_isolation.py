@@ -4,7 +4,7 @@ Checked in a subprocess: the suite's conftest has already imported jax into
 this process. There, ``jax`` (with ``jaxlib`` and ``flax``) and
 ``shapley_vit_tpu`` are blocked in ``sys.modules``, and every module of
 ``shapley_vit_tpu_torch`` plus ``chip_smoke`` is imported, each new module
-of the service and adversarial slices also on its own. The native watcher
+of the service, adversarial and mesh slices also on its own. The native watcher
 the port loads is its own build, never the JAX package's
 ``csrc/libsvt_runtime.so``.
 """
@@ -14,6 +14,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,7 +55,12 @@ SERVICE_MODULES = [
 ROBUST_MODULES = ["fl.adversarial", "models.interpret", "models.inception", "models.convert"]
 
 
-@pytest.mark.parametrize("name", SERVICE_MODULES + ROBUST_MODULES)
+# the mesh slice's modules
+PARALLEL_MODULES = ["parallel", "parallel.mesh", "parallel.autoshape", "parallel.coalition_eval",
+                    "parallel.distributed"]
+
+
+@pytest.mark.parametrize("name", SERVICE_MODULES + ROBUST_MODULES + PARALLEL_MODULES)
 def test_service_module_imports_alone_without_jax(name):
     probe = ("import sys\n"
              "for n in ('jax', 'jaxlib', 'flax', 'shapley_vit_tpu'):\n"

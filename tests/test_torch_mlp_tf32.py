@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from shapley_vit_tpu_torch.ops import mlp_block as tmlp
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 D, HD, M = 768, 3072, 64
 

@@ -47,6 +47,7 @@ from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import attention as tatt
 from shapley_vit_tpu_torch.ops import mlp_block as tmlp
 from shapley_vit_tpu_torch.ops import patch_embed as tpe
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _np(rng, shape, scale=1.0):

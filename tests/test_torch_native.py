@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 from shapley_vit_tpu_torch.fl import ingestion, native
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     not native.build_native(), reason="native toolchain unavailable"

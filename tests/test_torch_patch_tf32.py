@@ -29,6 +29,7 @@ from test_torch_mlp_tf32 import split, tf32_rna
 
 from shapley_vit_tpu.ops.patch_embed import patch_embed as j_patch_embed
 from shapley_vit_tpu_torch.ops import patch_embed as tpe
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CHUNK = 32  # k per stage of the kernel
 

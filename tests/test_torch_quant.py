@@ -33,6 +33,7 @@ from shapley_vit_tpu_torch.driver import start as tstart
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import quant as tquant
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGITS_ATOL = 1e-4
 

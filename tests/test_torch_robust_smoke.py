@@ -15,6 +15,7 @@ from shapley_vit_tpu_torch.config import Config
 from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
 from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 from shapley_vit_tpu_torch.ops.patch_embed import patch_embed
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_chip_smoke_robust_phase_holds_on_the_cpu(capsys):

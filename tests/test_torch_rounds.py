@@ -34,6 +34,7 @@ from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import tree_math as ttm
 from shapley_vit_tpu_torch.shapley import call_shapley_computation_method, shapley_exact
 from shapley_vit_tpu_torch.utils.profiling import StepTimer
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 PARTICIPATION = np.array([[1, 1, 1], [1, 0, 1], [1, 1, 1]], dtype=bool)
 ESTIMATORS = ["exact", "comp_contrib", "gtg", "mr", "tmr"]

@@ -25,6 +25,7 @@ from shapley_vit_tpu_torch.driver import start as tstart
 from shapley_vit_tpu_torch.fl import checkpoint as ckpt
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from test_torch_serve_common import service_cfg, write_epoch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _port_weights(monkeypatch, base, lora):

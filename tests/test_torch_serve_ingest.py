@@ -11,6 +11,7 @@ import pytest
 
 from shapley_vit_tpu_torch.driver import serve as tserve
 from test_torch_serve_common import port_model, service_cfg, write_epoch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

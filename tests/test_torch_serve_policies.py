@@ -16,6 +16,7 @@ from shapley_vit_tpu_torch.driver import serve as tserve
 from shapley_vit_tpu_torch.fl import checkpoint as ckpt
 from shapley_vit_tpu_torch.utils import tb_events
 from test_torch_serve_common import corrupt_epoch, port_model, service_cfg, write_epoch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -229,7 +230,15 @@ def test_serve_writes_grad_cam_overlays(cfg, tmp_path):
         (f"saliency/grad_cam/img_{i}", 0) for i in range(4)]
 
 
-def test_serve_refuses_what_is_not_ported(cfg, monkeypatch):
-    monkeypatch.setattr(tserve, "_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="one process"):
+def test_serve_refuses_what_is_not_ported(cfg):
+    """Before it serves, ``serve()`` refuses a mesh it cannot build: an
+    unknown ``dist.mesh`` mode, or a coalition axis that does not divide
+    the devices. (More than one rank is served now:
+    tests/test_torch_parallel_multiprocess.py.)"""
+    cfg.dist.mesh = "sometimes"
+    with pytest.raises(ValueError, match="dist.mesh"):
         serve(cfg, max_rounds=1)
+    cfg.dist.mesh, cfg.dist.mesh_coalition_shards = "auto", 3
+    with pytest.raises(ValueError, match="does not divide"):
+        serve(cfg, max_rounds=1, devices=["cpu"] * 4)
+    assert tserve.read_service_state(cfg.output_dir) is None

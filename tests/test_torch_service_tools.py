@@ -34,6 +34,7 @@ from shapley_vit_tpu_torch.shapley.game import additive_table
 from shapley_vit_tpu_torch.utils.metrics import AverageMeter, AverageMeterList
 from shapley_vit_tpu_torch.utils.profiling import StepTimer
 from test_torch_serve_common import port_model, service_cfg, write_epoch
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECYCLE = protocol.RECYCLE_EXIT_CODE
@@ -295,9 +296,10 @@ def test_supervised_port_service_drains_end_to_end(tmp_path):
         "from shapley_vit_tpu_torch.driver.serve import main\n"
         "sys.exit(main(sys.argv[1:], device='cpu'))\n"
     )
+    # one intra-op thread in the child too (torch_one_thread.py says why)
     env = dict(os.environ, LOCAL_MODEL_PATH=cfg.paths.local_model_path,
                GLOBAL_MODEL_PATH=cfg.paths.global_model_path,
-               VALIDATION_DATASET=str(tmp_path / "none"))
+               VALIDATION_DATASET=str(tmp_path / "none"), OMP_NUM_THREADS="1")
     env.pop("SVT_START_EPOCH", None)
     out_dir = str(tmp_path / "exp" / "svc")
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from shapley_vit_tpu_torch.utils import tb_events
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_round_trip_scalars(tmp_path):

@@ -26,6 +26,7 @@ from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy, tree_to_numpy
 from shapley_vit_tpu_torch.ops import attention as tatt
 from shapley_vit_tpu_torch.ops.tree_math import tree_leaves
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TRAIN = dict(attention_impl="pallas", mlp_impl="xla")
 

@@ -9,6 +9,7 @@ from shapley_vit_tpu.models import vit as jvit
 from shapley_vit_tpu.ops import tree_math as jtm
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy, tree_to_numpy
 from shapley_vit_tpu_torch.ops import tree_math as ttm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _lora_deltas(n, seed=0):

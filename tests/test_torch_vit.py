@@ -17,6 +17,7 @@ from shapley_vit_tpu.ops import tree_math as jtm
 from shapley_vit_tpu_torch.models import vit as tvit
 from shapley_vit_tpu_torch.models.convert import tree_from_numpy
 from shapley_vit_tpu_torch.ops import tree_math as ttm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 VARIANTS = {
     "micro": {},
