@@ -209,6 +209,26 @@ Phases, each printing one JSON line:
    the paired ``Net`` (finite outputs and losses); FGSM of the ViT through
    a ``Denoise(224, 224)`` front-end on 32 images (finite metrics). It
    prints seconds, metrics and peak memory of each run.
+12. ``mesh``    — coalition evaluation sharded over a ``(coalition, data)``
+   grid (``phase_mesh``: the round over a 1x1 and a 2x2 grid of the card
+   in a one-rank ``nccl`` world, against the single-device round), then
+   the clients' LoRA steps on the grid (``phase_mesh_train``, line
+   ``mesh_train``): ViT-B/16 at 224 px on ``TRAIN_SPEC``, 4 clients of 64
+   images, the multi-client step sharded over 1x1 and 2x2 grids of the
+   card against the single-device step, at three seeds; float32 with Adam
+   and with SGD (losses within 1e-5 relative, overlays within 5e-5 and
+   1e-5), bf16 with Adam and with SGD timed and their first step's losses
+   held at 1e-6; every cell's patch and ``fused_attention`` launches
+   counted and on the dtype's route.
+13. ``zoo``     — the model zoo and the centralized-SGD baseline (cuDNN, no
+   hand kernel): ResNet18, VGG11BN and ConvNet float32 logits card vs CPU
+   (1e-3); one ``driver.cent_sgd`` run (ResNet18 on a CIFAR-10 of the
+   published size, 50,000 training images of synthetic content written in
+   the pickle layout, 1 experiment, 2 epochs; images/s of the second); a
+   whole-variable ResNet18BN coalition round (3 clients, 7 coalitions,
+   that CIFAR-10's 5,000 validation images) against the serial
+   FedAvg-apply-evaluate loop (equal accuracies, losses within 1e-5
+   relative), both timed on a second call.
 
 Then, for the rows of the ``kernels`` phase whose kernel (route, dtype,
 head dim and N) no main path launched, and for the cases a main path does
@@ -218,9 +238,10 @@ is not its wrapper's name), a ``kernels_off_path`` line (each with
 summary line, a row for each other row of the ``kernels`` phase, ``case``
 naming it,
 with ``launches`` that kernel's count by kernel over the bf16 and float32
-rounds (the patch embedding, packed attention and fused MLP) or over the
-train phase's ``run_client`` (``fused_attention``), the counters zeroed
-just before each; the script fails unless each wrapper's row at the main
+rounds (the patch embedding, packed attention and fused MLP), over the
+train phase's ``run_client`` (``fused_attention``) and over the mesh
+phase's bf16 multi-client steps (the patch embedding and
+``fused_attention``), the counters zeroed just before each; the script fails unless each wrapper's row at the main
 paths' shapes in each round's dtype (``fused_attention``: bf16) is among
 them; and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before that line; without a CUDA device the script exits non-zero at once.
@@ -229,6 +250,7 @@ exits non-zero before that line; without a CUDA device the script exits non-zero
 from __future__ import annotations
 
 import collections
+import copy
 import csv
 import json
 import math
@@ -2313,6 +2335,355 @@ def phase_mesh(counted, single: dict) -> None:
         raise SystemExit("the mesh phase failed its checks")
 
 
+# The mesh phase's training grids: (name, coalition-axis size, data-axis
+# size), each a grid of the one card; the step's shape: 4 clients of 64
+# images each (the train phase's batch); the seeds of the clients'
+# overlays and batches, one run of every grid each; and its runs: (dtype,
+# optimizer at 5e-3, steps, untimed warm-up steps, and the bars of each
+# grid against the single device: the first step's losses, every step's
+# losses, the overlays after the last step; None is not held). float32
+# SGD with momentum is held at 1e-5 throughout. Adam's first update,
+# lr * g / (|g| + eps), turns the reordered sums of near-zero gradient
+# elements into whole steps of lr: its overlays are held at 5e-5, above
+# the largest of its readings over the seeds on the H100 (2.33e-5). In
+# bfloat16 the first step's losses are taken before any update: their
+# readings there were float32 rounding of the mean (at most 8.7e-8; 1.7e-7
+# in float32), held at 1e-6. The later bf16 steps part (any overlay
+# difference moves the bf16 forward's roundings, and Adam magnifies the
+# overlays' differences); they are reported, not held.
+MESH_TRAIN_GRIDS = (("1x1", 1, 1), ("2x2", 2, 2))
+MESH_TRAIN_CLIENTS, MESH_TRAIN_BATCH = 4, 64
+MESH_TRAIN_SEEDS = (7, 8, 9)
+MESH_TRAIN_RUNS = (("float32", "adam", 2, 0, (1e-5, 1e-5, 5e-5)),
+                   ("float32", "sgd", 2, 0, (1e-5, 1e-5, 1e-5)),
+                   ("bfloat16", "adam", 4, 1, (1e-6, None, None)),
+                   ("bfloat16", "sgd", 4, 1, (1e-6, None, None)))
+
+
+def _tree_rel_err(got, want) -> tuple:
+    """(||got - want|| / ||want|| over every leaf, largest |got - want|)."""
+    import torch
+
+    from shapley_vit_tpu_torch.ops.tree_math import tree_leaves
+
+    pairs = [(g.detach().float().cpu(), w.detach().float().cpu())
+             for g, w in zip(tree_leaves(got), tree_leaves(want))]
+    num = math.sqrt(sum(float(((g - w) ** 2).sum()) for g, w in pairs))
+    den = math.sqrt(sum(float((w ** 2).sum()) for _, w in pairs))
+    return num / den, max(float((g - w).abs().max()) for g, w in pairs)
+
+
+def _within(err: float, bar) -> bool:
+    return bar is None or err <= bar
+
+
+def phase_mesh_train(counted, cfg=None, device="cuda", batch: int = MESH_TRAIN_BATCH) -> dict:
+    """The clients' LoRA steps stacked and sharded over the mesh
+    (``parallel.client_train``) on the training forward
+    (``driver.client.TRAIN_SPEC``), ViT-B/16 at 224 px by default, 4
+    clients of ``batch`` images, each grid of ``MESH_TRAIN_GRIDS`` against
+    the single-device step (``fl.training.make_multi_client_train_step``)
+    from the same overlays and batches, once for each of
+    ``MESH_TRAIN_SEEDS``. ``counted`` is (``patch_embed``,
+    ``fused_attention``); their counts are zeroed just before each run and
+    read just after.
+
+    Each run of ``MESH_TRAIN_RUNS``: the losses' relative errors by step
+    (each client's ``|got - want| / |want|``, the largest), the updated
+    overlays' (the norm of the difference over the norm, over every leaf;
+    the largest elementwise difference beside it), each held at the run's
+    bars; ms per step (median after the warm-up steps). In every run each
+    cell launches the patch kernel once per client step and
+    ``fused_attention`` once per block, all on the dtype's route
+    (``wgmma`` / ``tf32x3``); the backward launches none. ``cfg``,
+    ``device`` and ``batch`` exist to rehearse the phase on the CPU, where
+    the plain versions run and nothing is launched. Returns the bf16 grid
+    runs' counts by kernel, for the kernels line."""
+    import torch
+
+    from shapley_vit_tpu_torch.config import Config
+    from shapley_vit_tpu_torch.driver import start as drv
+    from shapley_vit_tpu_torch.driver.client import TRAIN_SPEC
+    from shapley_vit_tpu_torch.fl import training as tr
+    from shapley_vit_tpu_torch.models import vit as tvit
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.parallel import distributed as pdist
+    from shapley_vit_tpu_torch.parallel.client_train import make_sharded_multi_client_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    clients = MESH_TRAIN_CLIENTS
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    base_cfg = cfg or Config()  # ViT-B/16 at 224 px
+    runs, ok, bf16_by = [], True, {}
+    for dtype, opt_name, steps, warm, (first_bar, loss_bar, lora_bar) in MESH_TRAIN_RUNS:
+        c = copy.deepcopy(base_cfg)
+        c.model.compute_dtype = dtype
+        spec, base, lora0 = drv.build_model(c, device=device)
+        spec = spec.replace(**TRAIN_SPEC)
+        route = expected_route(dtype)
+
+        def fwd(b, lo, x, spec=spec):
+            return tvit.vit_forward(b, lo, x, spec)
+
+        def run(make):
+            """``steps`` steps of one step function; (losses by step, the
+            overlay after, ms per step, counts by kernel)."""
+            step, state = make()
+            zero_counts(counted)
+            losses, ms = [], []
+            for i in range(steps):
+                sync()
+                t0 = time.perf_counter()
+                state, loss = step(state)
+                loss = loss.float().cpu()
+                sync()
+                if i >= warm:
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(loss)
+            return losses, state, statistics.median(ms), counts_by_kernel(counted)
+
+        def counts_ok(by, cells, k):
+            """Each cell launched the patch kernel once per client step and
+            attention once per block, all on the dtype's route."""
+            want = {"patch_embed": steps * k, "fused_attention": steps * k * spec.depth}
+            return want, not on_card or all(
+                sum(by[fn].values()) == cells * want[fn]
+                and all(key.startswith(f"{route} {dtype}") for key in by[fn]) for fn in want)
+
+        opt = tr.adam(5e-3) if opt_name == "adam" else tr.sgd(5e-3, momentum=0.9)
+        by_seed = []
+        for seed in MESH_TRAIN_SEEDS:
+            gen = torch.Generator().manual_seed(seed)
+            stacked = tm.tree_stack([tm.tree_map(
+                lambda a: a + 0.02 * torch.randn(a.shape, generator=gen).to(a.device, a.dtype),
+                lora0) for _ in range(clients)])
+            images = torch.rand((clients, batch, spec.image, spec.image, 3), generator=gen).to(device)
+            labels = torch.randint(0, spec.num_classes, (clients, batch), generator=gen).to(device)
+
+            def single():
+                st = tr.make_multi_client_train_step(fwd, opt, spec.num_classes)
+                lora = tr.trainable(stacked)
+
+                def step(state):
+                    lo, o = state
+                    lo, o, loss = st(base, lo, o, images, labels)
+                    return (lo, o), loss
+
+                return step, (lora, opt.init(lora))
+
+            want_losses, (want_lora, _), want_ms, want_by = run(single)
+            single_ok = counts_ok(want_by, 1, clients)[1]
+            ok = ok and single_ok
+            rows = [{"grid": "single device", "cells": 1, "ms_per_step": want_ms,
+                     "launches": want_by, "ok": single_ok}]
+            for name, n_c, n_d in MESH_TRAIN_GRIDS:
+                mesh = pdist.make_global_mesh(c.dist, n_coalition=n_c,
+                                              local=[device] * (n_c * n_d))
+
+                def sharded(mesh=mesh):
+                    st = make_sharded_multi_client_train_step(fwd, opt, spec.num_classes, mesh)
+
+                    def step(cl):
+                        return st(base, cl, images, labels)
+
+                    return step, st.init(stacked)
+
+                losses, cl, ms, by = run(sharded)
+                by_step = [float(((g - w).abs() / w.abs()).max())
+                           for g, w in zip(losses, want_losses)]
+                lora_rel, lora_max = _tree_rel_err(cl.stacked(), want_lora)
+                cells, k = n_c * n_d, clients // n_c
+                per_cell, launched_ok = counts_ok(by, cells, k)
+                checks_ok = (launched_ok and _within(by_step[0], first_bar)
+                             and _within(max(by_step), loss_bar) and _within(lora_rel, lora_bar))
+                ok = ok and checks_ok
+                if dtype == "bfloat16":
+                    for fn, counts in by.items():
+                        bf16_by.setdefault(fn, collections.Counter()).update(counts)
+                rows.append({"grid": name, "cells": cells, "clients_per_row": k,
+                             "images_per_cell_per_client": batch // n_d, "ms_per_step": ms,
+                             "loss_rel_err_by_step": by_step, "overlay_rel_err": lora_rel,
+                             "overlay_max_abs_err": lora_max, "launches": by,
+                             "launches_per_cell_expected": per_cell, "ok": checks_ok})
+            by_seed.append({"seed": seed,
+                            "losses_single_device": [l.tolist() for l in want_losses],
+                            "rows": rows})
+        runs.append({"dtype": dtype, "optimizer": opt_name, "steps": steps,
+                     "timed_steps": steps - warm,
+                     "bars": {"first_step_loss": first_bar, "loss": loss_bar,
+                              "overlay": lora_bar},
+                     "seeds": by_seed})
+    out = {"phase": "mesh_train", "variant": base_cfg.model.vit_variant,
+           "image_size": base_cfg.data.image_size, "clients": clients, "batch_per_client": batch,
+           "runs": runs, "ok": ok}
+    emit(out)
+    if not ok:
+        raise SystemExit("the mesh phase's multi-client training step failed its checks")
+    return {fn: dict(counts) for fn, counts in bf16_by.items()}
+
+
+ZOO_LOGIT_MODELS = ("ResNet18", "VGG11BN", "ConvNet")
+
+
+def write_cifar10_pickles(root: str, per_batch: int) -> str:
+    """CIFAR-10 in its published python-pickle layout under
+    ``root/cifar-10-batches-py``: five training batches and a test batch of
+    ``per_batch`` images each (10,000 in the published set), CHW rows of 8
+    bits. The images are the registry's class-separable synthetic ones (a
+    prototype per class plus noise), one seed per file."""
+    import pickle
+
+    import numpy as np
+
+    from shapley_vit_tpu_torch.data.registry import _synthetic_images
+
+    out = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(out, exist_ok=True)
+    for seed, name in enumerate([f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]):
+        ds = _synthetic_images("cifar10", per_batch, 10, 32, 32, 3, seed)
+        rows = np.rint(ds.images * 255).astype(np.uint8).transpose(0, 3, 1, 2).reshape(per_batch, -1)
+        with open(os.path.join(out, name), "wb") as f:
+            pickle.dump({b"data": rows, b"labels": ds.labels.tolist()}, f)
+    return root
+
+
+def phase_zoo(device="cuda", work=None, per_batch: int = 10_000, cent_epochs: int = 2,
+              logit_models=ZOO_LOGIT_MODELS, cent_model: str = "ResNet18",
+              coalition_model: str = "ResNet18BN") -> dict:
+    """The model zoo and the centralized-SGD baseline on the card: no hand
+    kernel (cuDNN convolutions, TF32 off as everywhere in the port).
+
+    1. float32 logits of 8 CIFAR-sized images (32 px, 10 classes) of
+       ResNet18, VGG11BN and ConvNet, eval mode, card against CPU from the
+       same seeded weights, within 1e-3.
+    2. One ``driver.cent_sgd`` run: ResNet18 on a CIFAR-10 of the published
+       size (50,000 training and 10,000 test images of synthetic content,
+       written in the pickle layout and read through ``--data_dir``), 1
+       experiment, 2 epochs, batch 64, no curves (no matplotlib needed):
+       wall seconds, the seconds of each epoch's steps, training images/s
+       over the epochs after the first (the first pays cuDNN's warm-up),
+       the best accuracy.
+    3. A whole-variable coalition round of ResNet18BN (the BatchNorm
+       statistics are deltas too): 3 clients' seeded deltas, 7 coalitions
+       through ``materialize_coalitions`` and the evaluator backend
+       (``coalition_chunk=2``) over that CIFAR-10's validation split (the
+       half of the test batch, 5,000 images) in batches of 128, against the
+       serial FedAvg-apply-evaluate loop: accuracies equal, losses within
+       1e-5 relative. Each is run twice and the second run timed.
+
+    ``device``, ``work``, the sizes and the models exist to rehearse the
+    phase on the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from shapley_vit_tpu_torch.data.registry import get_dataset
+    from shapley_vit_tpu_torch.driver import cent_sgd
+    from shapley_vit_tpu_torch.fl import evaluation as ev
+    from shapley_vit_tpu_torch.models import zoo
+    from shapley_vit_tpu_torch.ops import tree_math as tm
+    from shapley_vit_tpu_torch.parallel.coalition_eval import make_eval_backend
+
+    on_card = torch.device(device).type == "cuda"
+
+    def timed(fn):
+        """(fn()'s second result, its seconds): the first call pays the
+        warm-up of these shapes."""
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ok = True
+    x = torch.rand((8, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    logits = []
+    for name in logit_models:
+        _, cpu_vars, cpu_apply = zoo.get_network(name, 3, 10, (32, 32), seed=0, device="cpu")
+        _, dev_vars, dev_apply = zoo.get_network(name, 3, 10, (32, 32), seed=0, device=device)
+        with torch.inference_mode():
+            want = cpu_apply(cpu_vars, x)
+            got = dev_apply(dev_vars, x.to(device)).cpu()
+        err = float((got - want).abs().max())
+        ok = ok and err <= 1e-3 and bool(torch.isfinite(got).all())
+        logits.append({"model": name, "max_abs_err": err, "scale": float(want.abs().max())})
+
+    with tempfile.TemporaryDirectory(prefix="svt_zoo_") as tmp:
+        work = work or tmp
+        data_dir = write_cifar10_pickles(os.path.join(work, "data"), per_batch)
+        splits, _ = get_dataset("cifar10", data_dir=data_dir, synthetic_ok=False)
+        n_train = len(splits["train"])
+        args = cent_sgd.set_path(cent_sgd.argparser().parse_args([
+            "--dataset", "cifar10", "--model", cent_model, "--num_exp", "1",
+            "--epoch_train", str(cent_epochs), "--batch_train", "64", "--data_dir", data_dir,
+            "--save_root", os.path.join(work, "cent_sgd"), "--device", device]))
+        summary = cent_sgd.main(args)
+        epoch_s = summary["epoch_train_s"][0]
+        steady = epoch_s[1:] or epoch_s
+        cent = {"model": cent_model, "dataset": "cifar10 (pickles, synthetic content)",
+                "train_images": n_train, "test_images": len(splits["test"]),
+                "epochs": cent_epochs, "wall_s": summary["wall_clock_s"],
+                "train_s": summary["train_s"], "epoch_train_s": epoch_s,
+                "train_images_per_s": len(steady) * n_train / sum(steady),
+                "images_per_s_over": "epochs after the first" if epoch_s[1:] else "the one epoch",
+                "best_acc": summary["acc_mean"], "best_auc": summary["auc_mean"],
+                "checkpoint": os.path.exists(os.path.join(args.save_path, "checkpoint_exp0.npz"))}
+        ok = ok and cent["checkpoint"] and 0.0 <= summary["acc_mean"] <= 1.0
+
+    val = splits["val"]
+    images = len(val)
+    net, variables, _ = zoo.get_network(coalition_model, 3, 10, (32, 32), seed=1, device=device)
+    gen = torch.Generator().manual_seed(10)
+    deltas = [{k: 0.05 * torch.randn(v.shape, generator=gen).to(device) for k, v in variables.items()}
+              for _ in range(3)]
+    sizes = [100.0, 300.0, 600.0]
+    coalitions = [[0], [1], [2], [0, 1], [0, 2], [1, 2], [0, 1, 2]]
+    W = tm.coalition_weight_matrix(coalitions, sizes, 3)
+    fwd = zoo.make_coalition_forward(net)
+    backend = make_eval_backend(fwd, coalition_chunk=2, device=device)
+    batches = [(val.images[i:i + 128], val.labels[i:i + 128]) for i in range(0, images, 128)]
+    got, round_s = timed(lambda: backend.evaluate(
+        {}, tm.materialize_coalitions(variables, tm.tree_stack(deltas), W), batches))
+    dev_batches = [(torch.as_tensor(a, device=device), torch.as_tensor(b, device=device))
+                   for a, b in batches]
+
+    def serial_loop():
+        out = []
+        for members in coalitions:
+            agg = tm.aggregate_deltas(tm.tree_stack([deltas[j] for j in members]),
+                                      tm.fedavg_ratio([sizes[j] for j in members]))
+            one = tm.apply_deltas(variables, agg)
+            out.append(ev.evaluate_model(
+                lambda v, xb: fwd(None, {k: t[None] for k, t in v.items()}, xb)[0], one,
+                dev_batches))
+        return np.asarray(out)
+
+    serial, serial_s = timed(serial_loop)
+    # correct counts (the evaluator divides in float32, the serial loop in float64)
+    acc_equal = bool((np.rint(got[:, 0] * images) == np.rint(serial[:, 0] * images)).all())
+    loss_rel = float((np.abs(got[:, 1] - serial[:, 1]) / np.abs(serial[:, 1])).max())
+    ok = ok and acc_equal and loss_rel <= 1e-5 and bool(np.isfinite(got).all())
+    out = {"phase": "zoo", "logits": logits, "cent_sgd": cent,
+           "coalition_round": {"model": coalition_model, "clients": 3, "coalitions": len(coalitions),
+                               "validation_images": images, "coalition_chunk": 2,
+                               "round_s": round_s, "serial_s": serial_s,
+                               "accuracies_equal": acc_equal, "max_loss_rel_err": loss_rel,
+                               "utilities": got.tolist()},
+           "ok": ok}
+    emit(out)
+    if not ok:
+        raise SystemExit("the zoo phase failed its checks")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2358,12 +2729,16 @@ def main() -> int:
     phase_robust(counted)
     phase_mesh(round_kernels, {"bfloat16": (bf16_round, bf16_round_s),
                                "float32": (f32_round, f32_round_s)})
+    mesh_train_by = phase_mesh_train((patch_embed, fused_attention))
+    phase_zoo()
 
     # the main paths' launches of each wrapper by kernel: the two rounds'
     # (patch embedding, packed attention, fused MLP), the train phase's
-    # run_client's (fused_attention)
+    # run_client's (fused_attention), the mesh phase's bf16 multi-client
+    # steps (patch embedding, fused_attention)
     on_path = {fn.__name__: collections.Counter() for fn in counted}
-    for by in (bf16_by, f32_by, {"fused_attention": train_by["fused_attention"]}):
+    for by in (bf16_by, f32_by, {"fused_attention": train_by["fused_attention"]},
+               mesh_train_by):
         for name, counts in by.items():
             on_path[name].update(counts)
     rows, off_path = [], []

@@ -1,6 +1,7 @@
-"""Data layer: array-backed datasets, the OCT folder loader and the dataset
-registry's OCT entry (copies of the ``shapley_vit_tpu.data`` parts the
-Shapley round uses)."""
+"""Data layer: array-backed datasets, the OCT folder loader, the native
+dataset formats, the medical loaders, the batch pipeline and the dataset
+registry (copies of ``shapley_vit_tpu.data``'s modules; condensation is
+not ported yet)."""
 
 from shapley_vit_tpu_torch.data.arrays import ArrayDataset, batches  # noqa: F401
 from shapley_vit_tpu_torch.data.oct import CellDataset  # noqa: F401

@@ -35,10 +35,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from shapley_vit_tpu_torch.config import Config
 from shapley_vit_tpu_torch.data.arrays import ArrayDataset
+from shapley_vit_tpu_torch.data.pipeline import resize_batch
 from shapley_vit_tpu_torch.data.registry import get_dataset
 from shapley_vit_tpu_torch.driver import report
 from shapley_vit_tpu_torch.fl import evaluation as ev
@@ -196,10 +196,8 @@ def resize_images(images: np.ndarray, target: int, device="cpu", block: int = 25
     same function as ``jax.image.resize(..., "bilinear")``."""
     out = []
     for s in range(0, len(images), block):
-        x = torch.as_tensor(images[s : s + block]).to(device).permute(0, 3, 1, 2)
-        y = F.interpolate(x, size=(target, target), mode="bilinear", align_corners=False,
-                          antialias=True)
-        out.append(y.permute(0, 2, 3, 1).cpu().numpy())
+        x = torch.as_tensor(images[s : s + block]).to(device)
+        out.append(resize_batch(x, target).cpu().numpy())
     return np.concatenate(out, axis=0)
 
 

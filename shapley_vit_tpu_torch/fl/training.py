@@ -25,8 +25,14 @@ What changed in the port:
 * ``make_train_step`` has no ``remat`` switch: the JAX one checkpoints the
   whole forward, which ``ViTSpec.remat`` (per block, set from
   ``cfg.train.remat`` by the client) covers for the ViT.
-* ``make_multi_client_train_step`` (all clients in one program) comes with
-  the multi-GPU slice.
+* ``make_multi_client_train_step`` stacks the clients on a leading axis as
+  the JAX one ``vmap``s them, but keeps ONE ``torch.optim`` optimizer over
+  the stacked leaves: each client's loss reaches only its own slice of
+  every leaf, and Adam and SGD (with momentum or weight decay) update each
+  element from that element alone, so one optimizer over the stack equals
+  a state per client (the step count is shared, and equal, since every
+  client steps at once). Other optimizers are refused.
+  ``parallel/client_train.py`` shards that step over the mesh.
 """
 
 from __future__ import annotations
@@ -111,6 +117,42 @@ def make_train_step(forward_fn: ForwardFn, num_classes: int, label_flip_prob: fl
         loss.backward()
         opt_state.step()
         return lora, opt_state, loss.detach()
+
+    return step
+
+
+def make_multi_client_train_step(forward_fn: ForwardFn, optimizer: Optimizer, num_classes: int,
+                                 label_flip_prob: float = 0.0):
+    """All clients' local step at once (the JAX ``vmap`` of the single-client
+    step over a stacked client axis). Returns ``step(base, stacked_lora,
+    opt_states, images[n, B, ...], labels[n, B], generators) ->
+    (stacked_lora, opt_states, losses[n])``.
+
+    ``stacked_lora`` is :func:`trainable` of a tree stacked on a leading
+    ``[n]`` client axis and ``opt_states`` is ``optimizer.init(stacked_lora)``
+    (see the module docstring for why one optimizer is exact). Client ``i``
+    flips its labels with ``generators[i]`` (a list of ``torch.Generator``,
+    or None when ``label_flip_prob`` is 0), and its loss is its own mean
+    cross-entropy. Each client's forward and backward run in turn (its
+    gradient lands in its own slice), so only one client's activations are
+    held at a time; then the optimizer updates every client."""
+    if not isinstance(optimizer, Optimizer):
+        raise TypeError("make_multi_client_train_step takes adam() or sgd(): one optimizer over "
+                        "the stacked leaves equals per-client states only for elementwise updates")
+
+    def step(base, stacked_lora, opt_states, images, labels, generators=None):
+        n = int(images.shape[0])
+        opt_states.zero_grad(set_to_none=True)
+        losses = []
+        for i in range(n):
+            y = label_flip(None if generators is None else generators[i], labels[i],
+                           num_classes, label_flip_prob)
+            lora_i = tree_map(lambda a: a[i], stacked_lora)
+            loss = cross_entropy(forward_fn(base, lora_i, images[i]), y)
+            loss.backward()
+            losses.append(loss.detach())
+        opt_states.step()
+        return stacked_lora, opt_states, torch.stack(losses)
 
     return step
 

@@ -1,5 +1,7 @@
-"""Model layer: the functional ViT with a LoRA overlay (the live-path model)
-and the weight conversion/carrier between numpy, peft and this package."""
+"""Model layer: the functional ViT with a LoRA overlay (the live-path model),
+the weight conversion/carrier between numpy, peft, flax and this package,
+Inception-v3 with its defense, and the reference's model zoo
+(``models.zoo``)."""
 
 from shapley_vit_tpu_torch.models.vit import (  # noqa: F401
     VIT_VARIANTS,

@@ -17,6 +17,9 @@
   :func:`flax_inception_to_state_dict` carries the JAX package's flax
   ``Net`` / ``Inception3`` / ``Denoise`` variables (numpy) into the port's
   module, so the tests run both packages on the same weights.
+* :func:`flax_zoo_to_state_dict` / :func:`state_dict_to_flax_zoo` carry
+  the JAX zoo's flax variables (numpy) to and from a ``models.zoo``
+  module's state dict, whose keys are the flax paths.
 """
 
 from __future__ import annotations
@@ -384,4 +387,65 @@ def flax_inception_to_state_dict(variables: Mapping[str, Any], model) -> Dict[st
     missing = [k for k in out if k not in filled and not k.endswith("num_batches_tracked")]
     if missing:
         raise ValueError(f"no flax variable for {missing[:8]}")
+    return out
+
+
+# flax zoo leaf -> (state-dict leaf, layout change), by the layer's flax type
+_ZOO_PARAMS = {
+    "Conv": {"kernel": ("weight", (3, 2, 0, 1)), "bias": ("bias", None)},
+    "Dense": {"kernel": ("weight", (1, 0)), "bias": ("bias", None)},
+    "BatchNorm": {"scale": ("weight", None), "bias": ("bias", None)},
+    "GroupNorm": {"scale": ("weight", None), "bias": ("bias", None)},
+    "LayerNorm": {"scale": ("weight", (2, 0, 1)), "bias": ("bias", (2, 0, 1))},
+}
+_ZOO_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _zoo_leaves(tree: Mapping[str, Any], path=()):
+    for k in sorted(tree):
+        if isinstance(tree[k], Mapping):
+            yield from _zoo_leaves(tree[k], path + (k,))
+        else:
+            yield path, k, tree[k]
+
+
+def flax_zoo_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX zoo's flax variables (``{'params', 'batch_stats'}``, numpy
+    leaves) -> a state dict for the ``models.zoo`` module of the same
+    configuration: Conv ``[kh, kw, I, O]`` -> ``[O, I, kh, kw]``, Dense
+    ``[I, O]`` -> ``[O, I]``, LayerNorm ``[H, W, C]`` -> ``[C, H, W]``,
+    scale -> weight, mean/var -> running_mean/running_var. Load it with
+    ``module.load_state_dict(..., strict=True)``, which refuses a missing
+    or extra key."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf, value in _zoo_leaves(variables.get("params", {})):
+        name, perm = _ZOO_PARAMS[path[-1].rsplit("_", 1)[0]][leaf]
+        a = np.asarray(value, np.float32)
+        out[".".join(path + (name,))] = torch.tensor(a.transpose(perm) if perm else a)
+    for path, leaf, value in _zoo_leaves(variables.get("batch_stats", {})):
+        out[".".join(path + (_ZOO_STATS[leaf],))] = torch.tensor(np.asarray(value, np.float32))
+    return out
+
+
+def state_dict_to_flax_zoo(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`flax_zoo_to_state_dict`: a ``models.zoo`` state
+    dict -> the JAX zoo's ``{'params'[, 'batch_stats']}`` tree of numpy
+    arrays."""
+    back = {kind: {name: (leaf, perm) for leaf, (name, perm) in m.items()}
+            for kind, m in _ZOO_PARAMS.items()}
+    stats_back = {v: k for k, v in _ZOO_STATS.items()}
+    out: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        *path, name = key.split(".")
+        a = value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
+        if name in stats_back:
+            col, leaf = "batch_stats", stats_back[name]
+        else:
+            leaf, perm = back[path[-1].rsplit("_", 1)[0]][name]
+            inv = None if perm is None else tuple(np.argsort(perm))
+            col, a = "params", (a.transpose(inv) if inv else a)
+        node = out.setdefault(col, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = a
     return out

@@ -4,7 +4,9 @@ Checked in a subprocess: the suite's conftest has already imported jax into
 this process. There, ``jax`` (with ``jaxlib`` and ``flax``) and
 ``shapley_vit_tpu`` are blocked in ``sys.modules``, and every module of
 ``shapley_vit_tpu_torch`` plus ``chip_smoke`` is imported, each new module
-of the service, adversarial and mesh slices also on its own. The native watcher
+of the service, adversarial and mesh slices also on its own, and those of
+the training-mesh and centralised-baseline slice with sklearn and
+matplotlib blocked too. The native watcher
 the port loads is its own build, never the JAX package's
 ``csrc/libsvt_runtime.so``.
 """
@@ -60,10 +62,18 @@ PARALLEL_MODULES = ["parallel", "parallel.mesh", "parallel.autoshape", "parallel
                     "parallel.distributed"]
 
 
-@pytest.mark.parametrize("name", SERVICE_MODULES + ROBUST_MODULES + PARALLEL_MODULES)
+# the training-mesh and centralised-baseline slice's modules: no sklearn,
+# and matplotlib only when a plot is drawn
+CENTRAL_MODULES = ["parallel.client_train", "models.zoo", "data.formats", "data.medical",
+                   "data.pipeline", "data.registry", "utils.eval_metrics", "utils.plots",
+                   "driver.cent_sgd"]
+
+
+@pytest.mark.parametrize("name", SERVICE_MODULES + ROBUST_MODULES + PARALLEL_MODULES
+                         + CENTRAL_MODULES)
 def test_service_module_imports_alone_without_jax(name):
     probe = ("import sys\n"
-             "for n in ('jax', 'jaxlib', 'flax', 'shapley_vit_tpu'):\n"
+             "for n in ('jax', 'jaxlib', 'flax', 'shapley_vit_tpu', 'sklearn', 'matplotlib'):\n"
              "    sys.modules[n] = None\n"
              f"import shapley_vit_tpu_torch.{name}\n")
     env = dict(os.environ)

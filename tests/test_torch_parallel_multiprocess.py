@@ -129,23 +129,69 @@ print("WRITES " + json.dumps(writes), flush=True)
 """
 
 
-def _lines(out, tag):
-    return [json.loads(line[len(tag) + 1:]) for line in out.splitlines() if line.startswith(tag + " ")]
+_TRAIN_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+
+from shapley_vit_tpu_torch.config import DistConfig
+from shapley_vit_tpu_torch.fl import training as tr
+from shapley_vit_tpu_torch.models import vit as tvit
+from shapley_vit_tpu_torch.ops import tree_math as tm
+from shapley_vit_tpu_torch.parallel import distributed as pdist
+from shapley_vit_tpu_torch.parallel.client_train import make_sharded_multi_client_train_step
+
+assert pdist.initialize_from_config(
+    DistConfig(dist_num=2, dist_rank=rank, master_addr="127.0.0.1", master_port=port),
+    device="cpu")
+spec = tvit.make_spec("micro", attention_impl="pallas", mlp_impl="xla")
+gen = torch.Generator().manual_seed(0)
+base = tvit.init_vit(gen, spec)
+lora = tvit.init_lora(gen, spec, classifier_from=base)
+stacked = tm.tree_stack([tm.tree_map(lambda a: a + 0.05 * torch.randn(a.shape, generator=gen), lora)
+                         for _ in range(2)])
+rng = np.random.default_rng(0)
+images = rng.normal(size=(2, 4, 16, 16, 3)).astype(np.float32)
+labels = rng.integers(0, 4, size=(2, 4))
+fwd = lambda b, l, x: tvit.vit_forward(b, l, x, spec)
+
+out = {}
+# one client per rank under Adam; one client's batch across both ranks
+# under SGD with momentum (Adam's first steps, lr * g / (|g| + eps), turn the
+# data split's reordered sums of near-cancelling gradients into 2.7e-6 here)
+for n_c, opt in ((2, tr.adam(5e-3)), (1, tr.sgd(1e-2, momentum=0.9))):
+    one = tr.make_multi_client_train_step(fwd, opt, spec.num_classes)
+    want_lora = tr.trainable(stacked)
+    state = opt.init(want_lora)
+    mesh = pdist.make_global_mesh(DistConfig(dist_num=2), n_coalition=n_c, local=["cpu"])
+    step = make_sharded_multi_client_train_step(fwd, opt, spec.num_classes, mesh)
+    clients = step.init(stacked)
+    err = 0.0
+    for _ in range(3):
+        want_lora, state, want = one(base, want_lora, state, torch.tensor(images),
+                                     torch.tensor(labels))
+        clients, got = step(base, clients, images, labels)
+        err = max(err, float((got - want).abs().max()))
+    for g, w in zip(tm.tree_leaves(clients.stacked()), tm.tree_leaves(want_lora)):
+        err = max(err, float((g - w.detach()).abs().max()))
+    out[f"{n_c}x{2 // n_c}"] = [mesh.local_cells(), err]
+print("TRAIN " + json.dumps(out), flush=True)
+"""
 
 
-def test_two_gloo_ranks_equal_one_process(tmp_path):
-    shared = tmp_path / "shared"
-    cfg = service_cfg(shared, local=shared / "local")
-    cfg.model.compute_dtype = "float32"
-    spec, _, lora = port_model(cfg)
-    write_epoch(cfg, spec, lora, 0)
-
+def _free_port():
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
-        port = str(sock.getsockname()[1])
+        return str(sock.getsockname()[1])
+
+
+def _run_ranks(child, *args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(GLOO_SOCKET_IFNAME="lo", OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, "-c", _CHILD, str(r), port, str(shared)], cwd=ROOT,
+    procs = [subprocess.Popen([sys.executable, "-c", child, str(r), *args], cwd=ROOT,
                               env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(2)]
     outs = []
@@ -157,6 +203,21 @@ def test_two_gloo_ranks_equal_one_process(tmp_path):
             p.kill()
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {r}:\n{out[-4000:]}"
+    return outs
+
+
+def _lines(out, tag):
+    return [json.loads(line[len(tag) + 1:]) for line in out.splitlines() if line.startswith(tag + " ")]
+
+
+def test_two_gloo_ranks_equal_one_process(tmp_path):
+    shared = tmp_path / "shared"
+    cfg = service_cfg(shared, local=shared / "local")
+    cfg.model.compute_dtype = "float32"
+    spec, _, lora = port_model(cfg)
+    write_epoch(cfg, spec, lora, 0)
+
+    outs = _run_ranks(_CHILD, _free_port(), str(shared))
 
     evals = [np.array(_lines(out, "EVAL")[0]) for out in outs]
     np.testing.assert_array_equal(evals[0], evals[1])
@@ -178,3 +239,12 @@ def test_two_gloo_ranks_equal_one_process(tmp_path):
             "save_lora_checkpoint"} <= set(writes[0]) and _lines(outs[0], "ARTIFACTS")[0] > 0
     assert os.path.exists(os.path.join(cfg.paths.global_model_path, "ViT_global_epoch_0.npz"))
     assert tserve.read_service_state(cfg.output_dir)["next_epoch"] == 1
+
+
+def test_two_gloo_ranks_train_as_one_process():
+    outs = _run_ranks(_TRAIN_CHILD, _free_port())
+    for rank, out in enumerate(outs):
+        got = _lines(out, "TRAIN")[0]
+        # one client per rank; then one client's batch across both ranks
+        assert got["2x1"][0] == [[rank, 0]] and got["1x2"][0] == [[0, rank]]
+        assert got["2x1"][1] <= 1e-6 and got["1x2"][1] <= 1e-6, got
