@@ -229,6 +229,23 @@ Phases, each printing one JSON line:
    that CIFAR-10's 5,000 validation images) against the serial
    FedAvg-apply-evaluate loop (equal accuracies, losses within 1e-5
    relative), both timed on a second call.
+14. ``examples`` — the port's examples as a user runs them
+   (``phase_examples``): the quickstart at ViT-B/16, 224 px, float32, 128
+   validation images (7 distinct evaluations, none more from comp-contrib,
+   exact efficiency within 1e-6) and the service demo at ViT-B/16, 224 px,
+   bf16, 400 validation images, 3 clients training on a thread of their
+   own while ``serve()`` scores 3 epochs (records, moving SVs and
+   utilities, the global exports, the trajectory PNG, the checkpoints'
+   data sizes; launches of the service's three kernels and of the
+   trainer's ``fused_attention``), the counters zeroed just before each.
+15. ``condense`` — data condensation and the representation metrics
+   (cuDNN and cuBLAS, no hand kernel): one outer gradient-matching
+   iteration of ConvNet-3 at width 128 on CIFAR-10's shapes (256 real and
+   10 synthetic images a class, DiffAugment in mode S, siamese), one
+   weighted epoch over the synthetic set and an eval epoch, card against
+   CPU (match losses and the synthetic images' gradient within 1e-3
+   relative, epoch losses within 1e-4); CKA, SWD and the IRM loss of two
+   ConvNets' features with matmul TF32 on outside, within 1e-6 of float64.
 
 Then, for the rows of the ``kernels`` phase whose kernel (route, dtype,
 head dim and N) no main path launched, and for the cases a main path does
@@ -239,9 +256,10 @@ summary line, a row for each other row of the ``kernels`` phase, ``case``
 naming it,
 with ``launches`` that kernel's count by kernel over the bf16 and float32
 rounds (the patch embedding, packed attention and fused MLP), over the
-train phase's ``run_client`` (``fused_attention``) and over the mesh
+train phase's ``run_client`` (``fused_attention``), over the mesh
 phase's bf16 multi-client steps (the patch embedding and
-``fused_attention``), the counters zeroed just before each; the script fails unless each wrapper's row at the main
+``fused_attention``) and over the examples phase's two runs (all four),
+the counters zeroed just before each; the script fails unless each wrapper's row at the main
 paths' shapes in each round's dtype (``fused_attention``: bf16) is among
 them; and as the last line ``{"ok": true, "device": {...}}``. Any failure
 exits non-zero before that line; without a CUDA device the script exits non-zero at once.
@@ -1073,9 +1091,10 @@ def phase_train(counted) -> dict:
     demo_cfg.obs.exp_dir = os.path.join(out_dir, "exp")
     _, eff_err = exact_efficiency(demo_cfg.output_dir, 3)
     sv = [[all_rounds[d][1][c] for c in range(3)] for d in range(2)]
+    global_export = os.path.exists(os.path.join(out_dir, "global", "ViT_global.npz"))
     demo_ok = (eff_err <= 1e-4 and all(math.isfinite(x) for row in sv for x in row)
                and demo_launches["fused_attention"] == 3 * 4 * spec.depth
-               and all(n > 0 for n in demo_launches.values()))
+               and all(n > 0 for n in demo_launches.values()) and global_export)
 
     client_rows = [{k: v for k, v in r.items() if k not in ("cfg", "spec")} for r in runs]
     emit({
@@ -1085,7 +1104,8 @@ def phase_train(counted) -> dict:
         "float32_step": {"batch": 2, "loss_cpu": loss_cpu, "loss_gpu": loss_gpu,
                          "max_rel_grad_err": max(rel), "ok": step_ok},
         "demo": {"shapley_value": {"accuracy": sv[0], "loss": sv[1]}, "efficiency_err": eff_err,
-                 "wall_s": demo_wall, "launches": demo_launches, "ok": demo_ok},
+                 "wall_s": demo_wall, "launches": demo_launches,
+                 "global_export": global_export, "ok": demo_ok},
     })
     if not (client_ok and step_ok and demo_ok):
         raise SystemExit("LoRA training on the card failed its checks")
@@ -2684,6 +2704,365 @@ def phase_zoo(device="cuda", work=None, per_batch: int = 10_000, cent_epochs: in
     return out
 
 
+def _is_png(path: str) -> bool:
+    if not os.path.exists(path):
+        return False
+    with open(path, "rb") as f:
+        return f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+EXAMPLES_EPOCHS = 3              # the service demo's epochs and local steps (JAX's defaults)
+EXAMPLES_LOCAL_STEPS = 4
+
+
+def phase_examples(counted, device="cuda", variant: str = "base", val_size: int = 128,
+                   batch: int = 32, demo_cfg=None) -> dict:
+    """The port's examples as a user runs them, the counters zeroed just
+    before each and read just after.
+
+    1. The quickstart (``examples.quickstart``): ViT-B/16 at 224 px, float32
+       (``make_spec``'s default), 128 validation images in batches of 32,
+       three clients' seeded LoRA deltas: 7 distinct coalition evaluations,
+       none more from comp-contrib, the exact SVs summing to v(N) - v(∅)
+       within 1e-6; its launches by kernel and route.
+    2. The service demo (``examples.serve_demo.run_demo``): ViT-B/16 at 224
+       px (``synthetic_scale`` 1.0: the 400 synthetic OCT validation
+       images), 3 clients on a thread of their own training 4 Adam steps an
+       epoch on ``TRAIN_SPEC`` while ``serve()`` scores each epoch on the
+       caller's thread, 3 epochs: records for epochs 0-2, SV trajectories
+       and utilities that move, the three global exports, the trajectory
+       PNG, every checkpoint's ``num_local_data_train`` > 0, and launches of
+       the service's patch, packed attention and MLP kernels and of the
+       trainer's ``[B, H, N, d]`` attention. Per-round ``arrival_to_sv_s``.
+
+    ``device``, the variant, the sizes and ``demo_cfg`` exist to rehearse
+    the phase on the CPU, where nothing is launched. Returns the launches
+    by kernel of both runs, summed."""
+    import torch
+
+    from shapley_vit_tpu_torch.examples import quickstart, serve_demo
+    from shapley_vit_tpu_torch.fl import ingestion
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    spec, base, lora0, deltas, images, labels = quickstart.synthetic_inputs(variant, val_size,
+                                                                            device)
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    qs = quickstart.run_quickstart(spec, base, lora0, deltas, images, labels, batch=batch,
+                                   log=lambda s: None)
+    sync()
+    qs_s = time.perf_counter() - t0
+    qs_by = counts_by_kernel(counted)
+    qs_launches = {fn.__name__: fn.launches for fn in counted}
+    eff = [abs(sum(qs["exact"][d].values()) - qs["grand_coalition"][d]) for d in range(2)]
+    qs_ok = (qs["exact_evaluations"] == 7 and qs["evaluations"] == 7 and max(eff) <= 1e-6
+             and all(math.isfinite(v) for d in range(2) for v in qs["exact"][d].values()))
+    if on_card:
+        qs_ok = qs_ok and all(qs_launches[n] > 0 for n in
+                              ("patch_embed", "fused_attention_packed", "fused_mlp_block"))
+    del base, lora0, deltas, images, labels
+
+    cfg = demo_cfg
+    if cfg is None:
+        work = os.path.join(ROOT, "exp", "chip_smoke_examples")
+        shutil.rmtree(work, ignore_errors=True)
+        cfg = serve_demo.demo_config("base", 224, 1.0, out_dir=work)
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    epochs = EXAMPLES_EPOCHS
+    records, out = serve_demo.run_demo(cfg, epochs=epochs, n_clients=3,
+                                       local_steps=EXAMPLES_LOCAL_STEPS, device=device)
+    sync()
+    demo_s = time.perf_counter() - t0
+    demo_by = counts_by_kernel(counted)
+    demo_launches = {fn.__name__: fn.launches for fn in counted}
+    svs = [[[r["shapley"][d][c] for c in range(3)] for d in range(2)] for r in records]
+    utilities = [list(r["utility"]) for r in records]
+    png_ok = _is_png(os.path.join(out, "sv_trajectory.png"))
+    globals_ok = all(os.path.exists(os.path.join(cfg.paths.global_model_path,
+                                                 f"ViT_global_epoch_{e}.npz"))
+                     for e in range(epochs))
+    n_train = [int(ingestion.load_checkpoint_metadata(os.path.join(
+        cfg.paths.local_model_path, f"client_{c + 1}_model", f"ViT_epoch_{e}.npz"
+    ))["num_local_data_train"]) for e in range(epochs) for c in range(3)]
+    demo_ok = ([r["epoch"] for r in records] == list(range(epochs))
+               and all(math.isfinite(v) for s in svs for row in s for v in row)
+               and max(abs(a - b) for s0, s1 in zip(svs, svs[1:]) for r0, r1 in zip(s0, s1)
+                       for a, b in zip(r0, r1)) > 0
+               and any(u != utilities[0] for u in utilities[1:])
+               and globals_ok and png_ok and min(n_train) > 0)
+    if on_card:
+        demo_ok = demo_ok and all(demo_launches[n] > 0 for n in (
+            "patch_embed", "fused_attention_packed", "fused_mlp_block", "fused_attention"))
+    emit({"phase": "examples",
+          "quickstart": {"variant": variant, "image": spec.image, "dtype": spec.dtype,
+                         "validation_images": val_size, "batch": batch, "seconds": qs_s,
+                         "initial_utility": qs["initial_utility"],
+                         "exact": {"accuracy": qs["exact"][0], "loss": qs["exact"][1]},
+                         "comp_contrib_accuracy": qs["comp_contrib"][0],
+                         "evaluations": [qs["exact_evaluations"], qs["evaluations"]],
+                         "efficiency_err": eff, "launches": qs_launches,
+                         "launches_by_kernel": qs_by, "ok": qs_ok},
+          "serve_demo": {"variant": cfg.model.vit_variant, "image": cfg.data.image_size,
+                         "dtype": cfg.model.compute_dtype, "clients": 3, "epochs": epochs,
+                         "local_steps": EXAMPLES_LOCAL_STEPS, "seconds": demo_s,
+                         "per_round": _serve_round_numbers(records),
+                         "shapley_value": [{"accuracy": s[0], "loss": s[1]} for s in svs],
+                         "utility": utilities, "global_exports": globals_ok,
+                         "trajectory_png": png_ok, "num_local_data_train": n_train,
+                         "launches": demo_launches, "launches_by_kernel": demo_by,
+                         "ok": demo_ok},
+          "seconds": qs_s + demo_s, "ok": qs_ok and demo_ok})
+    if not (qs_ok and demo_ok):
+        raise SystemExit("the examples phase failed its checks")
+    summed = {name: collections.Counter(qs_by[name]) + collections.Counter(demo_by[name])
+              for name in qs_by}
+    return {name: dict(c) for name, c in summed.items()}
+
+
+def _class_images(gen, classes: int, per_class: int, im: int):
+    """[classes, per_class, im, im, 3] float32 images of CIFAR-10's shapes
+    and scale (unit variance, as normalized images): half a class
+    prototype plus unit noise, from ``gen``."""
+    import torch
+
+    protos = torch.randn((classes, 1, im, im, 3), generator=gen)
+    return 0.5 * protos + torch.randn((classes, per_class, im, im, 3), generator=gen)
+
+
+CONDENSE_STRATEGY = "color_crop_cutout_flip_scale_rotate"
+CONDENSE_SEED = 0
+# the card's float32 synthetic-image gradient against float64 on the CPU,
+# relative in max norm; and the card's float64 one against the same
+CONDENSE_GRAD_BAR = 5e-3
+CONDENSE_GRAD_BAR_FLOAT64 = 1e-12
+
+
+def condense_run(device, model: str, real, syn0, im: int, data_weights, src,
+                 dtype=None, epochs: bool = True) -> dict:
+    """One outer gradient-matching iteration over every class (DiffAugment
+    ``CONDENSE_STRATEGY`` in mode S, siamese, one seed for the real and the
+    synthetic batch of a class; ``match_loss`` 'ours'; backward into the
+    synthetic images), then (``epochs``) one ``run_epoch_data_weight`` over
+    the synthetic set (SGD 0.01, momentum 0.9, batch 64) and ``run_epoch``
+    ("eval") over the real images, from ``model``'s weights of seed 0, on
+    ``device``, in ``dtype`` (float32 by default). The draws come from CPU
+    generators, so every device sees the same ones."""
+    import numpy as np
+    import torch
+
+    from shapley_vit_tpu_torch.data import condensation as cond
+    from shapley_vit_tpu_torch.data.arrays import ArrayDataset
+    from shapley_vit_tpu_torch.fl import training as tr
+    from shapley_vit_tpu_torch.models import zoo
+
+    dtype = dtype or torch.float32
+    on_card = torch.device(device).type == "cuda"
+    classes, ipc = syn0.shape[0], syn0.shape[1]
+    _, variables, apply_fn = zoo.get_network(model, 3, classes, (im, im), seed=0, device=device)
+    variables = {k: v.to(dtype) for k, v in variables.items()}
+    tv = cond.trainable_variables(variables)
+    real = real.to(device, dtype)
+    syn = syn0.clone().to(device, dtype).requires_grad_(True)
+    param = cond.ParamDiffAug()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for c in range(classes):
+        img_real = cond.diff_augment(real[c], CONDENSE_STRATEGY,
+                                     torch.Generator().manual_seed(CONDENSE_SEED * 1000 + c),
+                                     param, True)
+        img_syn = cond.diff_augment(syn[c], CONDENSE_STRATEGY,
+                                    torch.Generator().manual_seed(CONDENSE_SEED * 1000 + c),
+                                    param, True)
+        loss = cond.gradient_match(
+            apply_fn, tv, (img_real, torch.full((real.shape[1],), c, device=device)),
+            (img_syn, torch.full((ipc,), c, device=device)), "ours")
+        loss.backward()  # the classes' losses sum: their gradients accumulate
+        losses.append(float(loss.detach()))
+    if on_card:
+        torch.cuda.synchronize()
+    match_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    out = {"match_losses": losses, "syn_grad": syn.grad.detach().cpu(), "match_s": match_s,
+           "peak_gb": peak_gb}
+    if not epochs:
+        return out
+
+    labels = np.repeat(np.arange(classes), ipc)
+    syn_ds = cond.SynDataset(syn.detach().reshape(-1, im, im, 3).cpu().numpy(), labels, src)
+    tv = cond.trainable_variables(variables)
+    opt = tr.sgd(0.01, 0.9)
+    t0 = time.perf_counter()
+    dw_loss, dw_acc, tv, _ = cond.run_epoch_data_weight(
+        syn_ds, apply_fn, tv, opt.init(cond.parameters(tv)), data_weights)
+    real_ds = ArrayDataset(real.reshape(-1, im, im, 3).cpu().numpy(),
+                           np.repeat(np.arange(classes), real.shape[1]))
+    ev_loss, ev_acc, _, _ = cond.run_epoch("eval", real_ds, apply_fn, tv, batch_size=256)
+    if on_card:
+        torch.cuda.synchronize()
+    return {**out, "epoch_s": time.perf_counter() - t0,
+            "data_weight_epoch": [dw_loss, dw_acc], "eval_epoch": [ev_loss, ev_acc]}
+
+
+def _tf32_linear_cka(X, Y):
+    """Linear CKA with plain products, at whatever TF32 setting is on: what
+    ``utils.representation``'s guard prevents."""
+    import torch
+
+    n = X.shape[0]
+    H = torch.eye(n, device=X.device) - torch.ones((n, n), device=X.device) / n
+
+    def hsic(A, B):
+        return torch.sum((H @ (A @ A.T) @ H) * (H @ (B @ B.T) @ H))
+
+    return hsic(X, Y) / (torch.sqrt(hsic(X, X)) * torch.sqrt(hsic(Y, Y)))
+
+
+def phase_condense(device="cuda", model: str = "ConvNet", im: int = 32, n_real: int = 256,
+                   ipc: int = 10, n_rep: int = 1024) -> dict:
+    """Data condensation and the representation metrics on the card (cuDNN
+    convolutions and cuBLAS products; no hand kernel in JAX, none here).
+
+    ConvNet-3 at width 128 (relu, instancenorm, avgpooling) on CIFAR-10's
+    shapes: 10 classes of 32x32x3, 256 real images a class and 10 synthetic
+    ones (ipc 10), both drawn from a seed. ``condense_run`` on the card and
+    again on the CPU from the same inputs (cuDNN's and matmul's TF32 off):
+    float32 match losses within 1e-3 relative and the epochs' losses
+    within 1e-4 relative. The iteration runs again in float64 on both: the
+    card's float32 synthetic-image gradient is held within
+    ``CONDENSE_GRAD_BAR`` of the CPU's float64 one (relative in max norm),
+    the card's float64 one within ``CONDENSE_GRAD_BAR_FLOAT64``; on the card
+    a control, the float32 iteration with cuDNN's TF32 on, must read above
+    ``CONDENSE_GRAD_BAR``. The CPU's float32 distance from float64 and the
+    card's from the CPU's float32 are reported. Then linear CKA, kernel CKA
+    (automatic sigma), the sliced Wasserstein distance (50 given projections) and the IRM loss of the
+    ``embed`` features (2,048-d) and softmaxes of 1,024 real images under
+    ConvNets of seeds 0 and 1, computed with ``torch.backends.cuda.matmul.
+    allow_tf32`` turned ON outside: each within 1e-6 relative of float64 on
+    the CPU, and the same linear CKA with TF32 products beside it; the
+    flags are restored after.
+
+    ``device``, the model and the sizes exist to rehearse the phase on the
+    CPU (where the "card" run is a second CPU run)."""
+    import numpy as np
+    import torch
+
+    from shapley_vit_tpu_torch.models import zoo
+    from shapley_vit_tpu_torch.utils import representation as rep
+
+    classes = 10
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator().manual_seed(CONDENSE_SEED)
+    real = _class_images(gen, classes, n_real, im)
+    syn0 = torch.randn((classes, ipc, im, im, 3), generator=gen)
+    rng = np.random.default_rng(CONDENSE_SEED)
+    data_weights = rng.random((classes, 3)).astype(np.float32)
+    src = rng.integers(0, 3, classes * ipc)
+    inputs = (model, real, syn0, im, data_weights, src)
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = condense_run(device, *inputs)
+        host = condense_run("cpu", *inputs)
+        card64, host64 = (condense_run(dev, *inputs, torch.float64, epochs=False)
+                          for dev in (device, "cpu"))
+        control = None
+        if on_card:
+            torch.backends.cudnn.allow_tf32 = True
+            control = condense_run(device, *inputs, epochs=False)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def grad_rel(a, b):
+        """Max-norm relative distance of gradient ``a`` from ``b``."""
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    match_rel = max(rel(a, b) for a, b in zip(card["match_losses"], host["match_losses"]))
+    grad_rel_f32 = grad_rel(card["syn_grad"], host["syn_grad"])
+    grad_rel_f64 = grad_rel(card64["syn_grad"], host64["syn_grad"])
+    card_vs_f64 = grad_rel(card["syn_grad"], host64["syn_grad"])
+    cpu_vs_f64 = grad_rel(host["syn_grad"], host64["syn_grad"])
+    control_vs_f64 = grad_rel(control["syn_grad"], host64["syn_grad"]) if on_card else None
+    per_class = [grad_rel(card["syn_grad"][c], host64["syn_grad"][c]) for c in range(10)]
+    epoch_rel = max(rel(card[k][0], host[k][0]) for k in ("data_weight_epoch", "eval_epoch"))
+    condense_ok = (match_rel <= 1e-3 and epoch_rel <= 1e-4
+                   and card_vs_f64 <= CONDENSE_GRAD_BAR
+                   and grad_rel_f64 <= CONDENSE_GRAD_BAR_FLOAT64
+                   and (not on_card or control_vs_f64 > CONDENSE_GRAD_BAR)
+                   and all(math.isfinite(v) for v in card["match_losses"])
+                   and float(card["syn_grad"].abs().max()) > 0)
+
+    # representation metrics on two networks' features
+    x = real.reshape(-1, im, im, 3)[torch.randperm(classes * n_real, generator=gen)[:n_rep]]
+    feats, probs = [], []
+    with torch.no_grad():
+        for s in (0, 1):
+            net, variables, apply_fn = zoo.get_network(model, 3, classes, (im, im), seed=s,
+                                                       device=device)
+            xd = x.to(device)
+            feats.append(zoo.model_head(net)(variables, xd))
+            probs.append(torch.softmax(apply_fn(variables, xd), -1))
+    proj = rep.rand_projections(torch.Generator().manual_seed(CONDENSE_SEED + 7),
+                                feats[0].shape[1], 50)
+
+    def metrics(X, Y, P0, P1, projections):
+        return {"linear_cka": rep.linear_cka(X, Y), "kernel_cka": rep.kernel_cka(X, Y),
+                "swd": rep.sliced_wasserstein_distance(X, Y, projections=projections),
+                "irm": rep.get_irm_loss(P0, P1)}
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = {k: float(v) for k, v in metrics(*feats, *probs, proj).items()}
+        guard_restored = torch.backends.cuda.matmul.allow_tf32 is True
+        tf32_cka = float(_tf32_linear_cka(*feats))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    want = {k: float(v) for k, v in metrics(*(t.cpu().double() for t in feats + probs),
+                                             proj.double()).items()}
+    errs = {k: rel(got[k], want[k]) for k in got}
+    rep_ok = guard_restored and all(math.isfinite(v) for v in got.values()) \
+        and max(errs.values()) <= 1e-6
+    out = {"phase": "condense", "model": model, "image": im, "classes": classes,
+           "real_per_class": n_real, "ipc": ipc, "strategy": CONDENSE_STRATEGY,
+           "match_losses": card["match_losses"], "match_s": card["match_s"],
+           "cpu_match_s": host["match_s"], "peak_gb": card["peak_gb"],
+           "epoch_s": card["epoch_s"], "cpu_epoch_s": host["epoch_s"],
+           "data_weight_epoch": card["data_weight_epoch"], "eval_epoch": card["eval_epoch"],
+           "float64_match_s": card64["match_s"], "cpu_float64_match_s": host64["match_s"],
+           "vs_cpu": {"match_loss_rel": match_rel, "epoch_loss_rel": epoch_rel,
+                      "syn_grad_rel_float64": grad_rel_f64, "syn_grad_rel": grad_rel_f32,
+                      "syn_grad_vs_float64": {"card_float32": card_vs_f64,
+                                              "cpu_float32": cpu_vs_f64,
+                                              "card_float32_cudnn_tf32": control_vs_f64,
+                                              "card_float32_by_class": per_class,
+                                              "bar": CONDENSE_GRAD_BAR,
+                                              "bar_float64": CONDENSE_GRAD_BAR_FLOAT64},
+                      "ok": condense_ok},
+           "representation": {"images": n_rep, "features": int(feats[0].shape[1]),
+                              "values": got, "float64": want, "rel_err": errs,
+                              "tf32_linear_cka": tf32_cka,
+                              "tf32_linear_cka_rel_err": rel(tf32_cka, want["linear_cka"]),
+                              "guard_restored": guard_restored, "ok": rep_ok},
+           "ok": condense_ok and rep_ok}
+    emit(out)
+    if not out["ok"]:
+        raise SystemExit("the condense phase failed its checks")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2731,14 +3110,18 @@ def main() -> int:
                                "float32": (f32_round, f32_round_s)})
     mesh_train_by = phase_mesh_train((patch_embed, fused_attention))
     phase_zoo()
+    examples_by = phase_examples(counted)
+    phase_condense()
 
     # the main paths' launches of each wrapper by kernel: the two rounds'
     # (patch embedding, packed attention, fused MLP), the train phase's
     # run_client's (fused_attention), the mesh phase's bf16 multi-client
-    # steps (patch embedding, fused_attention)
+    # steps (patch embedding, fused_attention), the examples' (the
+    # quickstart's float32 round; the service demo's bf16 rounds and its
+    # clients' training)
     on_path = {fn.__name__: collections.Counter() for fn in counted}
     for by in (bf16_by, f32_by, {"fused_attention": train_by["fused_attention"]},
-               mesh_train_by):
+               mesh_train_by, examples_by):
         for name, counts in by.items():
             on_path[name].update(counts)
     rows, off_path = [], []

@@ -10,12 +10,13 @@ or an external FL trainer:
      that have a gradient);
   3. drop their checkpoints through the atomic-rename protocol with
      ``num_local_data_train`` metadata (the FedAvg ratios);
-  4. run ``driver.start.start()`` and return the per-client Shapley values.
+  4. run ``driver.start.start()``, which exports the new global overlay to
+     ``<out_dir>/global/ViT_global.npz``, and return the per-client Shapley
+     values.
 
-Unlike the JAX demo it exports no global overlay (``GLOBAL_MODEL_PATH`` is
-not ported yet). Runs on the card unless ``device="cpu"`` is passed, at
-its defaults (micro, 16 px) or any other variant; the CLI runs ViT-B/16 at
-224 px on the card.
+Runs on the card unless ``device="cpu"`` is passed, at its defaults
+(micro, 16 px) or any other variant; the CLI runs ViT-B/16 at 224 px on
+the card.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ def run_demo(
     cfg.obs.exp_dir = os.path.join(out_dir, "exp")
     cfg.paths.validation_dataset = ""  # synthetic OCT layout
     cfg.paths.local_model_path = os.path.join(out_dir, "local")
+    cfg.paths.global_model_path = os.path.join(out_dir, "global")
     cfg.shapley.num_clients = n_clients
 
     spec, base, init_lora = start_mod.build_model(cfg, device=device)

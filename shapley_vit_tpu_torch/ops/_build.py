@@ -13,6 +13,11 @@ source, every shared header (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged one is loaded as it is.
 Libraries go to ``shapley_vit_tpu_torch/build/``, which git ignores.
 
+Threads may launch kernels at once (a service scoring while a client
+trains): :func:`load` builds and loads each library once under a lock, and
+the wrappers count their launches through :func:`count`, under another.
+Each launch goes to the calling thread's current stream.
+
 Host code with a C interface (``csrc/svt_runtime.cpp``, the inotify
 watcher of ``fl/native.py``) is built the same way by :func:`build_host`,
 with ``g++``.
@@ -25,6 +30,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
@@ -44,6 +50,8 @@ NVCC_FLAGS = [
 SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -138,15 +146,29 @@ def load(name: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:
     ``argtypes`` declared for each function in ``functions`` and an int
     return (the ``cudaError_t`` of the launch)."""
     lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in functions.items():
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-        _loaded[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:  # a second thread's first call waits for this build and load
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in functions.items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _loaded[name] = lib
     return lib
+
+
+def count(wrapper, route: str, key: str) -> None:
+    """One launch of ``wrapper``'s kernel: its ``route`` attribute, its
+    total ``launches`` and its count by kernel ``launches_by[key]``, updated
+    together under a lock (threads may launch at once)."""
+    with _count_lock:
+        wrapper.route = route
+        wrapper.launches += 1
+        wrapper.launches_by[key] += 1
 
 
 def check(err: int, what: str) -> None:

@@ -128,9 +128,7 @@ _ENTRY = {"wgmma": "bf16", "wgmma_kl": "bf16_kl", "wgmma_wide": "bf16_wide", "tf
 def _count(wrapper, route: str, q: torch.Tensor, d: int, N: int) -> None:
     """One launch of ``wrapper``'s kernel on ``route`` at padded head dim
     ``d`` and sequence length ``N``."""
-    wrapper.route = route
-    wrapper.launches += 1
-    wrapper.launches_by[f"{route} {str(q.dtype).replace('torch.', '')} d{d} n{N}"] += 1
+    _build.count(wrapper, route, f"{route} {str(q.dtype).replace('torch.', '')} d{d} n{N}")
 
 
 def _launch(what: str, q, k, v, out, B: int, H: int, N: int, d: int, strides,

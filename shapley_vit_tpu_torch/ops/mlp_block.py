@@ -149,9 +149,7 @@ def fused_mlp_block(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
             err = lib.svt_mlp_block_tf32x3(*args, y.data_ptr(), h.data_ptr(), wt.data_ptr(),
                                            *tail, stream)
     _build.check(err, "fused_mlp_block")
-    fused_mlp_block.route = route
-    fused_mlp_block.launches += 1
-    fused_mlp_block.launches_by[f"{route} {str(x.dtype).replace('torch.', '')}"] += 1
+    _build.count(fused_mlp_block, route, f"{route} {str(x.dtype).replace('torch.', '')}")
     return out if Dp == D else out[:, :D].contiguous()
 
 

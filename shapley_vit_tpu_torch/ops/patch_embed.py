@@ -94,9 +94,7 @@ def _patch_embed_kernel(images: torch.Tensor, kernel: torch.Tensor, bias: torch.
             wt = torch.empty((2, D, kpad), dtype=torch.float32, device=images.device)
             err = lib.svt_patch_embed_tf32x3(*ptrs, wt.data_ptr(), B, H, W, C, patch, D, stream)
     _build.check(err, "patch_embed")
-    patch_embed.route = route
-    patch_embed.launches += 1
-    patch_embed.launches_by[f"{patch_embed.route} {str(images.dtype).replace('torch.', '')}"] += 1
+    _build.count(patch_embed, route, f"{route} {str(images.dtype).replace('torch.', '')}")
     return out
 
 

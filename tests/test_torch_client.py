@@ -44,8 +44,7 @@ def _cfg(cls, tmp, name):
     return cfg
 
 
-@pytest.fixture
-def float32_jax_weights(monkeypatch):
+def _float32_jax_weights(monkeypatch):
     """Both packages build their models in float32 from the JAX weights."""
     j_build, t_build = jstart.build_model, tstart.build_model
 
@@ -62,6 +61,23 @@ def float32_jax_weights(monkeypatch):
 
     monkeypatch.setattr(jstart, "build_model", jax_build)
     monkeypatch.setattr(tstart, "build_model", port_build)
+
+
+@pytest.fixture
+def float32_jax_weights(monkeypatch):
+    _float32_jax_weights(monkeypatch)
+
+
+@pytest.fixture(scope="module")
+def demo_runs(tmp_path_factory):
+    """Both packages' ``run_demo`` from the same float32 weights, once for
+    the tests that read them: (out root, JAX's result, the port's)."""
+    tmp = tmp_path_factory.mktemp("demo")
+    with pytest.MonkeyPatch.context() as mp:
+        _float32_jax_weights(mp)
+        want = jdemo.run_demo(out_dir=str(tmp / "jax"))
+        got = tdemo.run_demo(out_dir=str(tmp / "torch"), device="cpu")
+    return tmp, want, got
 
 
 def test_run_client_matches_jax(tmp_path, float32_jax_weights):
@@ -163,9 +179,8 @@ def test_latest_global_export(tmp_path):
     assert tclient.latest_global_export(str(tmp_path)).endswith("ViT_global_epoch_10.npz")
 
 
-def test_run_demo_matches_jax(tmp_path, float32_jax_weights):
-    rounds_j, sum_j, _ = jdemo.run_demo(out_dir=str(tmp_path / "jax"))
-    rounds_t, sum_t, _ = tdemo.run_demo(out_dir=str(tmp_path / "torch"), device="cpu")
+def test_run_demo_matches_jax(demo_runs):
+    _, (rounds_j, sum_j, _), (rounds_t, sum_t, _) = demo_runs
 
     def flat(rounds):
         return np.array([[r[c] for c in range(3)] for dim in rounds for r in dim])
@@ -175,3 +190,14 @@ def test_run_demo_matches_jax(tmp_path, float32_jax_weights):
     for d in range(2):
         np.testing.assert_allclose([sum_t[d][c] for c in range(3)],
                                    [sum_j[d][c] for c in range(3)], atol=1e-4, rtol=0)
+
+
+def test_run_demo_exports_the_global_overlay(demo_runs):
+    """The demo sets GLOBAL_MODEL_PATH to ``<out_dir>/global``, as JAX's
+    does: ``start()`` writes the post-round FedAvg overlay there."""
+    tmp, _, _ = demo_runs
+    want = np.load(tmp / "jax" / "global" / "ViT_global.npz")
+    got = np.load(tmp / "torch" / "global" / "ViT_global.npz")
+    assert sorted(got.files) == sorted(want.files) and want.files
+    for k in want.files:
+        np.testing.assert_allclose(got[k], want[k], atol=2e-4, rtol=0, err_msg=k)

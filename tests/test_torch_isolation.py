@@ -6,7 +6,9 @@ this process. There, ``jax`` (with ``jaxlib`` and ``flax``) and
 ``shapley_vit_tpu_torch`` plus ``chip_smoke`` is imported, each new module
 of the service, adversarial and mesh slices also on its own, and those of
 the training-mesh and centralised-baseline slice with sklearn and
-matplotlib blocked too. The native watcher
+matplotlib blocked too, and those of the last slice (the examples,
+condensation, the representation metrics; the last two with scipy
+blocked as well). The native watcher
 the port loads is its own build, never the JAX package's
 ``csrc/libsvt_runtime.so``.
 """
@@ -75,6 +77,28 @@ def test_service_module_imports_alone_without_jax(name):
     probe = ("import sys\n"
              "for n in ('jax', 'jaxlib', 'flax', 'shapley_vit_tpu', 'sklearn', 'matplotlib'):\n"
              "    sys.modules[n] = None\n"
+             f"import shapley_vit_tpu_torch.{name}\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+# the last slice's modules: the examples, condensation and the
+# representation metrics; the last two with scipy blocked too (condensation
+# imports it only inside ``augment``, as the JAX module does; the examples
+# reach the Shapley package, whose estimators use scipy)
+LAST_MODULES = [("examples", False), ("examples.quickstart", False),
+                ("examples.serve_demo", False), ("data.condensation", True),
+                ("utils.representation", True)]
+
+
+@pytest.mark.parametrize("name,no_scipy", LAST_MODULES)
+def test_last_slice_module_imports_alone_without_jax(name, no_scipy):
+    blocked = ("jax", "jaxlib", "flax", "shapley_vit_tpu", "sklearn", "matplotlib") \
+        + (("scipy",) if no_scipy else ())
+    probe = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = None\n"
              f"import shapley_vit_tpu_torch.{name}\n")
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
