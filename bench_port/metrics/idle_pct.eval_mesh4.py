@@ -1,0 +1,9 @@
+"""Share of the traced rounds' window in which no operation ran on a card,
+the mean of the four cards, from the profiler's trace alone. The profiler
+slows the host, so this reads above the unprofiled window's idle share."""
+
+from bench_port.lib import readers
+
+
+def read(rec):
+    return readers.idle(rec)
