@@ -54,7 +54,7 @@ from shapley_vit_tpu_torch.parallel.autoshape import (
 from shapley_vit_tpu_torch.parallel.coalition_eval import make_eval_backend
 from shapley_vit_tpu_torch.shapley import Game, run_configured_comp_contrib
 from shapley_vit_tpu_torch.utils.logging import CSVLogger, TensorBoardWriter, get_logger
-from shapley_vit_tpu_torch.utils.profiling import StepTimer, trace
+from shapley_vit_tpu_torch.utils.profiling import StepTimer, span, trace
 
 Tree = Any
 
@@ -172,15 +172,21 @@ def build_eval_backend(cfg: Config, spec, base, init_lora, device="cuda", log_fn
         device=device,
     )
 
+    base_device = tm.tree_leaves(base)[0].device
+
+    def fold(overlay, stacked_deltas, W):
+        with span("eval.fold", device=base_device):
+            return mat(overlay, stacked_deltas, W)
+
     def eval_coalitions(overlay, stacked_deltas, W, batches, dataset_size=None):
         C = int(np.shape(W)[0])
         if not chunk or C <= chunk:
             return backend.evaluate(
-                base, mat(overlay, stacked_deltas, W), batches, dataset_size=dataset_size
+                base, fold(overlay, stacked_deltas, W), batches, dataset_size=dataset_size
             )
         outs = [
             backend.evaluate(
-                base, mat(overlay, stacked_deltas, W[s : s + chunk]), batches,
+                base, fold(overlay, stacked_deltas, W[s : s + chunk]), batches,
                 dataset_size=dataset_size,
             )
             for s in range(0, C, chunk)

@@ -32,6 +32,7 @@ import torch
 
 from shapley_vit_tpu_torch.models.vit import ViTSpec
 from shapley_vit_tpu_torch.ops.tree_math import tree_map
+from shapley_vit_tpu_torch.utils.profiling import span
 
 Tree = Any
 
@@ -39,9 +40,10 @@ Tree = Any
 def tree_from_numpy(tree: Tree, device="cpu", dtype: Optional[torch.dtype] = None) -> Tree:
     """numpy (or array-like) leaves -> tensors on ``device`` (cast to
     ``dtype`` when given). The arrays are copied, never aliased."""
-    return tree_map(
-        lambda x: torch.tensor(np.array(x, copy=True), device=device, dtype=dtype), tree
-    )
+    with span("tree.to_device"):
+        return tree_map(
+            lambda x: torch.tensor(np.array(x, copy=True), device=device, dtype=dtype), tree
+        )
 
 
 def tree_to_numpy(tree: Tree) -> Tree:

@@ -21,6 +21,8 @@ from typing import Any, Callable, List, Sequence
 import numpy as np
 import torch
 
+from shapley_vit_tpu_torch.utils.profiling import span
+
 Tree = Any
 
 
@@ -50,6 +52,12 @@ def tree_leaves(tree: Tree) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
+
+
+def tree_nbytes(tree: Tree) -> int:
+    """Bytes of every leaf of ``tree`` (tensors or numpy arrays)."""
+    return int(sum(leaf.numel() * leaf.element_size() if isinstance(leaf, torch.Tensor)
+                   else np.asarray(leaf).nbytes for leaf in tree_leaves(tree)))
 
 
 def tree_structure_equal(a: Tree, b: Tree) -> bool:
@@ -129,7 +137,8 @@ def tree_stack(trees: Sequence[Tree]) -> Tree:
 def tree_stack_host(trees: Sequence[Tree]) -> Tree:
     """:func:`tree_stack` on the host, for numpy trees (ingested client
     deltas): stack once, upload the stacked tree once."""
-    return tree_map(lambda *leaves: np.stack([_host(l) for l in leaves], axis=0), *trees)
+    with span("tree.stack_host"):
+        return tree_map(lambda *leaves: np.stack([_host(l) for l in leaves], axis=0), *trees)
 
 
 def tree_unstack(tree: Tree) -> list:

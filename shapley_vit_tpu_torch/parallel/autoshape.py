@@ -30,7 +30,6 @@ first round):
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -144,21 +143,6 @@ def powerset_dominant_coalitions(num_clients: int, chunk: int) -> int:
     return min(full, chunk) if chunk else full
 
 
-def _leaf_bytes(tree) -> int:
-    import numpy as np
-    import torch
-
-    from shapley_vit_tpu_torch.ops.tree_math import tree_leaves
-
-    def nbytes(leaf) -> int:
-        if isinstance(leaf, torch.Tensor):
-            return leaf.numel() * leaf.element_size()
-        leaf = np.asarray(leaf)
-        return math.prod(leaf.shape) * leaf.dtype.itemsize
-
-    return int(sum(nbytes(l) for l in tree_leaves(tree)))
-
-
 def coalition_residency_bytes(
     varying_example, eval_mode: str = "overlay", spec=None
 ) -> Optional[int]:
@@ -172,7 +156,9 @@ def coalition_residency_bytes(
     term is accounted here so every caller sizes the fold identically."""
     if varying_example is None:
         return None
-    total = _leaf_bytes(varying_example)
+    from shapley_vit_tpu_torch.ops.tree_math import tree_nbytes
+
+    total = tree_nbytes(varying_example)
     if eval_mode == "merged":
         if spec is None:
             raise ValueError(

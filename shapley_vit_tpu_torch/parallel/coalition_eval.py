@@ -49,6 +49,7 @@ from shapley_vit_tpu_torch.parallel.mesh import (
     put_replicated,
     shard_batch,
 )
+from shapley_vit_tpu_torch.utils.profiling import span
 
 Tree = Any
 
@@ -166,41 +167,46 @@ def make_sharded_coalition_evaluator(
     def _replicated(shared: Tree) -> Dict:
         if _rep["obj"] is shared:
             return _rep["rep"]
-        rep = put_replicated(mesh, shared)
+        with span("eval.replicate"):
+            rep = put_replicated(mesh, shared)
         _rep["obj"], _rep["rep"] = shared, rep
         return rep
 
     def run_chunk(shared_d, params_chunk, prepped) -> Tuple[np.ndarray, np.ndarray]:
         cc = tree_leaves(params_chunk)[0].shape[0]
         target = -(-cc // n_c) * n_c  # round up to the axis multiple
-        if target != cc:
-            params_chunk = tree_map(
-                lambda leaf: torch.cat([leaf] + [leaf[:1]] * (target - cc)), params_chunk
-            )
-        params_d = put_coalition_stacked(mesh, params_chunk)
+        with span("eval.place"):
+            if target != cc:
+                params_chunk = tree_map(
+                    lambda leaf: torch.cat([leaf] + [leaf[:1]] * (target - cc)), params_chunk
+                )
+            params_d = put_coalition_stacked(mesh, params_chunk)
         sums: Dict = {}
         with torch.inference_mode():
             # batches outer, cells inner: every device has work queued
             # before the host waits on any of them
-            for images, labels, weights in prepped:
-                for cell in cells:
-                    c, l = masked_eval_step_metrics(
-                        forward_fn(shared_d[cell], params_d[cell], images[cell]),
-                        labels[cell], weights[cell],
-                    )
-                    if cell in sums:
-                        c, l = sums[cell][0] + c, sums[cell][1] + l
-                    sums[cell] = (c, l)
+            with span("eval.enqueue"):
+                for images, labels, weights in prepped:
+                    for cell in cells:
+                        c, l = masked_eval_step_metrics(
+                            forward_fn(shared_d[cell], params_d[cell], images[cell]),
+                            labels[cell], weights[cell],
+                        )
+                        if cell in sums:
+                            c, l = sums[cell][0] + c, sums[cell][1] + l
+                        sums[cell] = (c, l)
             # [metric, coalition shard, data shard, row]: this rank's
             # cells filled, the others' zero
             grid = np.zeros((2, n_c, n_d, target // n_c), np.float32)
-            for (ci, di), (c, l) in sums.items():
-                grid[0, ci, di] = c.cpu().numpy()
-                grid[1, ci, di] = l.cpu().numpy()
+            with span("eval.readback"):
+                for (ci, di), (c, l) in sums.items():
+                    grid[0, ci, di] = c.cpu().numpy()
+                    grid[1, ci, di] = l.cpu().numpy()
         if tdist.is_initialized() and mesh.world == pdist.world_size():
             # each cell belongs to one rank, so the sum of the zero-filled
             # grids is every cell's sums, exactly (on one rank: identity)
-            grid = pdist.all_reduce_host(grid, "sum")
+            with span("eval.all_reduce"):
+                grid = pdist.all_reduce_host(grid, "sum")
         total = grid.sum(axis=2, dtype=np.float32).reshape(2, target)
         return total[0, :cc], total[1, :cc]
 
@@ -210,6 +216,10 @@ def make_sharded_coalition_evaluator(
         batches,
         dataset_size: Optional[int] = None,
     ) -> np.ndarray:
+        with span("eval"):
+            return _evaluate(shared, stacked_varying, batches, dataset_size)
+
+    def _evaluate(shared, stacked_varying, batches, dataset_size):
         shared_d = _replicated(shared)
         C = tree_leaves(stacked_varying)[0].shape[0]
         if callable(batches):

@@ -32,7 +32,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from shapley_vit_tpu_torch.ops.tree_math import tree_leaves, tree_map
+from shapley_vit_tpu_torch.ops.tree_math import tree_leaves, tree_map, tree_nbytes
+from shapley_vit_tpu_torch.utils import profiling
 
 Tree = Any
 Cell = Tuple[int, int]
@@ -189,4 +190,11 @@ def put_replicated(mesh: Mesh, tree: Tree) -> Dict[Cell, Tree]:
 
 
 def put_coalition_stacked(mesh: Mesh, tree: Tree) -> Dict[Cell, Tree]:
-    return device_put(tree, shard_coalitions(mesh))
+    """``tree`` split over the coalition axis. While the program's spans
+    record, counts ``eval.place_bytes``: the bytes of each distinct piece
+    laid out, once per (piece, device), copied or already there."""
+    out = device_put(tree, shard_coalitions(mesh))
+    if profiling.recording():
+        pieces = {id(p): p for p in out.values()}
+        profiling.count("eval.place_bytes", sum(tree_nbytes(p) for p in pieces.values()))
+    return out

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from shapley_vit_tpu_torch.shapley.game import Game
+from shapley_vit_tpu_torch.utils.profiling import span
 
 
 # ---------------------------------------------------------------------------
@@ -964,26 +965,27 @@ def run_configured_comp_contrib(game: Game, shapley_cfg, rng, logger=None):
     entry. Returns ``(sv, se)``. ``max_m`` is bounded by
     ``samples_per_client · game.n · 10`` — ``game.n`` counts SELECTED
     clients, so partial-participation rounds don't over-budget."""
-    if getattr(shapley_cfg, "target_se", 0.0) > 0:
-        sv, se, m_used = shapley_comp_contrib_adaptive(
-            game,
-            shapley_cfg.target_se,
-            rng=rng,
-            stratify=shapley_cfg.cc_stratify,
-            max_m=shapley_cfg.samples_per_client * game.n * 10,
+    with span("estimator"):
+        if getattr(shapley_cfg, "target_se", 0.0) > 0:
+            sv, se, m_used = shapley_comp_contrib_adaptive(
+                game,
+                shapley_cfg.target_se,
+                rng=rng,
+                stratify=shapley_cfg.cc_stratify,
+                max_m=shapley_cfg.samples_per_client * game.n * 10,
+            )
+            se_view = [{k: round(v, 6) for k, v in d.items()} for d in se]
+            msg = (
+                f"adaptive budget: {m_used} samples to reach "
+                f"SE <= {shapley_cfg.target_se}; SE = {se_view}"
+            )
+            (logger.info if logger is not None else print)(msg)
+            return sv, se
+        return call_shapley_computation_method(
+            {}, game, logger, rng=rng, stratify=shapley_cfg.cc_stratify,
+            return_se=True,
+            samples_per_client=getattr(shapley_cfg, "samples_per_client", 50),
         )
-        se_view = [{k: round(v, 6) for k, v in d.items()} for d in se]
-        msg = (
-            f"adaptive budget: {m_used} samples to reach "
-            f"SE <= {shapley_cfg.target_se}; SE = {se_view}"
-        )
-        (logger.info if logger is not None else print)(msg)
-        return sv, se
-    return call_shapley_computation_method(
-        {}, game, logger, rng=rng, stratify=shapley_cfg.cc_stratify,
-        return_se=True,
-        samples_per_client=getattr(shapley_cfg, "samples_per_client", 50),
-    )
 
 
 # ---------------------------------------------------------------------------

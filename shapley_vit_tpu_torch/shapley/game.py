@@ -29,6 +29,8 @@ from typing import Any, Callable, Dict, FrozenSet, List, Optional, Sequence
 
 import numpy as np
 
+from shapley_vit_tpu_torch.utils.profiling import span
+
 PyTree = Any
 
 
@@ -112,7 +114,8 @@ class Game:
         if not todo:
             return
         W = np.stack([self._weight_row(members) for members in todo])
-        results = np.asarray(self.eval_coalitions_fn(W))  # [C, dim] absolute
+        with span("game.evaluate"):
+            results = np.asarray(self.eval_coalitions_fn(W))  # [C, dim] absolute
         assert results.shape == (len(todo), self.utility_dim)
         self.num_evaluations += len(todo)
         for members, row in zip(todo, results):
