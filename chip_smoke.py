@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``   — compiles the three kernel sources of ``shapley_vit_tpu_torch/csrc``
+1. ``build``   — compiles the four kernel sources of ``shapley_vit_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once; ``attention.cu`` holds four kernels).
 2. ``kernels`` — each of the four kernels at its main path's shapes, in
    bfloat16 and float32, against its plain PyTorch version on the same inputs
@@ -57,7 +57,11 @@ Phases, each printing one JSON line:
    576, 640 and 1024 (1 head), bf16 on ``wgmma_stream`` (Q and K streamed
    in 64-column panels of d); float32 past 128 on ``tf32x3_wide`` (Q and K
    streamed in 32-column panels of d), its ``bound_ms`` at the 3xTF32
-   rate.
+   rate. The LayerNorm kernel (the port's own, ``ops/layer_norm``: the
+   merged forward's LN before attention and its final LN) is held at the
+   round's tokens at widths 768 and 1,024 (``layer_norm``,
+   ``layer_norm_d1024``) on its ``vector`` route, beside ``F.layer_norm``;
+   its plain version is the torch ops the forward ran before it.
    ``fused_attention``'s and ``patch_embed``'s
    gradients (each an ``autograd.Function``) are held against autograd
    through the plain version on the same inputs, with the same tolerances
@@ -255,7 +259,7 @@ is not its wrapper's name), a ``kernels_off_path`` line (each with
 summary line, a row for each other row of the ``kernels`` phase, ``case``
 naming it,
 with ``launches`` that kernel's count by kernel over the bf16 and float32
-rounds (the patch embedding, packed attention and fused MLP), over the
+rounds (the patch embedding, packed attention, fused MLP and LayerNorm), over the
 train phase's ``run_client`` (``fused_attention``), over the mesh
 phase's bf16 multi-client steps (the patch embedding and
 ``fused_attention``) and over the examples phase's two runs (all four),
@@ -322,6 +326,8 @@ KERNELS = {
                         "shapley_vit_tpu/ops/mlp_block.py:39"),
     "fused_attention": ("shapley_vit_tpu_torch/csrc/attention.cu",
                         "shapley_vit_tpu/ops/attention.py:33"),
+    "layer_norm": ("shapley_vit_tpu_torch/csrc/layer_norm.cu",
+                   "none: the JAX package's LayerNorm is jnp ops under XLA"),
 }
 
 
@@ -455,6 +461,7 @@ def phase_kernels(card: str) -> dict:
 
     from shapley_vit_tpu_torch.models import vit as tvit
     from shapley_vit_tpu_torch.ops import attention as att
+    from shapley_vit_tpu_torch.ops import layer_norm as ln
     from shapley_vit_tpu_torch.ops import mlp_block as mlp
     from shapley_vit_tpu_torch.ops import patch_embed as pe
 
@@ -464,6 +471,7 @@ def phase_kernels(card: str) -> dict:
     # widths, head dims 640 and 1024), so that adding a case moves no other
     # case's inputs
     more = torch.Generator(device="cuda").manual_seed(1)
+    norm_gen = torch.Generator(device="cuda").manual_seed(2)  # the LayerNorm cases'
     B, H = IMAGES, HEADS
     summary = {}
     results = []
@@ -556,9 +564,11 @@ def phase_kernels(card: str) -> dict:
         )
         grads += kernel_grad_checks(dtype, tol, img, pw, pb, tqh, tkh, tvh)
         cases.update(long_attention_cases(gen, more, dtype, isz))
+        cases.update(layer_norm_cases(norm_gen, dtype, isz))
 
         wrappers = {"patch_embed": pe.patch_embed, "fused_attention_packed": att.fused_attention_packed,
-                    "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention}
+                    "fused_mlp_block": mlp.fused_mlp_block, "fused_attention": att.fused_attention,
+                    "layer_norm": ln.layer_norm}
         for key, c in cases.items():
             name = c.get("wrapper", key)
             shape = c.get("shape")
@@ -675,6 +685,40 @@ def long_attention_cases(gen, more, dtype, isz: int) -> dict:
                 common, wrapper="fused_attention",
                 kernel=lambda qh=qh, kh=kh, vh=vh: att.fused_attention(qh, kh, vh),
                 plain=lambda qh=qh, kh=kh, vh=vh: att.fused_attention_plain(qh, kh, vh))
+    return cases
+
+
+# LayerNorm at the round's tokens (7 coalitions x 128 images x 197) at the
+# ViT-B and ViT-L widths: the merged coalition forward's LN before
+# attention (``ops/layer_norm``), with float32 scale and bias as the base
+# tree holds them; bound by bytes (x read once, y written once). Its
+# yardstick is ``F.layer_norm`` with the scale and bias in x's dtype, which
+# the port never calls; the torch ops the forward ran before the kernel are
+# the plain version (``plain_ms``).
+LAYER_NORM_WIDTHS = {"layer_norm": D, "layer_norm_d1024": 1024}
+
+
+def layer_norm_cases(gen, dtype, isz: int) -> dict:
+    """``kernels`` cases of the LayerNorm kernel at ``LAYER_NORM_WIDTHS``,
+    both on its 16-byte vector route."""
+    import torch
+    import torch.nn.functional as F
+
+    from shapley_vit_tpu_torch.ops import layer_norm as ln
+
+    cases = {}
+    for key, width in LAYER_NORM_WIDTHS.items():
+        x = (torch.randn((M, width), generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        s = 1 + 0.1 * torch.randn((width,), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((width,), generator=gen, device="cuda")
+        cases[key] = dict(
+            wrapper="layer_norm", route="vector", shape=[M, width],
+            kernel=lambda x=x, s=s, b=b: ln.layer_norm(x, s, b, 1e-12),
+            plain=lambda x=x, s=s, b=b: ln.layer_norm_plain(x, s, b, 1e-12),
+            library=lambda x=x, s=s, b=b: F.layer_norm(x, (x.shape[-1],), s.to(x.dtype),
+                                                       b.to(x.dtype), 1e-12),
+            library_name="F.layer_norm (scale and bias in x's dtype)",
+            flops=0.0, bytes=2.0 * M * width * isz + 2 * width * 4, reps=10)
     return cases
 
 
@@ -3073,6 +3117,7 @@ def main() -> int:
 
     from shapley_vit_tpu_torch.ops import _build
     from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
+    from shapley_vit_tpu_torch.ops.layer_norm import layer_norm
     from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
     from shapley_vit_tpu_torch.ops.patch_embed import patch_embed
 
@@ -3088,12 +3133,16 @@ def main() -> int:
     summary = phase_kernels(card)
     phase_model()
     round_kernels = (patch_embed, fused_attention_packed, fused_mlp_block)
+    zero_counts((layer_norm,))
     bf16_by, bf16_round_s, bf16_round = phase_round(round_kernels, route="wgmma")
+    norm_by = [counts_by_kernel((layer_norm,))]  # the LayerNorm's launches in each round
     phase_profile(round_dir("bfloat16"), attention_kernel="attention_hopper_kernel",
                   patch_kernels=("patch_embed_hopper_kernel",))
     # the float32 round, the reference's numerics: the same kernels, all
     # three on the tensor cores in 3xTF32
+    zero_counts((layer_norm,))
     f32_by, f32_round_s, f32_round = phase_round(round_kernels, dtype="float32", route="tf32x3")
+    norm_by.append(counts_by_kernel((layer_norm,)))
     phase_profile(round_dir("float32"), dtype="float32", mlp_kernel="mlp_block_tf32x3_kernel",
                   attention_kernel="attention_tf32x3_kernel",
                   patch_kernels=("patch_embed_tf32x3_kernel", "patch_embed_split_kernel"))
@@ -3119,8 +3168,8 @@ def main() -> int:
     # steps (patch embedding, fused_attention), the examples' (the
     # quickstart's float32 round; the service demo's bf16 rounds and its
     # clients' training)
-    on_path = {fn.__name__: collections.Counter() for fn in counted}
-    for by in (bf16_by, f32_by, {"fused_attention": train_by["fused_attention"]},
+    on_path = {fn.__name__: collections.Counter() for fn in (*counted, layer_norm)}
+    for by in (bf16_by, f32_by, *norm_by, {"fused_attention": train_by["fused_attention"]},
                mesh_train_by, examples_by):
         for name, counts in by.items():
             on_path[name].update(counts)

@@ -12,9 +12,10 @@ Parameters are nested dicts of tensors with the JAX tree's key names, so
 weights move between the two packages as numpy (``models.convert``). The
 three kernels the JAX package wrote in Pallas for the TPU and that the
 Shapley round runs (patch embedding, packed attention, fused MLP block) are
-hand-written CUDA C++ for Hopper under ``csrc/``; each op wrapper launches
-its kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
-tensor.
+hand-written CUDA C++ for Hopper under ``csrc/``, and so is a fourth of the
+port's own, the LayerNorm the JAX package leaves to XLA's fusion; each op
+wrapper launches its kernel for a CUDA tensor and runs its plain PyTorch
+version for a CPU tensor.
 
 Layer map:
   config     — typed config tree (copy of shapley_vit_tpu.config)

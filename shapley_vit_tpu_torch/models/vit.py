@@ -23,7 +23,10 @@ What changed in the port:
   and runs ``fused_attention`` on ``[B, H, N, d]``, which has a gradient.
   ``mlp_impl``: ``"pallas"`` (the default here) runs the fused block
   ``fused_mlp_block``, forward only; ``"xla"`` runs the MLP half as torch
-  ops (the JAX default path, vit.py:353-362). LoRA training uses
+  ops (the JAX default path, vit.py:353-362); under ``"pallas"`` the LN
+  before attention and the final LN run the LayerNorm kernel
+  (``layer_norm``, forward only; the embedding expanded over C is
+  normalised once), under ``"xla"`` torch ops. LoRA training uses
   ``spec.replace(attention_impl="pallas", mlp_impl="xla")``; the forward-only
   kernels raise when autograd would need their gradient. The patch
   embedding runs ``patch_embed`` (except under int8 with ``"patch"`` in
@@ -62,6 +65,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
+from shapley_vit_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
 from shapley_vit_tpu_torch.ops.patch_embed import patch_embed, patchify
 from shapley_vit_tpu_torch.ops.quant import dynamic_int8_dense
@@ -245,13 +249,17 @@ def trainable_params(lora_tree: Tree) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer_norm(x, scale, bias, eps):
-    # f32 statistics regardless of compute dtype
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
+# LN with f32 statistics regardless of compute dtype, as torch ops (the
+# differentiable one; ``models/interpret`` imports it under this name)
+_layer_norm = layer_norm_plain
+
+
+def _norm(spec: ViTSpec):
+    """The LN before attention and the final LN: the kernel
+    (``ops/layer_norm``) where the block is forward only (``mlp_impl ==
+    "pallas"``, every eval path), the torch ops and their gradient
+    otherwise. The MLP half's LN2 is the fused block's or the torch ops'."""
+    return layer_norm if spec.mlp_impl == "pallas" else _layer_norm
 
 
 def _dense(x, kernel, bias, spec: Optional[ViTSpec] = None, name: str = ""):
@@ -325,7 +333,7 @@ def mlp_half_xla(x, blk_p, spec: ViTSpec):
 def _block(x, blk_p, lora_p, spec: ViTSpec, q_kernel=None, v_kernel=None):
     """Pre-LN transformer block (HF ViTLayer) over ``x [C, B, N, D]``."""
     eps = spec.layernorm_eps
-    y = _layer_norm(x, blk_p["ln1"]["scale"], blk_p["ln1"]["bias"], eps)
+    y = _norm(spec)(x, blk_p["ln1"]["scale"], blk_p["ln1"]["bias"], eps)
     x = x + _attention(y, blk_p["attn"], lora_p, spec, q_kernel, v_kernel)
     if spec.mlp_impl == "xla":
         return mlp_half_xla(x, blk_p, spec)
@@ -385,8 +393,9 @@ def _forward(base, images, spec: ViTSpec, C: int, lora_blocks=None, q_kernel=Non
             q_kernel[:, layer] if q_kernel is not None else None,
             v_kernel[:, layer] if v_kernel is not None else None,
         )
-    x = _layer_norm(x, base["final_ln"]["scale"], base["final_ln"]["bias"], spec.layernorm_eps)
-    cls_repr = x[:, :, 0]  # [C, B, D]
+    # the final LN on the CLS rows alone, the only ones the classifier reads
+    cls_repr = _norm(spec)(x[:, :, 0], base["final_ln"]["scale"], base["final_ln"]["bias"],
+                           spec.layernorm_eps)  # [C, B, D]
     head = head if head is not None else base["classifier"]
     return _dense(cls_repr, head["kernel"], head["bias"]).float()
 

@@ -1,6 +1,7 @@
 """Compute-path ops: dict-of-tensor tree algebra for FL aggregation, and the
-wrappers of the three hand-written Hopper kernels of the ViT hot path
-(``patch_embed``, ``attention``, ``mlp_block``; sources in ``../csrc``).
+wrappers of the hand-written Hopper kernels of the ViT hot path
+(``patch_embed``, ``attention``, ``mlp_block``, ``layer_norm``; sources in
+``../csrc``).
 
 f32 means f32: importing this package turns TF32 off for matrix products and
 for cuDNN. The JAX package contracts the coalition mixing and the LoRA fold

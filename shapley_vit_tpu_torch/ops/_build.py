@@ -40,7 +40,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-KERNELS = ("patch_embed", "attention", "mlp_block")
+KERNELS = ("patch_embed", "attention", "mlp_block", "layer_norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

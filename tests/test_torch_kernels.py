@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from shapley_vit_tpu_torch.ops import attention as att
+from shapley_vit_tpu_torch.ops import layer_norm as ln
 from shapley_vit_tpu_torch.ops import mlp_block as mlp
 from shapley_vit_tpu_torch.ops import patch_embed as pe
 
@@ -383,6 +384,134 @@ def test_mlp_bf16_at_the_round_shape():
     print(f"max_abs_err {(got.float() - want.float()).abs().max().item()} "
           f"share_differing {differing}")
     _close(got, want, torch.bfloat16)
+
+
+# LayerNorm: the ViTs' widths (768, 1024) and 36 and 202; rows past a
+# multiple of the kernel's 8 rows a block (1003, 517), and the round's
+# 176,512 at 768. Routes: 16-byte vectors where a row is whole vectors
+# (768 and 1024 in both dtypes, 36 in float32), the scalar loop otherwise
+# (36 in bf16, 202 in both).
+LN_SHAPES = [(1003, 768), (1003, 1024), (517, 36), (517, 202), (7 * 128 * 197, 768)]
+
+
+def _ln_route(D, dtype):
+    return "vector" if D * torch.finfo(dtype).bits // 8 % 16 == 0 else "scalar"
+
+
+def _ln_inputs(rng, M, D, dtype):
+    # float32 scale and bias, as the base tree holds them
+    return (_randn(rng, (M, D), 2.0, dtype) + 0.5, 1 + _randn(rng, (D,), 0.1),
+            _randn(rng, (D,), 0.1))
+
+
+def _ln_close(got, x, scale, bias):
+    """Against the plain version. float32: 1e-5 relative. bf16: every
+    value within one bf16 step of the plain version's, the step taken at
+    the largest of the two values and the terms they sum, (x - mean)·rstd·scale
+    and bias (where the terms cancel to near zero, the float32 roundings of
+    the statistics, a few 2^-24 of the terms, are many steps of the small
+    sum), and at most 0.1 % of values differing (the row's sums taken in
+    another order move the statistics by a float32 rounding)."""
+    want = ln.layer_norm_plain(x, scale, bias, 1e-12)
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        return
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    n = (xf - mean) * torch.rsqrt(((xf - mean) ** 2).mean(dim=-1, keepdim=True) + 1e-12)
+    g, w = got.float(), want.float()
+    largest = torch.stack([g.abs(), w.abs(), (n * scale).abs(), bias.abs().expand_as(n)]).amax(0)
+    _, e = torch.frexp(largest)
+    step = torch.ldexp(torch.ones_like(largest), e - 8)  # bf16: 8 significant bits
+    excess = (g - w).abs() - step
+    differing = (got != want).float().mean().item()
+    print(f"max_abs_err {(g - w).abs().max().item()} share_differing {differing}")
+    assert excess.max().item() <= 0, f"{(excess > 0).sum().item()} values past one step"
+    assert differing <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D", LN_SHAPES)
+def test_layer_norm_kernel_matches_plain(dtype, M, D):
+    x, scale, bias = _ln_inputs(np.random.default_rng(21), M, D, dtype)
+    route = _ln_route(D, dtype)
+    assert ln.layer_norm_route(x) == route
+    before = ln.layer_norm.launches_by[f"{route} {str(dtype)[6:]}"]
+    got = ln.layer_norm(x, scale, bias, 1e-12)
+    torch.cuda.synchronize()
+    assert ln.layer_norm.launches_by[f"{route} {str(dtype)[6:]}"] == before + 1
+    assert ln.layer_norm.route == route
+    assert got.dtype == dtype and got.shape == x.shape
+    _ln_close(got, x, scale, bias)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M,D", [(1003, 768), (517, 36), (517, 202)])
+def test_layer_norm_reads_nothing_past_its_rows(dtype, M, D):
+    """x's rows end where NaN columns begin (a row stride past D, a whole
+    16-byte vector wider) and its last row where NaN rows begin; the scale
+    and bias end where NaN begins: a kernel that read past D or past row M
+    would put NaN into its output."""
+    x, scale, bias = _ln_inputs(np.random.default_rng(22), M, D, dtype)
+    pad = 16 // (torch.finfo(dtype).bits // 8)
+    buf = torch.full((M + 9, D + pad), float("nan"), dtype=dtype, device="cuda")
+    buf[:M, :D] = x
+    xs = buf[:M, :D]
+    s_buf, b_buf = (torch.full((D + 64,), float("nan"), device="cuda") for _ in range(2))
+    s_buf[:D], b_buf[:D] = scale, bias
+    assert ln.layer_norm_route(xs) == _ln_route(D, dtype)
+    got = ln.layer_norm(xs, s_buf[:D], b_buf[:D], 1e-12)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _ln_close(got, x, scale, bias)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_layer_norm_of_the_expanded_embedding(dtype):
+    """The first block's input, the embedding [B, N, D] expanded over C
+    coalitions with stride 0: its B·N rows are normalised once and the
+    result expanded, equal to the LN of its contiguous copy; the final LN's
+    CLS rows, a strided view, equal the LN of their copy."""
+    x0, scale, bias = _ln_inputs(np.random.default_rng(23), 128 * 197, 768, dtype)
+    x0 = x0.view(128, 197, 768)
+    x = x0.unsqueeze(0).expand(7, *x0.shape)
+    before = ln.layer_norm.launches
+    got = ln.layer_norm(x, scale, bias, 1e-12)
+    assert ln.layer_norm.launches == before + 1
+    assert got.shape == x.shape and got.stride(0) == 0
+    assert torch.equal(got, ln.layer_norm(x.contiguous(), scale, bias, 1e-12))
+    full = x.contiguous()
+    cls = full[:, :, 0]
+    assert torch.equal(ln.layer_norm(cls, scale, bias, 1e-12),
+                       ln.layer_norm(cls.contiguous(), scale, bias, 1e-12))
+    torch.cuda.synchronize()
+
+
+def test_layer_norm_launches_in_the_forward():
+    """An eval forward launches the kernel depth + 1 times (each block's LN
+    before attention, the final LN); the training spec's forward none."""
+    from shapley_vit_tpu_torch.driver.client import TRAIN_SPEC
+    from shapley_vit_tpu_torch.models import vit as tvit
+
+    spec = tvit.make_spec("micro", dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    base = tvit.init_vit(gen, spec, device="cuda")
+    lora = tvit.init_lora(gen, spec, classifier_from=base, device="cuda")
+    images = torch.randn((4, spec.image, spec.image, 3), device="cuda")
+    stacked = tvit.tree_map(lambda a: a[None].expand(3, *a.shape).contiguous(), lora)
+    merged = tvit.merge_coalition_weights(base, stacked, spec)
+    before = dict(ln.layer_norm.launches_by)
+    with torch.no_grad():
+        tvit.vit_forward_merged(base, merged, images, spec)
+    torch.cuda.synchronize()
+    new = {k: n - before.get(k, 0) for k, n in ln.layer_norm.launches_by.items()
+           if n != before.get(k, 0)}
+    assert new == {"vector bfloat16": spec.depth + 1}
+    launches = ln.layer_norm.launches
+    with torch.no_grad():
+        tvit.vit_forward(base, lora, images, spec.replace(**TRAIN_SPEC))
+    torch.cuda.synchronize()
+    assert ln.layer_norm.launches == launches
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
