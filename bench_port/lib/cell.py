@@ -6,7 +6,8 @@ Everything that belongs to one configuration, traffic mix, metric or cell
 lives in a file of its own, found by name:
 
 * ``bench_port/configs/<config>.json``   the configuration as it is run
-  (widths, numerics, its plain reference under ``"reference"``);
+  (widths, numerics, its plain reference and model family under
+  ``"reference"``);
 * ``bench_port/mixes/<traffic>.json``    a traffic mix: its ``"kind"`` and
   the parameters that kind's runner reads;
 * ``bench_port/traffic/<kind>.py``       a traffic kind's runner, with
@@ -15,7 +16,10 @@ lives in a file of its own, found by name:
   ``read(rec) -> float | None``;
 * ``bench_port/limits/<cell>.json``      the limits of the cell's
   correctness check, each with the readings it was set from;
-* ``bench_port/references/<name>.py``    a plain reference.
+* ``bench_port/references/<name>.py``    a plain reference;
+* ``bench_port/families/<name>.py``      a model family: the program's spec,
+  the base weights, the counts of its work, its kernel wrappers and names,
+  found by the same ``"reference"`` name.
 
 A later change adds a cell, a configuration, a mix or a metric by adding
 such files and entries, without editing a file that is there.
@@ -94,6 +98,10 @@ def reference_module(name: str):
     return importlib.import_module(f"bench_port.references.{name}")
 
 
+def family_module(name: str):
+    return importlib.import_module(f"bench_port.families.{name}")
+
+
 def _listed(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
@@ -163,6 +171,9 @@ class Context:
 
     def reference(self):
         return reference_module(self.config["reference"])
+
+    def family(self):
+        return family_module(self.config["reference"])
 
 
 @dataclass

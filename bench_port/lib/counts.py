@@ -1,5 +1,8 @@
-"""The yardstick's arithmetic: published peaks, and the operations and bytes
-of the ViT's work computed from its shapes.
+"""The yardstick's arithmetic that every model family shares: published
+peaks, the least time of a piece of work, and the operations and bytes of
+one call of the port's hand kernels, computed from its shapes. A family's
+own counts (a whole evaluation call, a training step, which kernel calls a
+block makes) are in ``families/<reference>.py``.
 
 Peaks are NVIDIA's data sheet for one H100 SXM (dense, no sparsity). The
 fused MLP's and the packed attention's operations and bytes are those of the
@@ -34,61 +37,3 @@ def attention_packed_call(sequences: int, seq_len: int, hidden: int, itemsize: i
     flops = 4.0 * sequences * seq_len * seq_len * hidden
     nbytes = 4.0 * sequences * seq_len * hidden * itemsize
     return flops, nbytes
-
-
-def _dims(cfg: dict):
-    D = cfg["hidden_size"]
-    P = cfg["patch_size"]
-    NP = (cfg["image_size"] // P) ** 2
-    return dict(D=D, L=cfg["num_hidden_layers"], M=cfg["intermediate_size"], P=P, NP=NP, N=NP + 1,
-                C=cfg["num_channels"], K=cfg["num_labels"], r=cfg["lora_r"])
-
-
-def patch_flops(cfg: dict, images: int) -> float:
-    d = _dims(cfg)
-    return 2.0 * images * d["NP"] * d["P"] * d["P"] * d["C"] * d["D"]
-
-
-def encoder_flops_per_image(cfg: dict) -> float:
-    """Matrix-product operations of one image through the encoder blocks
-    with merged q/v (no LoRA products): q, k, v, out, QK^T, PV, fc1, fc2."""
-    d = _dims(cfg)
-    N, D, M = d["N"], d["D"], d["M"]
-    per_layer = 4 * 2.0 * N * D * D + 2 * 2.0 * N * N * D + 2 * 2.0 * N * D * M
-    return d["L"] * per_layer
-
-
-def head_flops_per_image(cfg: dict) -> float:
-    d = _dims(cfg)
-    return 2.0 * d["D"] * d["K"]
-
-
-def coalition_eval_flops(cfg: dict, images: int, coalitions: int) -> float:
-    """One evaluation call: the patch embedding once per image (it does not
-    depend on the coalition), the encoder and the classifier once per image
-    and coalition."""
-    return patch_flops(cfg, images) + coalitions * images * (
-        encoder_flops_per_image(cfg) + head_flops_per_image(cfg))
-
-
-def train_step_flops(cfg: dict, batch: int) -> float:
-    """One LoRA training step: the forward with the rank-r q and v paths,
-    the input-gradient backward of every product the loss reaches (none into
-    the images or the first block's input, which need no gradient), and the
-    weight gradients of the trainable leaves only (LoRA A and B, the
-    classifier)."""
-    d = _dims(cfg)
-    N, D, M, r, L, K = d["N"], d["D"], d["M"], d["r"], d["L"], d["K"]
-    dense = 4 * 2.0 * N * D * D + 2 * 2.0 * N * D * M
-    lora = 2 * (2.0 * N * D * r + 2.0 * N * r * D)
-    attn = 2 * 2.0 * N * N * D
-    forward = patch_flops(cfg, 1) + L * (dense + lora + attn) + 2.0 * D * K
-    # input gradients: each product's other operand times the output
-    # gradient; attention's backward is four N x N x D products
-    back_layer = dense + lora + 2 * attn
-    # block 0: no gradient into its LN1 output through q, k, v or the
-    # LoRA A products, and none into its k (nothing trainable feeds it)
-    skip0 = 3 * 2.0 * N * D * D + 2 * 2.0 * N * D * r + 2.0 * N * N * D
-    weight_grads = L * 2 * (2.0 * N * D * r + 2.0 * N * r * D) + 2.0 * D * K
-    backward = L * back_layer - skip0 + 2.0 * D * K + weight_grads
-    return batch * (forward + backward)

@@ -1,11 +1,16 @@
-"""Inputs made from the seed: the ViT's weights, the LoRA overlay, client
-deltas and images, drawn on the run's device by one ``torch.Generator`` in
-a few large calls, in float32 (the weights' type; the program casts to its
-compute dtype itself).
+"""Inputs made from the seed that every model family shares: the LoRA
+overlay on q and v with the classifier, client deltas and images, drawn on
+the run's device by one ``torch.Generator`` in a few large calls, in
+float32 (the weights' type; the program casts to its compute dtype itself).
+A family's base weights are its own (``families/<reference>.py``,
+``base``), drawn from the same generator first.
 
-The trees have the program's key names and layouts (encoder leaves stacked
-on a leading depth axis, kernels ``[in, out]``), so the same tensors go to
-the program and to the plain reference.
+Shapes come from the family's ``dims``: width ``D``, depth ``L``, classes
+``K``, LoRA rank ``r``, the classifier's input width ``head_in``, and for
+the images their side ``image``, patch ``P`` and channels ``C``. The trees
+have the program's key names and layouts (leaves stacked on a leading depth
+axis, kernels ``[in, out]``), so the same tensors go to the program and to
+the plain reference.
 """
 
 from __future__ import annotations
@@ -33,60 +38,15 @@ def _split(flat: torch.Tensor, shapes: Dict[str, tuple]) -> Dict[str, torch.Tens
     return out
 
 
-def dims(cfg: dict) -> dict:
-    P = cfg["patch_size"]
-    NP = (cfg["image_size"] // P) ** 2
-    return dict(D=cfg["hidden_size"], L=cfg["num_hidden_layers"], M=cfg["intermediate_size"], P=P,
-                N=NP + 1, C=cfg["num_channels"], K=cfg["num_labels"], r=cfg["lora_r"],
-                image=cfg["image_size"])
-
-
-def vit_base(cfg: dict, gen: torch.Generator, device) -> dict:
-    """The frozen base tree, in three draws: every matrix, every bias, every
-    LayerNorm parameter."""
-    d = dims(cfg)
-    D, L, M, P, C, K, N = d["D"], d["L"], d["M"], d["P"], d["C"], d["K"], d["N"]
-    mats = {"patch": (P * P * C, D), "cls": (1, 1, D), "pos": (1, N, D),
-            "q": (L, D, D), "k": (L, D, D), "v": (L, D, D), "out": (L, D, D),
-            "fc1": (L, D, M), "fc2": (L, M, D), "head": (D, K)}
-    biases = {"patch": (D,), "q": (L, D), "k": (L, D), "v": (L, D), "out": (L, D),
-              "fc1": (L, M), "fc2": (L, D), "head": (K,)}
-    norms = {"ln1s": (L, D), "ln1b": (L, D), "ln2s": (L, D), "ln2b": (L, D), "fs": (D,), "fb": (D,)}
-
-    def draw(shapes, std):
-        n = sum(int(np.prod(s)) for s in shapes.values())
-        flat = torch.randn(n, generator=gen, device=device).mul_(std).clamp_(-2 * std, 2 * std)
-        return _split(flat, shapes)
-
-    w = draw(mats, STD)
-    b = draw(biases, STD)
-    ln = draw(norms, 0.1)
-    for k in ("ln1s", "ln2s", "fs"):
-        ln[k] = ln[k] + 1.0
-
-    def dense(name):
-        return {"kernel": w[name], "bias": b[name]}
-
-    return {
-        "patch_embed": dense("patch"),
-        "cls_token": w["cls"],
-        "pos_embed": w["pos"],
-        "blocks": {
-            "ln1": {"scale": ln["ln1s"], "bias": ln["ln1b"]},
-            "attn": {n: dense(n) for n in ("q", "k", "v", "out")},
-            "ln2": {"scale": ln["ln2s"], "bias": ln["ln2b"]},
-            "mlp": {"fc1": dense("fc1"), "fc2": dense("fc2")},
-        },
-        "final_ln": {"scale": ln["fs"], "bias": ln["fb"]},
-        "classifier": dense("head"),
-    }
-
-
-def init_overlay(cfg: dict, base: dict, gen: torch.Generator, device) -> dict:
+def init_overlay(d: dict, base: dict, gen: torch.Generator, device) -> dict:
     """The trainable overlay at its start (peft's init): A uniform with
-    bound sqrt(1 / hidden), B zero, the classifier a copy of the base's."""
-    d = dims(cfg)
+    bound sqrt(1 / hidden), B zero, the classifier a copy of the base's,
+    which is ``[head_in, K]``."""
     D, L, r = d["D"], d["L"], d["r"]
+    head = tuple(base["classifier"]["kernel"].shape)
+    if head != (d["head_in"], d["K"]):
+        raise ValueError(f"the base's classifier is {head}, the family's dims say "
+                         f"{(d['head_in'], d['K'])}")
     bound = (1.0 / D) ** 0.5
     a = torch.empty(2 * L * D * r, device=device).uniform_(-bound, bound, generator=gen)
     a = a.view(2, L, D, r)
@@ -96,14 +56,13 @@ def init_overlay(cfg: dict, base: dict, gen: torch.Generator, device) -> dict:
                            "bias": base["classifier"]["bias"].clone()}}
 
 
-def client_deltas(cfg: dict, n: int, gen: torch.Generator, device, scale: dict) -> List[dict]:
+def client_deltas(d: dict, n: int, gen: torch.Generator, device, scale: dict) -> List[dict]:
     """``n`` client deltas of the overlay, as host numpy trees (what the
     server ingests): normal draws of std ``scale["A"]``, ``scale["B"]``,
     ``scale["classifier"]`` by leaf kind, in one draw."""
-    d = dims(cfg)
     D, L, r, K = d["D"], d["L"], d["r"], d["K"]
     shapes = {"qA": (n, L, D, r), "qB": (n, L, r, D), "vA": (n, L, D, r), "vB": (n, L, r, D),
-              "ck": (n, D, K), "cb": (n, K)}
+              "ck": (n, d["head_in"], K), "cb": (n, K)}
     std = {"qA": scale["A"], "vA": scale["A"], "qB": scale["B"], "vB": scale["B"],
            "ck": scale["classifier"], "cb": scale["classifier"]}
     total = sum(int(np.prod(s)) for s in shapes.values())
@@ -115,12 +74,11 @@ def client_deltas(cfg: dict, n: int, gen: torch.Generator, device, scale: dict) 
              "classifier": {"kernel": host["ck"][i], "bias": host["cb"][i]}} for i in range(n)]
 
 
-def images(cfg: dict, count: int, gen: torch.Generator, device, classes: int):
+def images(d: dict, count: int, gen: torch.Generator, device, classes: int):
     """``count`` images ``[count, H, W, C]`` in [0, 1] with balanced labels in
     a seeded order: a per-class pattern constant over each patch, plus
     per-pixel noise (a stand-in for OCT scans: the classes differ in
     structure, the images in detail)."""
-    d = dims(cfg)
     H, P, C = d["image"], d["P"], d["C"]
     g = H // P
     protos = torch.randn(classes, g, g, C, generator=gen, device=device)

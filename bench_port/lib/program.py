@@ -1,27 +1,15 @@
-"""What the benchmark takes from the program (``shapley_vit_tpu_torch``):
-its model spec and config built from a configuration file, and its launch
-counters. Imported only inside a run, never by the harness's frame."""
+"""What the benchmark takes from the program (``shapley_vit_tpu_torch``)
+whatever the model family: its kernel wrappers' launch counters, the cards'
+peak memory, a wait for the cards, and a quiet logger for its estimator. A
+family's spec and forward are in ``families/<reference>.py``. Imported only
+inside a run, never by the harness's frame."""
 
 from __future__ import annotations
 
+import importlib
 import logging
 from collections import Counter
-from typing import Dict
-
-
-def spec(config: dict, **overrides):
-    """The program's ``ViTSpec`` at the configuration's widths and numerics."""
-    from shapley_vit_tpu_torch.models import vit as tvit
-
-    kw = dict(hidden=config["hidden_size"], depth=config["num_hidden_layers"],
-              heads=config["num_attention_heads"], mlp_dim=config["intermediate_size"],
-              patch=config["patch_size"], image=config["image_size"],
-              channels=config["num_channels"], num_classes=config["num_labels"],
-              layernorm_eps=config["layer_norm_eps"], lora_r=config["lora_r"],
-              lora_alpha=float(config["lora_alpha"]), dtype=config["compute_dtype"],
-              gelu=config["gelu"])
-    kw.update(overrides)
-    return tvit.ViTSpec(**kw)
+from typing import Dict, Sequence, Tuple
 
 
 def quiet_logger() -> logging.Logger:
@@ -32,14 +20,15 @@ def quiet_logger() -> logging.Logger:
     return log
 
 
-def launch_counts() -> Dict[str, Counter]:
-    """A copy of each kernel wrapper's launches by kernel."""
-    from shapley_vit_tpu_torch.ops.attention import fused_attention, fused_attention_packed
-    from shapley_vit_tpu_torch.ops.mlp_block import fused_mlp_block
-    from shapley_vit_tpu_torch.ops.patch_embed import patch_embed
-
-    return {w.__name__: Counter(w.launches_by) for w in
-            (patch_embed, fused_attention_packed, fused_attention, fused_mlp_block)}
+def launch_counts(wrappers: Sequence[Tuple[str, str]]) -> Dict[str, Counter]:
+    """A copy of each kernel wrapper's launches by kernel, keyed by the
+    wrapper's name. ``wrappers``: the family's ``WRAPPERS``, each a
+    ``(module, attribute)`` of the program."""
+    out = {}
+    for module, attr in wrappers:
+        w = getattr(importlib.import_module(module), attr)
+        out[w.__name__] = Counter(w.launches_by)
+    return out
 
 
 def launches_between(before: Dict[str, Counter], after: Dict[str, Counter]) -> Dict[str, dict]:

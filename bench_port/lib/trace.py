@@ -3,10 +3,11 @@ work, reduced to device busy time, device time by kernel and by group, and
 the device's idle gaps labelled by what the host was doing.
 
 The grouping of kernel names is the one of ``chip_smoke.py``'s ``profile``
-phase: the port's kernels by family (a name containing ``patch_embed_``,
-``attention_`` or ``mlp_block_``), the matrix products outside them
-(``PRODUCT_KERNELS``: cuBLAS, cuBLASLt, CUTLASS) and everything else
-(elementwise work, reductions, copies).
+phase: the port's kernels by family (a name containing one of the model
+family's ``KERNEL_FAMILIES`` followed by ``_``; the ViT's are
+``patch_embed``, ``attention`` and ``mlp_block``), the matrix products
+outside them (``PRODUCT_KERNELS``: cuBLAS, cuBLASLt, CUTLASS) and
+everything else (elementwise work, reductions, copies).
 """
 
 from __future__ import annotations
@@ -14,17 +15,18 @@ from __future__ import annotations
 import bisect
 from collections import defaultdict
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 WINDOW = "bench.traced_window"
 HOST_PREFIX = "bench."
-FAMILIES = ("patch_embed", "attention", "mlp_block")
 PRODUCT_KERNELS = ("gemm", "nvjet", "cutlass", "sm90", "xmma")
-GROUPS = FAMILIES + ("matrix_products", "other")
+OUTSIDE = ("matrix_products", "other")
 
 
-def group_of(name: str) -> str:
-    for g in FAMILIES:
+def group_of(name: str, families: Sequence[str]) -> str:
+    """The group of a kernel named ``name``: the first of the model family's
+    kernel ``families`` it holds, else a matrix product, else ``other``."""
+    for g in families:
         if g + "_" in name:
             return g
     low = name.lower()
@@ -69,12 +71,14 @@ class TraceSummary:
 
 
 class TracedWindow:
-    """``with TracedWindow(devices) as tw: ...`` profiles the block; the
-    window opens and closes with every card idle. ``tw.summary()`` reduces
-    the trace."""
+    """``with TracedWindow(devices, families) as tw: ...`` profiles the
+    block; the window opens and closes with every card idle. ``tw.summary()``
+    reduces the trace, grouping kernels by the model family's kernel
+    ``families``."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, families: Sequence[str]):
         self.devices = list(devices)
+        self.families = tuple(families)
         self.prof = None
         self._rf = None
 
@@ -107,7 +111,7 @@ class TracedWindow:
 
     def summary(self) -> Optional[TraceSummary]:
         return summarize(self.prof.events(), [d.index or 0 for d in self.devices
-                                              if d.type == "cuda"])
+                                              if d.type == "cuda"], self.families)
 
 
 def _is_device(e) -> bool:
@@ -116,8 +120,9 @@ def _is_device(e) -> bool:
     return e.device_type == DeviceType.CUDA
 
 
-def summarize(events, device_indices: List[int]) -> Optional[TraceSummary]:
-    """Reduce a profiler's events. None when the window span is missing."""
+def summarize(events, device_indices: List[int], families: Sequence[str]) -> Optional[TraceSummary]:
+    """Reduce a profiler's events, kernels grouped by the model family's
+    kernel ``families``. None when the window span is missing."""
     win = [e for e in events if e.name == WINDOW and not _is_device(e)]
     if not win:
         return None
@@ -125,7 +130,7 @@ def summarize(events, device_indices: List[int]) -> Optional[TraceSummary]:
     host_labels = {e.name for e in events if e.name.startswith(HOST_PREFIX) and not _is_device(e)}
     per_dev: Dict[int, List[Tuple[float, float]]] = defaultdict(list)
     by_name: Dict[str, float] = defaultdict(float)
-    by_group: Dict[str, float] = {g: 0.0 for g in GROUPS}
+    by_group: Dict[str, float] = {g: 0.0 for g in tuple(families) + OUTSIDE}
     for e in events:
         # the GPU side of a host annotation spans kernels; it is not one
         if not _is_device(e) or e.name in host_labels:
@@ -135,7 +140,7 @@ def summarize(events, device_indices: List[int]) -> Optional[TraceSummary]:
             continue
         per_dev[int(e.device_index)].append((s, t))
         by_name[e.name] += (t - s) / 1e6
-        by_group[group_of(e.name)] += (t - s) / 1e6
+        by_group[group_of(e.name, families)] += (t - s) / 1e6
     window_s = (w1 - w0) / 1e6
     merged = {d: merge(per_dev.get(d, [])) for d in device_indices}
     busy = {d: sum(t - s for s, t in iv) / 1e6 for d, iv in merged.items()}

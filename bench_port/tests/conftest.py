@@ -1,7 +1,7 @@
-"""Shared pieces of the benchmark's CPU tests: a tiny ViT configuration and
-tiny mixes, and a way to run a cell's traffic kind in-process on the CPU
-(the harness's look for a card skipped; the command itself refuses a
-machine without one)."""
+"""Shared pieces of the benchmark's CPU tests: each configuration at its
+model family's tiny sizes (the family's ``TINY``), tiny mixes, and a way to
+run a cell's traffic kind in-process on the CPU (the harness's look for a
+card skipped; the command itself refuses a machine without one)."""
 
 import os
 import sys
@@ -23,8 +23,6 @@ _load_benchmark = cell.load_benchmark
 # would bring each back)
 LEFT_OUT = [{"name": "vitb16-train-b64", "config": "vit-b16", "traffic": "train-b64", "chips": 1}]
 
-TINY = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2, intermediate_size=64,
-            patch_size=4, image_size=16, validation_images=48)
 TINY_MIX = {"shapley_round": dict(eval_batch=16, trace_rounds=2, warmup_rounds=1),
             "client_train": dict(shard_images=48, batch=8, trace_steps=2, warmup_steps=1)}
 
@@ -39,13 +37,14 @@ def benchmark_with_left_out(root: str = ROOT) -> dict:
 def tiny_context(workload: str, seed: int = 2**31 + 11, trace: bool = False, overrides=None,
                  seconds: float = 0.3, limits=None, config=None):
     """The cell's context at the tiny size on CPU devices (one per card the
-    cell asks for)."""
+    cell asks for): the configuration updated with ``config``, by default
+    its family's ``TINY``."""
     import torch
 
     bench = benchmark_with_left_out()
     c = cell.by_name(bench["workloads"], workload, "workload")
     conf = cell.load_json(os.path.join(ROOT, cell.by_name(bench["configs"], c["config"], "config")["file"]))
-    conf.update(TINY if config is None else config)
+    conf.update(cell.family_module(conf["reference"]).TINY if config is None else config)
     mix = cell.load_json(os.path.join(BENCH, "mixes", f"{c['traffic']}.json"))
     mix.update(TINY_MIX[mix["kind"]])
     if limits is None:

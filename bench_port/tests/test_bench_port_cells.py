@@ -86,9 +86,10 @@ def test_same_seed_same_inputs():
     from bench_port.lib import inputs
 
     ctx = tiny_context(CELLS[0])
-    a = inputs.vit_base(ctx.config, inputs.generator(2**31 + 1, "cpu"), "cpu")
-    b = inputs.vit_base(ctx.config, inputs.generator(2**31 + 1, "cpu"), "cpu")
-    c = inputs.vit_base(ctx.config, inputs.generator(2**31 + 2, "cpu"), "cpu")
+    fam = ctx.family()
+    a = fam.base(ctx.config, inputs.generator(2**31 + 1, "cpu"), "cpu")
+    b = fam.base(ctx.config, inputs.generator(2**31 + 1, "cpu"), "cpu")
+    c = fam.base(ctx.config, inputs.generator(2**31 + 2, "cpu"), "cpu")
     assert (a["blocks"]["mlp"]["fc1"]["kernel"] == b["blocks"]["mlp"]["fc1"]["kernel"]).all()
     assert not (a["blocks"]["mlp"]["fc1"]["kernel"] == c["blocks"]["mlp"]["fc1"]["kernel"]).all()
 

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from bench_port.lib import inputs, program
+from bench_port.lib import inputs
 from bench_port.references import vit as ref
 from conftest import tiny_context
 
@@ -18,28 +18,28 @@ def _f32(ctx):
 
 def _inputs(ctx, n=3):
     dev = ctx.devices[0]
+    fam = ctx.family()
+    d = fam.dims(ctx.config)
     gen = inputs.generator(ctx.seed, dev)
-    base = inputs.vit_base(ctx.config, gen, dev)
-    init = inputs.init_overlay(ctx.config, base, gen, dev)
-    images, labels = inputs.images(ctx.config, ctx.config["validation_images"], gen, dev, 4)
-    deltas = inputs.client_deltas(ctx.config, n, gen, dev, ctx.mix.get(
+    base = fam.base(ctx.config, gen, dev)
+    init = inputs.init_overlay(d, base, gen, dev)
+    images, labels = inputs.images(d, ctx.config["validation_images"], gen, dev, 4)
+    deltas = inputs.client_deltas(d, n, gen, dev, ctx.mix.get(
         "delta_scale", {"A": 0.02, "B": 0.1, "classifier": 0.05}))
     return base, init, images, labels, deltas
 
 
 def test_forward_matches_program_float32():
-    from shapley_vit_tpu_torch.models import vit as tvit
-
     ctx = _f32(tiny_context("vitb16-n3"))
     base, init, images, labels, deltas = _inputs(ctx)
-    spec = program.spec(ctx.config)
+    forward = ctx.family().forward(ctx.family().spec(ctx.config))
     ov = ref.mix_overlay(init, deltas, np.array([0.2, 0.3, 0.5]), "cpu")
     folded = ref.fold(base, ov, ctx.config)
     head = {"kernel": ov["classifier.kernel"], "bias": ov["classifier.bias"]}
     want = ref.forward(base, images, ctx.config, q_kernel=folded["q"], v_kernel=folded["v"], head=head)
     tree = ref._nest(ov)
     with torch.no_grad():
-        got = tvit.vit_forward(base, tree, images, spec)
+        got = forward(base, tree, images)
     assert torch.allclose(got, want, atol=1e-5, rtol=1e-5), (got - want).abs().max()
 
 
@@ -56,7 +56,7 @@ def test_coalition_utilities_match_program_float32():
     cfg = Config()
     cfg.model.compute_dtype = "float32"
     cfg.data.eval_batch_size = 16
-    spec = program.spec(ctx.config)
+    spec = ctx.family().spec(ctx.config)
     backend, eval_coalitions, _ = drv.build_eval_backend(cfg, spec, base, init, device="cpu",
                                                          devices=[torch.device("cpu")])
     data = backend.device_batches(ArrayDataset(images=images.numpy(), labels=labels.numpy()), 16)
@@ -94,12 +94,11 @@ def test_comp_contrib_matches_program_estimator(n):
 def test_train_steps_match_program_float32():
     from shapley_vit_tpu_torch.driver.client import TRAIN_SPEC
     from shapley_vit_tpu_torch.fl import training as tr
-    from shapley_vit_tpu_torch.models import vit as tvit
 
     ctx = _f32(tiny_context("vitb16-train-b64"))
     base, init, images, labels, _ = _inputs(ctx)
-    spec = program.spec(ctx.config, **TRAIN_SPEC)
-    step = tr.make_train_step(lambda b, lo, x: tvit.vit_forward(b, lo, x, spec), 4)
+    fam = ctx.family()
+    step = tr.make_train_step(fam.forward(fam.spec(ctx.config, **TRAIN_SPEC)), 4)
     lora = tr.trainable(init)
     opt = tr.adam(5e-3)
     state = opt.init(lora)

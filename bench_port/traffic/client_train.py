@@ -3,8 +3,9 @@ back, through the program's training step.
 
 Set-up builds the step as ``driver/client.run_client`` does: the model spec
 with ``TRAIN_SPEC`` (the ``[B, H, N, d]`` attention kernel, the MLP as torch
-ops), ``fl/training.make_train_step`` on ``vit_forward`` with Adam, and the
-overlay and optimizer state. The client's shard is on the card; each
+ops), ``fl/training.make_train_step`` on the model family's forward
+(``vit_forward`` for the ViT) with Adam, and the overlay and optimizer
+state. The client's shard is on the card; each
 step's batch is rows drawn from the seed, as ``run_client`` draws them
 (distinct rows of the shard), all drawn at set-up and put on the card in
 one block of ``row_block`` steps, which the steps cycle through: a step
@@ -32,7 +33,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from bench_port.lib import counts, inputs, program
+from bench_port.lib import inputs, program
 from bench_port.lib.cell import Context, Outcome, log
 from bench_port.lib.trace import TracedWindow
 
@@ -51,10 +52,12 @@ def make_inputs(ctx: Context):
     step's rows distinct), all on the host."""
     conf, mix = ctx.config, ctx.mix
     dev = ctx.devices[0]
+    fam = ctx.family()
+    d = fam.dims(conf)
     gen = inputs.generator(ctx.seed, dev)
-    base = inputs.vit_base(conf, gen, dev)
-    init = inputs.init_overlay(conf, base, gen, dev)
-    images, labels = inputs.images(conf, int(mix["shard_images"]), gen, dev, conf["num_labels"])
+    base = fam.base(conf, gen, dev)
+    init = inputs.init_overlay(d, base, gen, dev)
+    images, labels = inputs.images(d, int(mix["shard_images"]), gen, dev, conf["num_labels"])
     n_local, batch = int(mix["shard_images"]), int(mix["batch"])
     rng = np.random.default_rng([int(ctx.seed) % (2**63), 1])
     perm = rng.permutation(n_local)
@@ -70,22 +73,19 @@ def run(ctx: Context) -> Outcome:
 
     from shapley_vit_tpu_torch.driver.client import TRAIN_SPEC
     from shapley_vit_tpu_torch.fl import training as tr
-    from shapley_vit_tpu_torch.models import vit as tvit
 
     conf, mix = ctx.config, ctx.mix
     dev = ctx.devices[0]
+    fam = ctx.family()
     t_build = time.perf_counter()
-    spec = program.spec(conf, remat=False, **TRAIN_SPEC)
+    spec = fam.spec(conf, remat=False, **TRAIN_SPEC)
     base, init, images, labels, block, check_rows = make_inputs(ctx)
     batch = int(mix["batch"])
     check_dev = torch.as_tensor(np.stack(check_rows), device=dev)
     block_dev = torch.as_tensor(block, device=dev)
 
-    def fwd(b, lo, x):
-        return tvit.vit_forward(b, lo, x, spec)
-
     opt = tr.adam(float(mix["learning_rate"]))
-    step = tr.make_train_step(fwd, spec.num_classes, label_flip_prob=0.0)
+    step = tr.make_train_step(fam.forward(spec), spec.num_classes, label_flip_prob=0.0)
     p0 = {k: leaf(init, k).detach().clone() for k in LEAVES}
     lora = tr.trainable(init)
     state = opt.init(lora)
@@ -146,11 +146,11 @@ def run(ctx: Context) -> Outcome:
     window_losses = torch.stack(losses).float().cpu().numpy()
     facts.update({"window_s": t1 - t0, "steps": len(losses),
                   "images_per_s": len(losses) * batch / (t1 - t0),
-                  "window_flops": len(losses) * counts.train_step_flops(conf, batch),
+                  "window_flops": len(losses) * fam.train_step_flops(conf, batch),
                   "last_loss": last})
     summary = None
     if ctx.trace:
-        with TracedWindow(ctx.devices) as tw:
+        with TracedWindow(ctx.devices, fam.KERNEL_FAMILIES) as tw:
             traced = [one_step(draw()) for _ in range(int(mix["trace_steps"]))]
             float(traced[-1])
         summary = tw.summary()

@@ -93,13 +93,15 @@ def build(ctx: Context) -> Setup:
     cfg.shapley.cc_stratify = mix["stratify"]
     cfg.shapley.persist_utility_table = False
     cfg.data.eval_batch_size = int(mix["eval_batch"])
-    spec = program.spec(conf)
+    fam = ctx.family()
+    spec = fam.spec(conf)
 
+    d = fam.dims(conf)
     gen = inputs.generator(ctx.seed, dev)
-    base = inputs.vit_base(conf, gen, dev)
-    init = inputs.init_overlay(conf, base, gen, dev)
-    images, labels = inputs.images(conf, int(conf["validation_images"]), gen, dev, conf["num_labels"])
-    pool = [inputs.client_deltas(conf, n, gen, dev, mix["delta_scale"])
+    base = fam.base(conf, gen, dev)
+    init = inputs.init_overlay(d, base, gen, dev)
+    images, labels = inputs.images(d, int(conf["validation_images"]), gen, dev, conf["num_labels"])
+    pool = [inputs.client_deltas(d, n, gen, dev, mix["delta_scale"])
             for _ in range(int(mix["delta_pool"]))]
     sizes = [float(s) for s in mix["client_sizes"]]
 
@@ -162,19 +164,20 @@ def batch_rows(s: Setup) -> List[int]:
 
 
 def traced_kernel_work(ctx: Context, s: Setup, rounds: List[Round]) -> dict:
-    """The fused MLP's and the packed attention's calls in ``rounds``, from
-    the shapes: per evaluation call, chunk, cell, batch and block; and
-    their operations, bytes and least times."""
+    """The calls in ``rounds`` of each hand kernel family that the model
+    family counts (``kernel_calls``), from the shapes: per evaluation call,
+    chunk, cell, batch and block; and their operations, bytes and least
+    times."""
     from shapley_vit_tpu_torch.parallel.mesh import COALITION_AXIS, DATA_AXIS
 
     conf = ctx.config
-    D, M, L = conf["hidden_size"], conf["intermediate_size"], conf["num_hidden_layers"]
-    N = (conf["image_size"] // conf["patch_size"]) ** 2 + 1
+    fam = ctx.family()
+    L = fam.dims(conf)["L"]
     isz = 2 if conf["compute_dtype"] == "bfloat16" else 4
     dtype = conf["compute_dtype"]
     n_c = s.backend.mesh.shape[COALITION_AXIS]
     n_d = s.backend.mesh.shape[DATA_AXIS]
-    work = {"mlp_block": [0, 0.0, 0.0, 0.0], "attention": [0, 0.0, 0.0, 0.0]}
+    work: Dict[str, list] = {}
     for r in rounds:
         for C in r.calls:
             pieces = ([min(s.chunk, C - i) for i in range(0, C, s.chunk)]
@@ -184,10 +187,8 @@ def traced_kernel_work(ctx: Context, s: Setup, rounds: List[Round]) -> dict:
                 for rows in batch_rows(s):
                     per_dev = rows // n_d
                     cells = n_c * n_d * L
-                    f, b = counts.mlp_block_call(per_cell * per_dev * N, D, M, isz)
-                    fa, ba = counts.attention_packed_call(per_cell * per_dev, N, D, isz)
-                    for key, (ff, bb) in (("mlp_block", (f, b)), ("attention", (fa, ba))):
-                        w = work[key]
+                    for key, (ff, bb) in fam.kernel_calls(conf, per_cell * per_dev, isz).items():
+                        w = work.setdefault(key, [0, 0.0, 0.0, 0.0])
                         w[0] += cells
                         w[1] += cells * ff
                         w[2] += cells * bb
@@ -214,9 +215,10 @@ def window_facts(ctx: Context, s: Setup, rounds: List[Round], t0: float, t1: flo
     durations = [r.end - r.start for r in rounds]
     flops = 0.0
     rows = batch_rows(s)
+    fam = ctx.family()
     for r in rounds:
         for C in r.calls:
-            flops += sum(counts.coalition_eval_flops(ctx.config, b, C) for b in rows)
+            flops += sum(fam.coalition_eval_flops(ctx.config, b, C) for b in rows)
     return {"window_s": t1 - t0, "rounds": len(rounds), "evaluations": evals,
             "images_per_s": evals * n_val / (t1 - t0),
             "round_p90_s": float(np.percentile(durations, 90)),
@@ -243,12 +245,13 @@ def run(ctx: Context) -> Outcome:
     traced: List[Round] = []
     summary = None
     if ctx.trace:
-        before = program.launch_counts()
-        with TracedWindow(ctx.devices) as tw:
+        fam = ctx.family()
+        before = program.launch_counts(fam.WRAPPERS)
+        with TracedWindow(ctx.devices, fam.KERNEL_FAMILIES) as tw:
             traced, _, _ = run_rounds(ctx, s, len(warm) + len(window), count=int(mix["trace_rounds"]))
         summary = tw.summary()
         facts["traced_rounds"] = len(traced)
-        facts["traced_launches"] = program.launches_between(before, program.launch_counts())
+        facts["traced_launches"] = program.launches_between(before, program.launch_counts(fam.WRAPPERS))
         facts["traced_work"] = traced_kernel_work(ctx, s, traced)
     memory = program.peak_memory(ctx.devices)
     rounds = warm + window + traced
